@@ -1,7 +1,8 @@
 """Conv layers and depth↔space reshapes on NHWC tensors.
 
 Counterpart of mobilesuperresolution_tpu/ops/layers.py. Parameters keep the
-JAX layouts (HWIO ``kernel``, ``bias``) so checkpoints load by key renaming;
+JAX layouts (HWIO ``kernel``, ``bias``; ``v``, ``g``, ``b`` of a
+weight-normed conv) so checkpoints load by key renaming;
 ``prepare(dtype)`` derives the compute-layout weights once after the
 parameters change (train/checkpoint.py calls it).
 """
@@ -38,6 +39,39 @@ def conv2d_nhwc(x, weight, bias=None, padding=0, groups=1):
     weight: OIHW (torch layout)."""
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, padding=padding, groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+class WNConv(nn.Module):
+    """Weight-normalized SAME conv (odd kernel), the JAX ``WNConv``: the
+    effective kernel is ``g * v / sqrt(sum(v², axes 0, 1, 2) + 1e-12)`` per
+    output channel, with ``v`` HWIO. ``g_init`` is kept for the checkpoint
+    bridge's random init (None: g = ||v||, the raw init)."""
+
+    def __init__(self, in_features, features, kernel_size=3, g_init=1.0):
+        super().__init__()
+        k = kernel_size
+        self.g_init = g_init
+        self.v = nn.Parameter(torch.zeros(k, k, in_features, features))
+        self.g = nn.Parameter(torch.zeros(features))
+        self.b = nn.Parameter(torch.zeros(features))
+        self.prepare()
+
+    def effective_kernel(self):
+        """The weight-normed HWIO kernel, float32."""
+        v = self.v.detach()
+        norm = torch.sqrt(torch.sum(v * v, dim=(0, 1, 2)) + 1e-12)
+        return (self.g.detach() / norm) * v
+
+    def prepare(self, dtype=None):
+        """Derive the effective HWIO ``kernel`` and the OIHW weight in
+        ``dtype`` (default: the last one used)."""
+        dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
+        self.kernel = self.effective_kernel().to(dtype)
+        self._w = self.kernel.permute(3, 2, 0, 1).contiguous()
+        self._b = self.b.detach().to(dtype)
+
+    def forward(self, x):
+        return conv2d_nhwc(x, self._w, self._b, padding=self.v.shape[0] // 2)
 
 
 class PlainConv(nn.Module):

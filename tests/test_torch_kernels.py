@@ -116,4 +116,4 @@ def test_wrappers_take_plain_path_only_on_cpu():
 def test_build_is_lazy():
     """Importing the kernel modules compiles and loads nothing."""
     assert _build._libs == {}
-    assert set(_build.SOURCES) == {"conv5x5", "fused_tail"}
+    assert set(_build.SOURCES) == {"conv5x5", "fused_tail", "fused_wdsr_block"}
