@@ -24,7 +24,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    weights through the bridge on 2 DIV2K-validation-sized images (1356x2040
    HR from synthetic_image, degraded to 678x1020 by imresize_np) in float32
    and bf16, with 16 B3 + 1 B4 launches per image checked, then the
-   steady-state ms per image and the peak device memory.
+   steady-state ms per image and the peak device memory;
+9. a tiny float32 NAS supernet (2 blocks, 8 units, x2) on the card against
+   the same model on the CPU: sr, the latency estimate and every
+   parameter's gradient of one search step;
+10. the NAS search through its entry point (cli/search.py) at the search
+   launcher's width (x2, 16 blocks, 32 units, batch 16, patch 48, float32)
+   on synthetic_isr, one epoch per phase: finite metrics at every step, a
+   parseable block_index.txt, a weights npz with every JAX key, B5 launched
+   48 times per training forward and per eval image; then the steady-state
+   ms per search step and per 678x1020 supernet eval forward, and the peak
+   device memory.
 
 Prints the kernel table as one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -61,6 +71,10 @@ SR_HR = (1356, 2040)
 SR_IMAGES = 2
 B3_PER_IMAGE, B4_PER_IMAGE = SR_BLOCKS, 1
 SHIPPED_PSNR = {"wdsr_b_x2": 30.2841, "result_net_x2": 30.1743}
+# NAS search: the supernet at launchers/search.sh's width
+NAS_BLOCKS, NAS_UNITS, NAS_BATCH, NAS_PATCH = 16, 32, 16, 48
+NAS_NUM_PATCHES = 6  # synthetic_isr: 8 images x 6 patches / batch 16 = 3 steps per epoch
+B5_PER_FORWARD = 3 * NAS_BLOCKS
 
 
 def log(*a):
@@ -120,7 +134,9 @@ def phase_kernels(gen, dev):
     )
     from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import fused_wdsr_block, fused_wdsr_block_plain
 
-    rows = {"B1": [], "B2": [], "B3": [], "B4": []}
+    from mobilesuperresolution_tpu_torch.kernels.fused_convsep import fused_convsep, fused_convsep_plain
+
+    rows = {"B1": [], "B2": [], "B3": [], "B4": [], "B5": []}
 
     def rand(shape, dtype, scale=1.0):
         return ((torch.rand(shape, generator=gen) * 2 - 1) * scale).to(dev, dtype).contiguous()
@@ -240,6 +256,37 @@ def phase_kernels(gen, dev):
         rows["B4"].append(dict(case=tag, main_path=dtype == torch.float32, max_abs_err=err, ms=ms,
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
                                gflop=flops / 1e9))
+
+    # B5: one ConvSep branch at the search's shape, (16, 48, 48, 32) -> 32 for
+    # k = 3, 5, 7 in f32 (the main path: the three branches of one block); the
+    # supernet eval shape (1, 678, 1020, 32) at k = 7 in f32 and bf16; a
+    # ragged 37x53 map
+    c = NAS_UNITS
+    b5_cases = [(NAS_BATCH, NAS_PATCH, NAS_PATCH, k, torch.float32, True) for k in (3, 5, 7)]
+    b5_cases += [(1, hl, wl, 7, dt, False) for dt in (torch.float32, torch.bfloat16)]
+    b5_cases += [(2, 37, 53, 7, dt, False) for dt in (torch.float32, torch.bfloat16)]
+    for nb, hh, ww, k, dtype, on_path in b5_cases:
+        x = rand((nb, hh, ww, c), dtype)
+        ws = [rand((k, k, c), torch.float32, 1.0 / k), rand((c,), torch.float32, 0.2),
+              rand((c, c), torch.float32, c ** -0.5), rand((c,), torch.float32, 0.2)]
+        ws = [w.to(dtype).float() for w in ws]  # as the supernet in bf16 rounds them
+        got = fused_convsep(x, *ws)
+        want = fused_convsep_plain(x, *ws)
+        torch.cuda.synchronize()
+        tag = f"B5 {nb}x{hh}x{ww}x{c} k{k} -> {c} {str(dtype)[6:]}"
+        err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
+        ms = cuda_ms(lambda: fused_convsep(x, *ws))
+        plain_ms = cuda_ms(lambda: fused_convsep_plain(x, *ws))
+        # one library chain for the same function: cuDNN depthwise + bias, ReLU, 1x1 + bias
+        xn = x.permute(0, 3, 1, 2)
+        lw = [ws[0].permute(2, 0, 1)[:, None].contiguous().to(dtype), ws[1].to(dtype),
+              ws[2].t()[:, :, None, None].contiguous().to(dtype), ws[3].to(dtype)]
+        lib_ms = cuda_ms(lambda: F.conv2d(F.relu(F.conv2d(xn, lw[0], lw[1], padding=k // 2, groups=c)), lw[2], lw[3]))
+        flops = 2.0 * nb * hh * ww * (k * k * c + c * c)
+        bms, by = bound(flops, nbytes(x, got, *ws), dtype)
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+        rows["B5"].append(dict(case=tag, main_path=on_path, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=bms, bound_by=by, gflop=flops / 1e9))
     return rows
 
 
@@ -465,6 +512,124 @@ def phase_sisr_full(dev):
     return stats, main_launches
 
 
+def phase_nas_parity(dev):
+    """Tiny supernet, card vs CPU: the forward and one search step's
+    gradients of every parameter (the step at LR 0 leaves the weights)."""
+    from mobilesuperresolution_tpu_torch.models import NASModel
+    from mobilesuperresolution_tpu_torch.nas.speed_estimator import get_ori_speed
+    from mobilesuperresolution_tpu_torch.nas.speed_loss import SpeedLoss
+    from mobilesuperresolution_tpu_torch.train.checkpoint import (
+        jax_named_parameters,
+        load_params_npz,
+        random_jax_params,
+    )
+    from mobilesuperresolution_tpu_torch.train.state import multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_search_step
+
+    rng = np.random.default_rng(3)
+    lr = torch.from_numpy(rng.random((2, 24, 20, 3), dtype=np.float32))
+    hr = torch.from_numpy(rng.random((2, 48, 40, 3), dtype=np.float32))
+    ori = get_ori_speed(2, 8)
+    outs = []
+    for d in ("cpu", dev):
+        m = NASModel(num_blocks=2, num_residual_units=8, scale=2).to(d)
+        load_params_npz(m, random_jax_params(m, seed=3))
+        with torch.no_grad():
+            sr, speed = m(lr.to(d))
+        named = jax_named_parameters(m)
+        step = make_search_step(m, multistep_adam(named, 0.0, 1, 1), SpeedLoss(scale=0.5 * ori))
+        metrics = step((lr.to(d), hr.to(d)), 0.5 * ori)
+        outs.append((sr.cpu(), float(speed), float(metrics["loss"]), {k: p.grad.cpu() for k, p in named.items()}))
+    (sr0, sp0, l0, g0), (sr1, sp1, l1, g1) = outs
+    err = check("tiny supernet sr f32 card vs CPU", sr1, sr0, 1e-4)
+    if not (abs(sp1 - sp0) <= 1e-4 and abs(l1 - l0) <= 1e-4):
+        raise AssertionError(f"tiny supernet: speed {sp1} vs {sp0}, loss {l1} vs {l0}")
+    gerr = max(float((g1[k] - g0[k]).abs().max()) for k in g0)
+    log(f"  speed {sp1:.4f} (CPU {sp0:.4f}), loss {l1:.6f} (CPU {l0:.6f}); "
+        f"max gradient difference over {len(g0)} parameters {gerr:.3e} (tol 1e-4)")
+    if not gerr <= 1e-4:
+        raise AssertionError(f"tiny supernet gradients differ by {gerr}")
+    return {"sr_err": err, "grad_err": gerr}
+
+
+def phase_search(dev):
+    """The NAS search through its entry point at the launcher's width, then
+    the steady-state search step and supernet eval forward."""
+    from mobilesuperresolution_tpu_torch.cli import search
+    from mobilesuperresolution_tpu_torch.kernels.fused_convsep import fused_convsep
+    from mobilesuperresolution_tpu_torch.models import get_model
+    from mobilesuperresolution_tpu_torch.nas.artifact import read_block_index
+    from mobilesuperresolution_tpu_torch.nas.speed_estimator import get_ori_speed
+    from mobilesuperresolution_tpu_torch.nas.speed_loss import SpeedLoss
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters, jax_param_shapes
+    from mobilesuperresolution_tpu_torch.train.state import multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_search_step
+
+    with tempfile.TemporaryDirectory() as job_dir:
+        argv = ["--job_dir", job_dir, "--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr",
+                "--scale", "2", "--num_blocks", str(NAS_BLOCKS), "--num_residual_units", str(NAS_UNITS),
+                "--width_search", "--speed_target", "500", "--width_epochs", "1", "--epochs", "1",
+                "--kernel_epochs", "1", "--num_patches", str(NAS_NUM_PATCHES), "--train_batch_size",
+                str(NAS_BATCH), "--lr_patch_size", str(NAS_PATCH), "--learning_rate", "1e-3", "--log_steps", "1"]
+        fused_convsep.launches = 0
+        t0 = time.perf_counter()
+        out = search.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"B5": fused_convsep.launches}
+        idx, width = read_block_index(job_dir)
+        npz_keys = set(np.load(os.path.join(job_dir, "weights", "models.npz")).keys())
+    steps = out["steps"]
+    log(f"  cli.search: {len(steps)} steps ({[s['phase'] for s in steps]}), {out['eval_images']} eval images, "
+        f"{wall:.1f} s; B5 launches {launches['B5']}")
+    for s in steps:
+        log(f"    {s['phase']} e{s['epoch']} b{s['batch']}: loss {s['loss']:.5f} l1 {s['l1']:.5f} "
+            f"speed {s['speed']:.3f} / {s['target']:.3f} skipped {s['skipped']:.0f}")
+    n_steps = 3 * (8 * NAS_NUM_PATCHES // NAS_BATCH)  # three phases of one epoch, synthetic_isr has 8 images
+    if len(steps) != n_steps or not all(np.isfinite([s[k] for k in ("loss", "l1", "speed")]).all() for s in steps):
+        raise AssertionError(f"search: {len(steps)} steps, finite {[np.isfinite(s['loss']) for s in steps]}")
+    want = B5_PER_FORWARD * (out["train_forwards"] + out["eval_images"])
+    if launches["B5"] != want:
+        raise AssertionError(f"search: B5 launches {launches['B5']}, expected {want}")
+    if (idx, width) != (out["remain_idx"], out["remain_width"]) or len(width) != len(idx):
+        raise AssertionError(f"block_index.txt last line {(idx, width)} != {(out['remain_idx'], out['remain_width'])}")
+    params = argparse.Namespace(model_type="NAS_MODEL", num_blocks=NAS_BLOCKS, num_residual_units=NAS_UNITS,
+                                scale=2, seed=0, width_search=True)
+    model = get_model(params, device=dev)
+    want_keys = set(jax_param_shapes(model))
+    if npz_keys != want_keys:
+        raise AssertionError(f"weights npz keys differ from the JAX layout: {sorted(npz_keys ^ want_keys)[:5]}")
+    log(f"  final arch {len(idx)} blocks: {width}")
+    log(f"  eval PSNR per epoch: {[round(e['synthetic_isr']['PSNR'], 4) for e in out['eval']]}")
+
+    # steady state: one search step on a fixed batch, and one 678x1020 eval forward
+    g = torch.Generator().manual_seed(5)
+    lr = torch.rand((NAS_BATCH, NAS_PATCH, NAS_PATCH, 3), generator=g).to(dev)
+    hr = torch.rand((NAS_BATCH, 2 * NAS_PATCH, 2 * NAS_PATCH, 3), generator=g).to(dev)
+    ori = get_ori_speed(NAS_BLOCKS, NAS_UNITS)
+    step = make_search_step(model, multistep_adam(jax_named_parameters(model), 1e-3, 100, 1),
+                            SpeedLoss(scale=ori - 500.0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step((lr, hr), 500.0), iters=10, warmup=3)
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    x = torch.rand((1, SR_HR[0] // 2, SR_HR[1] // 2, 3), generator=g).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        eval_ms = cuda_ms(lambda: model(x), iters=5, warmup=2)
+        sr, speed = model(x)
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    if tuple(sr.shape) != (1, SR_HR[0], SR_HR[1], 3) or not torch.isfinite(sr).all():
+        raise AssertionError(f"supernet eval: output {tuple(sr.shape)}, finite {bool(torch.isfinite(sr).all())}")
+    log(f"  search step {step_ms:.3f} ms (batch {NAS_BATCH}, {NAS_PATCH}x{NAS_PATCH}), peak {step_peak:.3f} GiB; "
+        f"supernet eval {eval_ms:.3f} ms per {x.shape[1]}x{x.shape[2]} image, peak {eval_peak:.3f} GiB")
+    stats = dict(steps=steps, eval=out["eval"], train_forwards=out["train_forwards"], eval_images=out["eval_images"],
+                 wall_s=wall, launches=launches, remain_idx=idx, remain_width=width, step_ms=step_ms,
+                 step_peak_mem_gib=step_peak, eval_ms=eval_ms, eval_peak_mem_gib=eval_peak,
+                 eval_speed_ms=float(speed))
+    return stats, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -503,7 +668,11 @@ def main():
         report["shipped"] = phase_shipped(dev)
         log("full-width SISR:")
         report["sisr"], sisr_main = phase_sisr_full(dev)
-        launches = {**launches, **sisr_main}
+        log("small NAS supernet parity:")
+        report["tiny_nas_parity"] = phase_nas_parity(dev)
+        log("NAS search at full width:")
+        report["search"], search_main = phase_search(dev)
+        launches = {**launches, **sisr_main, **search_main}
     except Exception:
         traceback.print_exc()
         return 1
@@ -530,6 +699,8 @@ def main():
               "mobilesuperresolution_tpu/kernels/fused_wdsr_block.py:110", "B3"),
         entry("fused_conv_pixel_shuffle_skip", "mobilesuperresolution_tpu_torch/csrc/fused_tail.cu",
               "mobilesuperresolution_tpu/kernels/fused_tail.py:85", "B4"),
+        entry("fused_convsep", "mobilesuperresolution_tpu_torch/csrc/fused_convsep.cu",
+              "mobilesuperresolution_tpu/kernels/fused_convsep.py:68", "B5"),
     ]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

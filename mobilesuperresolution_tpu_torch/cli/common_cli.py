@@ -1,12 +1,12 @@
 """Shared CLI plumbing (counterpart of mobilesuperresolution_tpu/cli/common_cli.py).
 
-Only the flags that evaluation reads are parsed. Flags that only concern
-XLA or multi-host JAX (``--compile_cache``, ``--xla_profile_steps``,
-``--distributed``, ``--coordinator_address``, ``--num_processes``,
-``--process_id``) have no counterpart here; the training flags
-(``--epochs``, ``--learning_rate``, batch sizes, ``--resume``, ...) come with
-SISR training (ROADMAP.md, queue A10). ``--device`` picks CUDA (the
-default) or the CPU.
+Only flags that ported code reads are parsed; each entry point adds its own.
+Flags that only concern XLA or multi-host JAX (``--compile_cache``,
+``--xla_profile_steps``, ``--distributed``, ``--coordinator_address``,
+``--num_processes``, ``--process_id``) have no counterpart here;
+``--resume``, ``--max_steps_per_run``, ``--checkpoint_every_steps`` and
+``--debug`` come with checkpointing and preemption (ROADMAP.md).
+``--device`` picks CUDA (the default) or the CPU.
 """
 
 import argparse
@@ -14,6 +14,7 @@ import os
 
 import mobilesuperresolution_tpu_torch.data as data_pkg
 import mobilesuperresolution_tpu_torch.models as models_pkg
+from mobilesuperresolution_tpu_torch.data import isr
 
 
 def base_parser(description):
@@ -22,20 +23,20 @@ def base_parser(description):
     parser.add_argument("--dataset", type=str, default="div2k")
     parser.add_argument("--eval_datasets", type=str, nargs="*", default=["set5"])
     parser.add_argument("--seed", type=int, default=0,
-                        help="Seed of the random weights used without --eval_model.")
-    parser.add_argument("--eval_model", type=str, default=None,
-                        help="Path to a params .npz (the JAX package's flat layout) "
-                        "to evaluate.")
-    parser.add_argument("--eval_only", action="store_true")
+                        help="Seed of the random weights and of the training data order.")
     parser.add_argument("--bf16", action="store_true", help="bfloat16 compute.")
     parser.add_argument("--save_eval_images", action="store_true")
-    parser.add_argument("--eval_tile", type=int, default=0,
-                        help="Overlap-tiled evaluation. Only 0 (whole images) is "
-                        "supported: tiling bounds XLA recompiles, and eager "
-                        "PyTorch compiles nothing per shape.")
     parser.add_argument("--device", type=str, default=None,
                         help="'cuda' (default) or 'cpu'.")
     return parser
+
+
+def add_train_args(parser):
+    """Training flags, and the TRAIN data flags (``data/isr.py``); call
+    before ``parse_with_plugins`` so the dataset's defaults apply."""
+    parser.add_argument("--epochs", type=int, default=30)
+    parser.add_argument("--learning_rate", type=float, default=1e-3)
+    isr.add_train_args(parser)
 
 
 def parse_with_plugins(parser, argv=None):

@@ -15,32 +15,19 @@ the caller's settings are restored after. Training (the rest of the JAX
 entry) is not ported yet and raises.
 """
 
-import contextlib
 import logging
 
 import torch
 
 from mobilesuperresolution_tpu_torch.cli.common_cli import base_parser, eval_modules, parse_with_plugins
 from mobilesuperresolution_tpu_torch.core import modes
-from mobilesuperresolution_tpu_torch.core.device import resolve_device
+from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.models import get_model
 from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 from mobilesuperresolution_tpu_torch.train.evaluate import evaluate
 
 log = logging.getLogger("msr_torch.pretrain")
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """Full float32 convs and matmuls (cuDNN would otherwise run the head
-    conv, and ResultNet's blocks, in TF32); restores the caller's flags."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def run_evaluation(params, model, eval_mods, device):
@@ -64,6 +51,13 @@ def run_evaluation(params, model, eval_mods, device):
 
 def main(argv=None):
     parser = base_parser("SISR pretraining (PyTorch/CUDA; evaluation only so far)")
+    parser.add_argument("--eval_model", type=str, default=None,
+                        help="Path to a params .npz (the JAX package's flat layout) to evaluate.")
+    parser.add_argument("--eval_only", action="store_true")
+    parser.add_argument("--eval_tile", type=int, default=0,
+                        help="Overlap-tiled evaluation. Only 0 (whole images) is "
+                        "supported: tiling bounds XLA recompiles, and eager "
+                        "PyTorch compiles nothing per shape.")
     params = parse_with_plugins(parser, argv)
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO, format="%(message)s")
@@ -77,7 +71,7 @@ def main(argv=None):
     device = resolve_device(params.device)
     model = get_model(params, device=device)
     load_params_npz(model, params.eval_model or random_jax_params(model, params.seed))
-    with _no_tf32():
+    with no_tf32():
         return run_evaluation(params, model, eval_modules(params), device)
 
 

@@ -1,4 +1,6 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution and float32 precision for the port's entry points."""
+
+import contextlib
 
 import torch
 
@@ -16,3 +18,15 @@ def resolve_device(device=None):
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full float32 convs and matmuls (cuDNN would otherwise run float32
+    convs in TF32); restores the caller's flags."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

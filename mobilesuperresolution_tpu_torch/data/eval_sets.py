@@ -1,12 +1,13 @@
-"""SISR eval sets: DIV2K validation, Set5, Set14, BSDS100 and Urban100
-(counterpart of mobilesuperresolution_tpu/data/eval_sets.py and of the
-EVAL half of data/div2k.py): bicubic-degraded HR images read from
+"""SISR sets: DIV2K (training and validation halves), Set5, Set14, BSDS100
+and Urban100 (counterpart of mobilesuperresolution_tpu/data/eval_sets.py
+and data/div2k.py): bicubic-degraded HR images read from
 ``<data_dir>/<dir>/`` PNG/BMP files.
 """
 
 import os
 from types import SimpleNamespace
 
+from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.data import isr as _isr
 
 _DIRS = {
@@ -23,11 +24,21 @@ def list_image_files(d):
     return [(f, os.path.join(d, f)) for f in files if f.endswith((".png", ".bmp"))]
 
 
+def _div2k_argparser(parser):
+    _isr.update_argparser(parser)
+    parser.set_defaults(num_patches=100, train_batch_size=16)
+
+
 def bind(name):
     dirname = _DIRS[name]
 
     def get_dataset(mode, params):
-        root = os.path.join(params.data_dir, dirname)
-        return _isr.ImageSRBicubicDataset(mode, params, list_image_files(root))
+        d = dirname
+        if mode == modes.TRAIN:
+            if name != "div2k":
+                raise NotImplementedError(f"{name} is eval-only")
+            d = os.path.join("DIV2K", "DIV2K_train_HR")
+        return _isr.ImageSRBicubicDataset(mode, params, list_image_files(os.path.join(params.data_dir, d)))
 
-    return SimpleNamespace(name=name, update_argparser=_isr.update_argparser, get_dataset=get_dataset)
+    argparser = _div2k_argparser if name == "div2k" else _isr.update_argparser
+    return SimpleNamespace(name=name, update_argparser=argparser, get_dataset=get_dataset)

@@ -1,11 +1,19 @@
-"""Image super-resolution evaluation datasets (counterpart of the EVAL
-branch of mobilesuperresolution_tpu/data/isr.py; one process, so no
-per-host sharding): paired LR/HR files with HR cropped to a multiple of the
-scale, or HR files cropped so and degraded by the MATLAB-exact bicubic.
+"""Image super-resolution datasets (counterpart of
+mobilesuperresolution_tpu/data/isr.py; one process, so no per-host sharding):
+
+- TRAIN: index virtualization (``index // num_patches``, length = files x
+  num_patches); paired files give a random LR-grid patch inside the ignored
+  boundary; HR-only files give a random HR patch of lr_patch·scale +
+  2·boundary·scale, degraded by the MATLAB-exact bicubic, then shaved by
+  the boundary on both; vflip / hflip / transpose, each p = 0.5, shared by
+  LR and HR.
+- EVAL: paired LR/HR files with HR cropped to the LR size times the scale,
+  or HR files cropped to a multiple of the scale and degraded.
 
 Arrays are HWC uint8 until the final conversion to float32 [0, 1] (the
-reference's to_tensor). Output layout is NHWC. The TRAIN branch (random
-patches, flips) comes with SISR training (ROADMAP.md, queue A10).
+reference's to_tensor). Output layout is NHWC. ``batch_iterator`` draws
+every TRAIN item from a random stream that depends only on (seed, index),
+so the batches are a function of its arguments alone.
 """
 
 import os
@@ -22,35 +30,76 @@ def update_argparser(parser):
 
     data_pkg.update_argparser(parser)
     parser.add_argument("--scale", default=2, type=int)
+    parser.set_defaults(train_batch_size=16)
+
+
+def add_train_args(parser):
+    """The flags the TRAIN branch reads; added by the training entry points,
+    before the dataset module sets its defaults."""
+    parser.add_argument("--train_batch_size", type=int, default=32)
+    parser.add_argument("--lr_patch_size", default=48, type=int)
+    parser.add_argument("--ignored_boundary_size", default=2, type=int)
+    parser.add_argument("--num_patches", default=100, type=int)
 
 
 def _to_float(img):
     return np.ascontiguousarray(img).astype(np.float32) / 255.0
 
 
+def _augment(rng, lr, hr):
+    if rng.random() < 0.5:
+        lr, hr = lr[::-1], hr[::-1]
+    if rng.random() < 0.5:
+        lr, hr = lr[:, ::-1], hr[:, ::-1]
+    if rng.random() < 0.5:
+        lr, hr = np.swapaxes(lr, 0, 1), np.swapaxes(hr, 0, 1)
+    return lr, hr
+
+
 class ImageSRDataset:
     """Paired LR/HR files, [(name, path), ...] each."""
 
     def __init__(self, mode, params, lr_files, hr_files):
-        if mode != modes.EVAL:
-            raise NotImplementedError("SISR training data is not ported yet (ROADMAP.md, queue A10)")
-        self.scale = params.scale
+        self.mode = mode
+        self.params = params
         self.lr_files = lr_files
         self.hr_files = hr_files
+        self.rng = np.random.default_rng(getattr(params, "seed", 0))
 
     def _load(self, files, index):
         return load_image(files[index][1])
 
-    def _lr_hr(self, index):
-        lr = self._load(self.lr_files, index)
-        hr = self._load(self.hr_files, index)
-        return lr, hr[: lr.shape[0] * self.scale, : lr.shape[1] * self.scale]
+    def _load_item(self, index):
+        return self._load(self.lr_files, index), self._load(self.hr_files, index)
+
+    def _sample_patch(self, lr, hr, rng):
+        p = self.params
+        if self.mode == modes.TRAIN:
+            b = p.ignored_boundary_size
+            x = rng.integers(b, lr.shape[0] - p.lr_patch_size + 1 - b)
+            y = rng.integers(b, lr.shape[1] - p.lr_patch_size + 1 - b)
+            lr = lr[x : x + p.lr_patch_size, y : y + p.lr_patch_size]
+            hr = hr[x * p.scale : (x + p.lr_patch_size) * p.scale, y * p.scale : (y + p.lr_patch_size) * p.scale]
+        else:
+            hr = hr[: lr.shape[0] * p.scale, : lr.shape[1] * p.scale]
+        return lr, hr
 
     def __len__(self):
-        return len(self.hr_files)
+        if self.mode == modes.TRAIN:
+            return len(self.lr_files) * self.params.num_patches
+        return len(self.lr_files)
 
     def __getitem__(self, index):
-        lr, hr = self._lr_hr(index)
+        return self.item(index, self.rng)
+
+    def item(self, index, rng):
+        """TRAIN: (lr, hr) float32 patches drawn with ``rng``; EVAL: (name,
+        lr, hr)."""
+        if self.mode == modes.TRAIN:
+            index = index // self.params.num_patches
+        lr, hr = self._sample_patch(*self._load_item(index), rng)
+        if self.mode == modes.TRAIN:
+            return tuple(_to_float(a) for a in _augment(rng, lr, hr))
         name = os.path.splitext(self.hr_files[index][0])[0]
         return name, _to_float(lr), _to_float(hr)
 
@@ -61,16 +110,75 @@ class ImageSRBicubicDataset(ImageSRDataset):
     def __init__(self, mode, params, hr_files):
         super().__init__(mode, params, hr_files, hr_files)
 
-    def _lr_hr(self, index):
+    def _load_item(self, index):
         hr = self._load(self.hr_files, index)
-        s = self.scale
+        return hr, hr
+
+    def _sample_patch(self, lr, hr, rng):
+        p = self.params
+        s = p.scale
+        if self.mode == modes.TRAIN:
+            hb = p.ignored_boundary_size * s
+            hp = p.lr_patch_size * s + 2 * hb
+            x = rng.integers(0, hr.shape[0] - hp + 1)
+            y = rng.integers(0, hr.shape[1] - hp + 1)
+            hr = hr[x : x + hp, y : y + hp]
+            lr = imresize_np(hr, scalar_scale=1.0 / s)
+            b = p.ignored_boundary_size
+            if b:
+                lr, hr = lr[b:-b, b:-b], hr[hb:-hb, hb:-hb]
+            return lr, hr
         hr = hr[: hr.shape[0] - hr.shape[0] % s, : hr.shape[1] - hr.shape[1] % s]
         return imresize_np(hr, scalar_scale=1.0 / s), hr
 
 
-def batch_iterator(dataset):
-    """Yield each item as (name, lr (1, h, w, C), hr (1, H, W, C)), in
-    order: the reference's eval batches (eval_batch_size 1)."""
-    for i in range(len(dataset)):
-        name, lr, hr = dataset[i]
-        yield name, lr[None], hr[None]
+def _batches(dataset, batch_size, shuffle, seed, drop_last):
+    order = np.arange(len(dataset))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    for start in range(0, len(order), batch_size):
+        idx = order[start : start + batch_size]
+        if drop_last and len(idx) < batch_size:
+            return
+        # each item's random stream depends only on (seed, index)
+        items = [dataset.item(int(i), np.random.default_rng([seed, int(i)])) for i in idx]
+        if len(items[0]) == 3:  # EVAL: (name, lr, hr), one by one
+            for name, lr, hr in items:
+                yield name, lr[None], hr[None]
+        else:
+            yield np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
+
+
+def batch_iterator(dataset, batch_size=1, shuffle=False, seed=0, drop_last=False, prefetch=0):
+    """TRAIN items stacked to (lr (B, h, w, C), hr (B, H, W, C)); EVAL items
+    as (name, lr (1, h, w, C), hr (1, H, W, C)), the reference's eval batch
+    of 1. ``prefetch`` > 0 makes the batches in a background thread, that
+    many ahead, so patch sampling and the bicubic overlap the device step; a
+    dataset error re-raises in the consumer."""
+    gen = _batches(dataset, batch_size, shuffle, seed, drop_last)
+    if prefetch <= 0:
+        yield from gen
+        return
+
+    import queue
+    import threading
+
+    q = queue.Queue(maxsize=prefetch)
+    end = object()
+
+    def worker():
+        try:
+            for item in gen:
+                q.put(item)
+            q.put(end)
+        except Exception as e:  # noqa: BLE001 — transported to the consumer, re-raised there
+            q.put(e)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, Exception):
+            raise item
+        yield item

@@ -1,7 +1,7 @@
-"""Procedural synthetic images and the synthetic SISR dataset, made from a
-seed with numpy (own copy of the SISR half of
+"""Procedural synthetic images and the synthetic SISR dataset (TRAIN and
+EVAL), made from a seed with numpy (own copy of the SISR half of
 mobilesuperresolution_tpu/data/synthetic.py; the video clips and
-SyntheticVSRDataset come with the VSR eval slice)."""
+SyntheticVSRDataset come with the VSR slices)."""
 
 import numpy as np
 
@@ -69,10 +69,12 @@ def synthetic_natural_image(seed, hw=(128, 128)):
 
 
 class SyntheticISRDataset(ImageSRBicubicDataset):
-    """``num_images`` textured ``synthetic_image`` HR images, seeds 0, 1, ..."""
+    """``num_images`` ``synthetic_image`` HR images, seeds 0, 1, ...,
+    textured unless ``params.synthetic_textured`` is False."""
 
     def __init__(self, mode, params, num_images=8, hw=(128, 128)):
-        self._images = [synthetic_image(i, hw) for i in range(num_images)]
+        textured = bool(getattr(params, "synthetic_textured", True))
+        self._images = [synthetic_image(i, hw, textured=textured) for i in range(num_images)]
         super().__init__(mode, params, [(f"synth_{i}", None) for i in range(num_images)])
 
     def _load(self, files, index):

@@ -1,0 +1,106 @@
+"""Kernel B5: the fused separable conv of the NAS supernet,
+relu(depthwise_kxk(x) + b_depth) @ w_point + b_point.
+
+Replaces mobilesuperresolution_tpu/kernels/fused_convsep.py::fused_convsep
+(Pallas) with the hand-written CUDA kernel csrc/fused_convsep.cu, which keeps
+the depthwise output in registers. Any H and W; the kernel is instantiated
+for (C, C_out) in ``INSTANTIATED`` and k in {3, 5, 7}. On CPU tensors the
+wrapper runs ``fused_convsep_plain``; on CUDA tensors it launches the kernel
+or raises.
+
+``FusedConvSepFn`` makes the kernel trainable: its forward is one launch, its
+backward recomputes the branch with the plain version and differentiates
+that, as the JAX package differentiates ConvSep with XLA autodiff (it has no
+backward kernel either).
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from mobilesuperresolution_tpu_torch.kernels import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"fused_convsep_launch": [_P] * 6 + [_I] * 7 + [_P]}
+# (C, C_out) pairs the CUDA source instantiates: the supernet at 32 units and
+# the tiny parity width
+INSTANTIATED = {(32, 32), (8, 8)}
+KERNEL_SIZES = (3, 5, 7)
+
+
+def fused_convsep_plain(x, w_depth, b_depth, w_point, b_point):
+    """Plain PyTorch version: x (B, H, W, C); w_depth (k, k, C); b_depth (C,);
+    w_point (C, C_out); b_point (C_out,). Depthwise SAME conv (zero padding)
+    + b_depth, ReLU, 1x1 conv + b_point, in float32 on the weights as float32,
+    rounded once to x.dtype. Returns (B, H, W, C_out)."""
+    k, c = w_depth.shape[0], x.shape[-1]
+    xn = x.float().permute(0, 3, 1, 2)
+    h = F.conv2d(xn, w_depth.float().permute(2, 0, 1)[:, None], b_depth.float(), padding=k // 2, groups=c)
+    y = F.conv2d(F.relu(h), w_point.float().t()[:, :, None, None], b_point.float())
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def fused_convsep(x, w_depth, b_depth, w_point, b_point):
+    """x: (B, H, W, C) bf16 or f32, contiguous; weights as in
+    ``fused_convsep_plain``, read as float32 (a model in bf16 rounds them to
+    bf16 first). Returns (B, H, W, C_out) in x.dtype."""
+    if x.device.type == "cpu":
+        return fused_convsep_plain(x, w_depth, b_depth, w_point, b_point)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_convsep: unsupported device {x.device}")
+    if x.dim() != 4 or w_depth.dim() != 3 or w_point.dim() != 2:
+        raise ValueError("fused_convsep: x must be (B, H, W, C), w_depth 3-D, w_point 2-D")
+    k, c, c_out = w_depth.shape[0], x.shape[3], w_point.shape[1]
+    if (tuple(w_depth.shape), tuple(b_depth.shape), w_point.shape[0], tuple(b_point.shape)) != (
+        (k, k, c), (c,), c, (c_out,)
+    ):
+        raise ValueError(
+            f"fused_convsep: inconsistent shapes x={tuple(x.shape)} w_depth={tuple(w_depth.shape)} "
+            f"w_point={tuple(w_point.shape)}"
+        )
+    if (c, c_out) not in INSTANTIATED or k not in KERNEL_SIZES:
+        raise ValueError(
+            f"fused_convsep: (C, C_out) = {(c, c_out)}, k = {k} not instantiated; "
+            f"have {sorted(INSTANTIATED)} x k in {KERNEL_SIZES}"
+        )
+    if x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
+        raise ValueError("fused_convsep: x must be contiguous bf16 or f32")
+    ws = [w_depth, b_depth, w_point, b_point]
+    if any(t.device != x.device for t in ws) or x.device.index != torch.cuda.current_device():
+        raise ValueError("fused_convsep: tensors must lie on the current CUDA device")
+    ws = [t.detach().float().contiguous() for t in ws]
+    n, h, w, _ = x.shape
+    y = torch.empty((n, h, w, c_out), device=x.device, dtype=x.dtype)
+    lib = _build.load("fused_convsep", _SIGNATURES)
+    _build.launch(
+        lib, "fused_convsep_launch",
+        x.data_ptr(), *(t.data_ptr() for t in ws), y.data_ptr(),
+        n, h, w, c, c_out, k, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    fused_convsep.launches += 1
+    return y
+
+
+fused_convsep.launches = 0
+
+
+class FusedConvSepFn(torch.autograd.Function):
+    """``fused_convsep`` with a gradient: forward = one kernel launch (the
+    plain version on the CPU); backward = the plain version recomputed under
+    autograd, differentiated for every input that needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w_depth, b_depth, w_point, b_point):
+        ctx.save_for_backward(x, w_depth, b_depth, w_point, b_point)
+        return fused_convsep(x, w_depth, b_depth, w_point, b_point)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            y = fused_convsep_plain(*inputs)
+        grads = iter(torch.autograd.grad(y, wanted, grad_y))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)

@@ -1,8 +1,8 @@
 """Model registry (counterpart of mobilesuperresolution_tpu/models/__init__.py).
 
 Ported so far: mobile BasicVSR ('basic') for VSR, and for SISR the WDSR-B
-``BASIC_MODEL`` and the searched ``ResultNet``; the NAS supernet and the
-rest of the VSR zoo are queued in ROADMAP.md.
+``BASIC_MODEL``, the NAS supernet ``NAS_MODEL`` and the searched
+``ResultNet``; the rest of the VSR zoo is queued in ROADMAP.md.
 """
 
 import torch
@@ -12,8 +12,11 @@ from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
 from mobilesuperresolution_tpu_torch.models.result_net import ResultNet
 from mobilesuperresolution_tpu_torch.models.spynet import SpyNet
 from mobilesuperresolution_tpu_torch.models.wdsr_basic import BasicModel
+from mobilesuperresolution_tpu_torch.models.wdsr_nas import NASModel
+from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 
-__all__ = ["BasicModel", "BasicVSR", "ResultNet", "SpyNet", "get_model", "get_vsr_model", "update_argparser"]
+__all__ = ["BasicModel", "BasicVSR", "NASModel", "ResultNet", "SpyNet", "get_model", "get_vsr_model",
+           "update_argparser"]
 
 
 def update_argparser(parser):
@@ -21,6 +24,11 @@ def update_argparser(parser):
     parser.add_argument("--model_type", default="BASIC_MODEL", type=str)
     parser.add_argument("--num_blocks", default=16, type=int)
     parser.add_argument("--num_residual_units", default=24, type=int)
+    parser.add_argument("--width_search", action="store_true",
+                        help="NAS_MODEL: apply the model-wide channel mask gate.")
+    parser.add_argument("--differentiable_speed", action="store_true",
+                        help="NAS_MODEL: STE-differentiable latency estimate "
+                        "(the reference leaves it without gradient).")
     parser.add_argument("--quantize", choices=["none", "int8"], default="none",
                         help="int8 dynamic-range inference convs (not ported yet: raises).")
 
@@ -28,21 +36,31 @@ def update_argparser(parser):
 def get_model(params, device=None):
     """Build the SISR model named by params.model_type on ``device`` (default
     CUDA; raises without it unless ``device="cpu"``), in bf16 when
-    ``params.bf16``. Parameters start at zero: load weights with
-    ``train.checkpoint.load_params_npz``."""
+    ``params.bf16``. ``BASIC_MODEL`` starts at zero, in eval mode: load
+    weights with ``train.checkpoint.load_params_npz``. ``NAS_MODEL`` (the
+    supernet, ``--width_search`` / ``--differentiable_speed``) is ready to
+    train: seeded random weights from the JAX initializers
+    (``random_jax_params``, seed ``params.seed``), train mode."""
     if getattr(params, "quantize", "none") == "int8":
         raise NotImplementedError("int8 quantized convs are not ported yet (ROADMAP.md, queue A12)")
-    if params.model_type == "NAS_MODEL":
-        raise NotImplementedError("NAS_MODEL is not ported yet (ROADMAP.md, queue A11: the NAS slice)")
-    if params.model_type != "BASIC_MODEL":
+    if params.model_type not in ("BASIC_MODEL", "NAS_MODEL"):
         raise KeyError(f"unknown SISR model_type {params.model_type!r}")
     dev = resolve_device(device)
-    model = BasicModel(
+    common = dict(
         num_blocks=params.num_blocks,
         num_residual_units=params.num_residual_units,
         scale=params.scale,
         compute_dtype=torch.bfloat16 if getattr(params, "bf16", False) else torch.float32,
     )
+    if params.model_type == "NAS_MODEL":
+        model = NASModel(
+            width_search=getattr(params, "width_search", True),
+            differentiable_speed=getattr(params, "differentiable_speed", False),
+            **common,
+        ).to(dev)
+        load_params_npz(model, random_jax_params(model, getattr(params, "seed", 0)))
+        return model.train()
+    model = BasicModel(**common)
     model.to(dev).prepare()
     return model.eval()
 

@@ -1,5 +1,5 @@
 """The search artifact ``block_index.txt`` (own copy of
-mobilesuperresolution_tpu/nas/artifact.py's reader).
+mobilesuperresolution_tpu/nas/artifact.py).
 
 The search appends, at every log step, the Python tuple repr
 ``([remain_block_idx, ...], [[mask_ch, split_ch, kernel], ...])``; consumers
@@ -9,6 +9,15 @@ widths. An ``idx:width`` colon form is also accepted.
 
 import ast
 import os
+
+
+def append_block_index(job_dir, remain_idx, remain_width):
+    """Append one architecture line to ``<job_dir>/block_index.txt``."""
+    path = os.path.join(job_dir, "block_index.txt")
+    os.makedirs(job_dir, exist_ok=True)
+    with open(path, "a") as f:
+        f.write(f"{(list(remain_idx), [list(w) for w in remain_width])}\n")
+    return path
 
 
 def read_block_index(path):

@@ -44,34 +44,46 @@ def conv2d_nhwc(x, weight, bias=None, padding=0, groups=1):
 class WNConv(nn.Module):
     """Weight-normalized SAME conv (odd kernel), the JAX ``WNConv``: the
     effective kernel is ``g * v / sqrt(sum(v², axes 0, 1, 2) + 1e-12)`` per
-    output channel, with ``v`` HWIO. ``g_init`` is kept for the checkpoint
-    bridge's random init (None: g = ||v||, the raw init)."""
+    output channel, with ``v`` HWIO, (k, k, in_features // groups, features).
+    ``groups`` is flax's ``feature_group_count`` (``groups == in_features``
+    is a depthwise conv, ``v`` (k, k, 1, C)). ``g_init`` is kept for the
+    checkpoint bridge's random init (None: g = ||v||, the raw init).
 
-    def __init__(self, in_features, features, kernel_size=3, g_init=1.0):
+    ``forward`` uses the weights derived by ``prepare()`` (inference);
+    ``forward_live`` derives them on every call, differentiably (training)."""
+
+    def __init__(self, in_features, features, kernel_size=3, g_init=1.0, groups=1):
         super().__init__()
         k = kernel_size
         self.g_init = g_init
-        self.v = nn.Parameter(torch.zeros(k, k, in_features, features))
+        self.groups = groups
+        self.v = nn.Parameter(torch.zeros(k, k, in_features // groups, features))
         self.g = nn.Parameter(torch.zeros(features))
         self.b = nn.Parameter(torch.zeros(features))
         self.prepare()
 
     def effective_kernel(self):
-        """The weight-normed HWIO kernel, float32."""
-        v = self.v.detach()
-        norm = torch.sqrt(torch.sum(v * v, dim=(0, 1, 2)) + 1e-12)
-        return (self.g.detach() / norm) * v
+        """The weight-normed HWIO kernel, float32, differentiable in v and g."""
+        norm = torch.sqrt(torch.sum(self.v * self.v, dim=(0, 1, 2)) + 1e-12)
+        return (self.g / norm) * self.v
 
     def prepare(self, dtype=None):
         """Derive the effective HWIO ``kernel`` and the OIHW weight in
         ``dtype`` (default: the last one used)."""
         dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
-        self.kernel = self.effective_kernel().to(dtype)
+        with torch.no_grad():
+            self.kernel = self.effective_kernel().to(dtype)
         self._w = self.kernel.permute(3, 2, 0, 1).contiguous()
         self._b = self.b.detach().to(dtype)
 
     def forward(self, x):
-        return conv2d_nhwc(x, self._w, self._b, padding=self.v.shape[0] // 2)
+        return conv2d_nhwc(x, self._w, self._b, padding=self.v.shape[0] // 2, groups=self.groups)
+
+    def forward_live(self, x):
+        """The conv on the current parameters, in x.dtype, with gradients to
+        v, g and b."""
+        w = self.effective_kernel().to(x.dtype).permute(3, 2, 0, 1)
+        return conv2d_nhwc(x, w, self.b.to(x.dtype), padding=self.v.shape[0] // 2, groups=self.groups)
 
 
 class PlainConv(nn.Module):

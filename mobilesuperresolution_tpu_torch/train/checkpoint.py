@@ -1,18 +1,23 @@
-"""Weight bridge: JAX flat-npz checkpoints → the port's modules.
+"""Weight bridge: JAX flat-npz checkpoints ↔ the port's modules.
 
 Counterpart of mobilesuperresolution_tpu/train/checkpoint.py::
-load_params_npz. The JAX package writes its params tree as a flat npz keyed
-by the flax path joined with '/', e.g. ``spynet/level_0/conv0_kernel``,
+load_params_npz / save_params_npz. The JAX package writes its params tree
+as a flat npz keyed by the flax path joined with '/', e.g.
+``spynet/level_0/conv0_kernel``,
 ``propagation/trunks/backward_block0_conv1_kernel``,
 ``fusion/Conv_0/kernel``, ``conv_last/kernel``, and for the SISR models
 ``BasicBlock_3/WNConv_1/v`` (flax names modules by position: ``WNConv_0``
 head, ``BasicBlock_{i}/WNConv_{0,1,2}``, ``WNConv_1`` tail, ``WNConv_2``
-skip; ResultNet's ``head``, ``block_{i}/WNConv_0``, ``tail``, ``skip``). The
-port keeps the same parameter names and layouts (HWIO kernels, the raw
-ConvTranspose kernel, weight norm's ``v``/``g``/``b``), so a key maps to a
-parameter by its module path; the only rename is flax's inner ``Conv_0``
-scope of a ``PlainConv``.
+skip; ResultNet's ``head``, ``block_{i}/WNConv_0``, ``tail``, ``skip``; the
+NAS supernet's bare gates ``mask_w`` and
+``block_{i}/split_w|alpha|alpha1|alpha2`` beside
+``block_{i}/branch_{k}/WNConv_{0,1}/{v,g,b}``). The port keeps the same
+parameter names and layouts (HWIO kernels, the raw ConvTranspose kernel,
+weight norm's ``v``/``g``/``b``), so a key maps to a parameter by its module
+path; the only rename is flax's inner ``Conv_0`` scope of a ``PlainConv``.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -30,6 +35,11 @@ def _entries(model):
         for pname, p in mod.named_parameters(recurse=False):
             out.append(("/".join(scope + [pname]), p, mod))
     return out
+
+
+def jax_named_parameters(model):
+    """{jax_key: parameter} of ``model``, in module order."""
+    return {k: p for k, p, _ in _entries(model)}
 
 
 def jax_param_shapes(model):
@@ -58,19 +68,41 @@ def load_params_npz(model, src):
     return model
 
 
+def save_params_npz(job_dir, model, name="models"):
+    """Write ``model``'s parameters in the JAX flat-npz layout to
+    ``<job_dir>/weights/<name>.npz``, as the JAX package's save_params_npz
+    does (atomically: a temporary file, then a rename), so the weights load
+    in either package. Returns the path."""
+    out_dir = os.path.join(job_dir, "weights")
+    os.makedirs(out_dir, exist_ok=True)
+    flat = {k: p.detach().float().cpu().numpy() for k, p, _ in _entries(model)}
+    final = os.path.join(out_dir, f"{name}.npz")
+    tmp = final + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, final)
+    return final
+
+
 def random_jax_params(model, seed=0):
     """Seeded random weights in the JAX checkpoint layout, drawn with numpy
     from the JAX package's initializer families: conv kernels and biases
     Uniform(±1/sqrt(fan_in)) (torch's default), the ConvTranspose kernel
     truncated-normal with variance 1/fan_in (flax lecun_normal) and its bias
     zero; a WNConv's ``v`` Uniform(±1/sqrt(fan_in)), its ``g`` the constant
-    ``g_init`` (or ||v|| per output channel when None) and its ``b`` zero."""
+    ``g_init`` (or ||v|| per output channel when None) and its ``b`` zero;
+    a bare parameter that its module lists in ``uniform_init`` (the NAS
+    gates) Uniform(lo, hi)."""
     rng = np.random.default_rng(seed)
     entries = _entries(model)
     shapes = {k: tuple(p.shape) for k, p, _ in entries}
     out = {}
     for key, p, owner in entries:
         shape = tuple(p.shape)
+        leaf = key.rpartition("/")[2]
+        if leaf in getattr(owner, "uniform_init", {}):
+            lo, hi = owner.uniform_init[leaf]
+            out[key] = rng.uniform(lo, hi, shape).astype(np.float32)
+            continue
         if isinstance(owner, WNConv):
             # entries list v before g (declaration order), so g can read it
             stem, _, name = key.rpartition("/")

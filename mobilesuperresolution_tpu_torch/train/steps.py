@@ -1,0 +1,46 @@
+"""Train steps (counterpart of mobilesuperresolution_tpu/train/steps.py; so
+far the NAS search step)."""
+
+import torch
+
+from mobilesuperresolution_tpu_torch.train.losses import l1_loss
+
+
+def _all_finite(loss, grads):
+    """One device-side flag: the loss and every gradient are finite."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads]) if grads else loss.new_zeros(0)
+    return torch.isfinite(loss) & torch.isfinite(flat).all()
+
+
+def make_search_step(model, optimizer, speed_loss, weight_sr_l1=1.0, weight_speed=0.1, speed_table=None):
+    """NAS search step: L1 + SpeedLoss on the latency the supernet traces
+    (the reference's search.py:71-81). Returns ``step(batch, speed_target)
+    -> metrics``, ``batch`` = (lr (B, h, w, 3), hr (B, s·h, s·w, 3)) on the
+    model's device and ``speed_target`` the SpeedScheduler's per-epoch value.
+
+    Failure guard (the JAX package's ``_guarded_update``): a batch whose loss
+    or any gradient (of every parameter, trainable in this phase or not) is
+    not finite skips the update; parameters, Adam moments and the LR count
+    stay put, and ``metrics["skipped"]`` is 1 (a CPU scalar: the guard has
+    read the flag on the host already). The other metrics are detached
+    scalar tensors on the device."""
+    params = list(model.parameters())
+
+    def step(batch, speed_target):
+        lr_img, hr_img = batch
+        for p in params:
+            p.grad = None
+        sr, speed_accu = model(lr_img, speed_table)
+        l1 = l1_loss(sr, hr_img)
+        sp = speed_loss(speed_accu, speed_target, gamma=weight_speed)
+        loss = weight_sr_l1 * l1 + sp
+        loss.backward()
+        finite = bool(_all_finite(loss.detach(), [p.grad for p in params if p.grad is not None]))
+        if finite:
+            optimizer.step()
+        return {
+            "loss": loss.detach(), "l1": l1.detach(), "speed_loss": sp.detach(), "speed": speed_accu.detach(),
+            "skipped": torch.tensor(0.0 if finite else 1.0),
+        }
+
+    return step

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain
+from mobilesuperresolution_tpu_torch.kernels.fused_convsep import FusedConvSepFn, fused_convsep, fused_convsep_plain
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
     fused_conv_pixel_shuffle,
     fused_conv_pixel_shuffle_plain,
@@ -119,6 +120,32 @@ def test_fused_tail_skip_kernel_matches_plain(cuda, dtype, cin):
     assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("shape", [(2, 48, 48, 32), (1, 37, 53, 32), (3, 5, 3, 8)], ids=["search", "ragged", "tiny"])
+def test_fused_convsep_kernel_matches_plain(cuda, dtype, k, shape):
+    """B5 at the search's patch size (whole 16x16 tiles), on a ragged map and
+    on a map smaller than the halo, at both instantiated widths; its
+    autograd Function launches once forward and none backward."""
+    n, h, w, c = shape
+    g = torch.Generator().manual_seed(k)
+    x = _rand(g, (n, h, w, c), 1.0, cuda, dtype)
+    wd, bd = _rand(g, (k, k, c), 1.0 / k, cuda), _rand(g, (c,), 0.2, cuda)
+    wp, bp = _rand(g, (c, c), c ** -0.5, cuda), _rand(g, (c,), 0.2, cuda)
+    if dtype == torch.bfloat16:
+        wd, bd, wp, bp = (t.to(dtype).float() for t in (wd, bd, wp, bp))
+    before = fused_convsep.launches
+    got = fused_convsep(x, wd, bd, wp, bp)
+    want = fused_convsep_plain(x, wd, bd, wp, bp)
+    torch.cuda.synchronize()
+    assert fused_convsep.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, h, w, c)
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype)
+    xg = x.float().requires_grad_()
+    FusedConvSepFn.apply(xg, wd, bd, wp, bp).square().sum().backward()
+    assert fused_convsep.launches == before + 2 and torch.isfinite(xg.grad).all()
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     x = torch.zeros(1, 8, 8, 4, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError):
@@ -132,6 +159,12 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         z = torch.zeros
         fused_wdsr_block(z(1, 8, 8, 16, device=cuda), z(16, 96, device=cuda), z(96, device=cuda),
                          z(96, 13, device=cuda), z(13, device=cuda), z(3, 3, 13, 16, device=cuda), z(16, device=cuda))
+    with pytest.raises(ValueError, match="not instantiated"):
+        fused_convsep(torch.zeros(1, 8, 8, 16, device=cuda), torch.zeros(3, 3, 16, device=cuda),
+                      torch.zeros(16, device=cuda), torch.zeros(16, 16, device=cuda), torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError, match="not instantiated"):
+        fused_convsep(torch.zeros(1, 8, 8, 8, device=cuda), torch.zeros(9, 9, 8, device=cuda),
+                      torch.zeros(8, device=cuda), torch.zeros(8, 8, device=cuda), torch.zeros(8, device=cuda))
     with pytest.raises(ValueError):
         fused_conv_pixel_shuffle_skip(x, torch.zeros(3, 3, 4, 12, device=cuda), torch.zeros(12, device=cuda), 2,
                                       torch.zeros(1, 8, 9, 3, device=cuda), torch.zeros(5, 5, 3, 12, device=cuda))

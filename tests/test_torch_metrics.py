@@ -119,8 +119,9 @@ def test_synthetic_isr_items_match_jax(scale):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     assert got[0][2].shape == (1, 31 - 31 % scale, 35 - 35 % scale, 3)
     np.testing.assert_array_equal(tsyn.synthetic_natural_image(5, (20, 24)), jsyn.synthetic_natural_image(5, (20, 24)))
-    with pytest.raises(NotImplementedError, match="training"):
-        tsyn.SyntheticISRDataset(modes.TRAIN, p)
+    # the TRAIN half (tests/test_torch_nas.py holds its items to JAX's)
+    p.num_patches = 3
+    assert len(tsyn.SyntheticISRDataset(modes.TRAIN, p, num_images=2, hw=(31, 35))) == 6
 
 
 @pytest.mark.parametrize("video", [False, True], ids=["image", "video"])

@@ -219,9 +219,17 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "scripts", n) for n in os.listdir(os.path.join(REPO, "scripts"))
+              if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    # the NAS search slice's modules are among those checked
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for mod in ("ops/ste", "kernels/fused_convsep", "nas/speed_estimator", "nas/speed_loss", "nas/search",
+                "nas/artifact", "models/wdsr_nas", "train/state", "train/steps", "core/utils", "cli/search"):
+        assert os.path.join("mobilesuperresolution_tpu_torch", mod + ".py") in rel, mod
+    assert os.path.join("scripts", "torch_search_profile.py") in rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -232,8 +232,8 @@ def test_pretrain_refuses_what_is_not_ported(tmp_path, monkeypatch):
         pretrain.main(base + ["--device", "cpu"])
     with pytest.raises(NotImplementedError, match="eval_tile"):
         pretrain.main(base + ["--device", "cpu", "--eval_only", "--eval_tile", "64"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(SimpleNamespace(model_type="NAS_MODEL"), device="cpu")
+    with pytest.raises(KeyError, match="unknown SISR model_type"):
+        get_model(SimpleNamespace(model_type="WDSR_A"), device="cpu")
     with pytest.raises(NotImplementedError, match="int8"):
         get_model(SimpleNamespace(model_type="BASIC_MODEL", quantize="int8"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
