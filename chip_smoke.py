@@ -7,7 +7,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build the hand kernels from mobilesuperresolution_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card at the shapes
    the main path gives it, with kernel / plain / library-call times and the
-   kernel's roofline bound;
+   kernel's roofline bound; and B1 over all six pyramid levels of one window
+   (30 launches), per level and summed, against cuDNN;
 4. a tiny float32 BasicVSR on the card against the same model on the CPU;
 5. full-width serving: BasicVSR x4 (nf 24, 8 blocks, bf16) with seeded random
    weights through the JAX-checkpoint bridge, streamed by StreamingVSR
@@ -44,6 +45,7 @@ Needs CUDA; imports nothing of JAX.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -124,8 +126,39 @@ def f32_tol(want):
     return 1e-5 + 1e-4 * float(want.float().abs().max())
 
 
+def ptxas_summary(path):
+    """One line per entry function of an nvcc ``-Xptxas -v`` log: its name,
+    demangled by the toolkit's cu++filt, then ptxas's own registers and
+    spill lines."""
+    from mobilesuperresolution_tpu_torch.kernels import _build
+
+    entries = []  # [mangled name, registers line, spill line]
+    for ln in open(path):
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entries.append([m.group(1), "", ""])
+        elif entries and "registers" in ln:
+            entries[-1][1] = ln.split(":", 1)[1].strip()
+        elif entries and "spill" in ln:
+            entries[-1][2] = ln.strip()
+    filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    names = subprocess.run([filt, *(e[0] for e in entries)], capture_output=True, text=True, check=True,
+                           timeout=60).stdout.splitlines()
+    out = []
+    for name, (_, regs, spill) in zip(names, entries):
+        depth, cut = 0, len(name)  # drop the parameter list, the last (...) group
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                cut = i
+                break
+        name = name[:cut].removeprefix("void ").replace("<unnamed>::", "").replace("(int)", "")
+        out.append(f"{name}: {regs}; {spill}")
+    return out
+
+
 def phase_kernels(gen, dev):
-    from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain
+    from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain, pack_weights
     from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
         fused_conv_pixel_shuffle,
         fused_conv_pixel_shuffle_plain,
@@ -136,7 +169,7 @@ def phase_kernels(gen, dev):
 
     from mobilesuperresolution_tpu_torch.kernels.fused_convsep import fused_convsep, fused_convsep_plain
 
-    rows = {"B1": [], "B2": [], "B3": [], "B4": [], "B5": []}
+    rows = {"B1": [], "B2": [], "B3": [], "B4": [], "B5": []}  # + "B1_pyramid" below
 
     def rand(shape, dtype, scale=1.0):
         return ((torch.rand(shape, generator=gen) * 2 - 1) * scale).to(dev, dtype).contiguous()
@@ -150,13 +183,14 @@ def phase_kernels(gen, dev):
         x = rand((nimg, h, w, cin), dtype)
         wt = rand((5, 5, cin, cout), dtype, 1.0 / np.sqrt(25 * cin))
         b = rand((cout,), torch.float32, 0.1)
-        got = conv5x5_same(x, wt, b, relu)
+        wp = pack_weights(wt) if cout % 64 == 0 else None  # as SpyNet's prepare packs them, once
+        got = conv5x5_same(x, wt, b, relu, wp)
         want = conv5x5_same_plain(x, wt, b, relu)
         torch.cuda.synchronize()
         tag = f"B1 {nimg}x{h}x{w} {cin}->{cout} {str(dtype)[6:]}"
         err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
         xn, wn, bb = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(), b.to(dtype)
-        ms = cuda_ms(lambda: conv5x5_same(x, wt, b, relu))
+        ms = cuda_ms(lambda: conv5x5_same(x, wt, b, relu, wp))
         plain_ms = cuda_ms(lambda: conv5x5_same_plain(x, wt, b, relu))
         lib_ms = cuda_ms(lambda: F.conv2d(xn, wn, bb, padding=2))
         flops = 2.0 * nimg * h * w * cin * cout * 25
@@ -165,6 +199,36 @@ def phase_kernels(gen, dev):
         rows["B1"].append(dict(case=tag, main_path=dtype == torch.bfloat16, max_abs_err=err, ms=ms,
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
                                gflop=flops / 1e9))
+
+    # B1 over one window's whole pyramid: SpyNet's six levels (426x240 is
+    # resized to 448x256, then halved five times; the s2d convs run at half
+    # each level's size), five convs each, 30 launches, bf16
+    pyramid = []
+    for lvl in range(6):
+        lh, lw = h >> lvl, w >> lvl
+        lv = dict(level=f"{n}x{lh}x{lw}", ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+        for cin, cout, relu in shapes:
+            x = rand((n, lh, lw, cin), torch.bfloat16)
+            wt = rand((5, 5, cin, cout), torch.bfloat16, 1.0 / np.sqrt(25 * cin))
+            b = rand((cout,), torch.float32, 0.1)
+            wp = pack_weights(wt) if cout % 64 == 0 else None
+            got = conv5x5_same(x, wt, b, relu, wp)
+            want = conv5x5_same_plain(x, wt, b, relu)
+            torch.cuda.synchronize()
+            tag = f"B1 pyramid {n}x{lh}x{lw} {cin}->{cout}"
+            lv["max_abs_err"] = max(lv["max_abs_err"], check(tag, got, want, bf16_tol(want)))
+            xn, wn, bb = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(), b.to(torch.bfloat16)
+            lv["ms"] += cuda_ms(lambda: conv5x5_same(x, wt, b, relu, wp))
+            lv["library_ms"] += cuda_ms(lambda: F.conv2d(xn, wn, bb, padding=2))
+            lv["bound_ms"] += bound(2.0 * n * lh * lw * cin * cout * 25, nbytes(x, wt, b, got), torch.bfloat16)[0]
+        pyramid.append(lv)
+        log(f"    level {lv['level']}: B1 {lv['ms']:.4f} ms, library {lv['library_ms']:.4f}, "
+            f"bound {lv['bound_ms']:.4f} (five convs)")
+    rows["B1_pyramid"] = dict(levels=pyramid, launches=B1_PER_WINDOW, ms=sum(lv["ms"] for lv in pyramid),
+                              library_ms=sum(lv["library_ms"] for lv in pyramid),
+                              bound_ms=sum(lv["bound_ms"] for lv in pyramid))
+    log(f"  B1 over one window's six levels ({B1_PER_WINDOW} launches): {rows['B1_pyramid']['ms']:.4f} ms, "
+        f"library {rows['B1_pyramid']['library_ms']:.4f}, bound {rows['B1_pyramid']['bound_ms']:.4f}")
 
     # B2: the main-path tail (2x2, pad ((1,2),(1,2)), 48 -> 48, s=4, crop to
     # (4h+1, 4w+1)) in bf16, and the Pallas kernel's 3x3/pad-1 form at s=2 in f32
@@ -356,22 +420,26 @@ def phase_serving(dev):
     if launches != {"B1": B1_PER_WINDOW * windows, "B2": B2_PER_WINDOW * windows}:
         raise AssertionError(f"launch counts {launches} for {windows} windows")
 
-    # steady-state forward of one 10-frame window, and the flow stage alone
+    # steady-state forward of one 10-frame window, the mean of 15 timed
+    # forwards (three repeats of five, each repeat's mean kept to show host
+    # stalls: the window issues ~1,000 launches), and the flow stage alone
     x = torch.from_numpy(np.stack(frames[:T_WIN])[None]).to(dev)
     with torch.inference_mode():
-        win_ms = cuda_ms(lambda: model(x, OH, OW), iters=5, warmup=2)
+        win_repeats = [cuda_ms(lambda: model(x, OH, OW), iters=5, warmup=2) for _ in range(3)]
+        win_ms = sum(win_repeats) / len(win_repeats)
         xb = x.to(torch.bfloat16)
         flow_ms = cuda_ms(lambda: compute_flows(model.spynet, xb), iters=5, warmup=1)
         sr = model(x, OH, OW)
     torch.cuda.synchronize()
     stats = dict(
-        window_ms=win_ms, fps=T_WIN / win_ms * 1e3, spynet_flows_ms=flow_ms,
+        window_ms=win_ms, window_ms_repeats=win_repeats, fps=T_WIN / win_ms * 1e3, spynet_flows_ms=flow_ms,
         stream_frames=len(out), stream_windows=windows, stream_wall_s=wall,
         stream_fps_end_to_end=len(out) / wall, launches=launches,
         out_min=float(sr.min()), out_max=float(sr.max()),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    log(f"  window forward {win_ms:.3f} ms = {stats['fps']:.2f} frames/s; "
+    log(f"  window forward {win_ms:.3f} ms = {stats['fps']:.2f} frames/s "
+        f"(repeats {', '.join(f'{r:.3f}' for r in win_repeats)} ms); "
         f"SpyNet flows {flow_ms:.3f} ms; output range [{stats['out_min']:.3f}, {stats['out_max']:.3f}]")
     return stats, launches, windows
 
@@ -650,8 +718,8 @@ def main():
         secs = _build.build()
         log(f"built kernels {_build.SOURCES} in {secs:.1f} s")
         for name in _build.SOURCES:
-            info = [ln for ln in open(os.path.join(_build.BUILD_DIR, f"{name}.log")) if "registers" in ln or "spill" in ln]
-            log("".join(f"  {name}: {ln.strip()}\n" for ln in info[-6:]).rstrip())
+            for line in ptxas_summary(os.path.join(_build.BUILD_DIR, f"{name}.log")):
+                log(f"  {name}: {line}")
         report["build_s"] = secs
 
         log("kernels vs plain:")

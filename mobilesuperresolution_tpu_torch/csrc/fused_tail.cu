@@ -8,19 +8,42 @@
 // the main-path reconstruction tail (ops/layers.py::SubpixelConvTranspose):
 // a 2x2 conv with pad ((1,2),(1,2)), 48 -> 48 channels, s = 4, cropped to
 // (4h+1, 4w+1). At (10, 240, 426, 48) -> (10, 961, 1705, 3) that is ~19 GFLOP
-// and ~196 MB in bf16, so the op is bound by bytes: the (s^2*C)-channel conv
-// output never goes to device memory, and only pixels inside the crop are
-// computed and written.
+// and ~196 MB in bf16, so the op is bound by bytes (0.059 ms on an H100): the
+// (s^2*C)-channel conv output never goes to device memory, and only pixels
+// inside the crop are computed and written.
 //
-// Design: one thread per low-resolution conv position, holding all conv
-// output channels (<= 64) in f32 registers. A block covers 16 x 16 positions;
-// the input halo tile and the weights are staged in shared memory 8 input
-// channels at a time (as f32; bf16 inputs are widened exactly), so every
-// weight read is a broadcast. The epilogue adds the bias and scatters each
-// channel to its depth-to-space pixel, rounding once to the working dtype.
-// CUDA-core FMA, no tensor cores yet.
+// bf16 design (the main path): an implicit GEMM on the tensor cores,
+// mma.sync m16n8k16 with ldmatrix. M is a tile of 8 x 16 conv positions (a
+// warp owns two rows: two m16 tiles), K is KH*KW*Cin (192 on the path), N
+// the conv channels rounded up to 8 (48). The op is bound by bytes, so
+// mma.sync is enough: the 19 GFLOP need ~0.03 ms at its rate against the
+// 0.059 ms bytes bound, and wgmma's 64-row tiles would not fit the 8 x 16
+// tile. The grid is persistent (as many blocks as fit, each walking tiles):
+// - the weights (bf16, rounded by the wrapper) are staged once per block;
+// - the input halo is staged as bf16 with 16-byte cp.async (zero-filled
+//   outside the image and past Cin), double-buffered: the next tile's copy
+//   is in flight during this tile's MMAs. Pixel and weight-row strides are
+//   odd multiples of 16 bytes, so ldmatrix phases are free of bank
+//   conflicts;
+// - the epilogue adds the bias in f32, rounds once, writes the depth-to-space
+//   tile into the tile's own (now free) halo buffer in output order, then
+//   copies it out one output row per warp, consecutive lanes on consecutive
+//   4-byte words (a row of y is 2-byte aligned only: one element is peeled).
+//   The crop masks the last partial tiles.
+// Any KH, KW, padding, s, crop and Cin (Cc <= 64) are taken: weights too large
+// to stage at once are staged per chunk of input channels and group of kernel
+// rows (slower; never on the path), and Cin or Cc not a multiple of 8 stage
+// through a synchronous zero-filling loop.
 //
-// Kernel B4 is the same kernel with a second source: the WDSR / ResultNet
+// f32 design (and B4): one thread per low-resolution conv position, holding
+// all conv output channels (<= 64) in f32 registers. A block covers 16 x 16
+// positions; the input halo tile and the weights are staged in shared memory
+// 8 input channels at a time (as f32; bf16 inputs are widened exactly), so
+// every weight read is a broadcast. The epilogue adds the bias and scatters
+// each channel to its depth-to-space pixel, rounding once to the working
+// dtype. CUDA-core FMA, full f32.
+//
+// Kernel B4 is the CUDA-core kernel with a second source: the WDSR / ResultNet
 // tail (mobilesuperresolution_tpu/models/wdsr_basic.py:67-73,
 // result_net.py:74-77), depth_to_space(conv3x3(body) + conv5x5(x_skip) +
 // bias, s), where the 5x5 skip conv reads the mean-subtracted 3-channel
@@ -36,6 +59,10 @@
 
 #include <algorithm>
 #include <type_traits>
+
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
@@ -225,23 +252,314 @@ bool bad_geometry(int n, int hc, int wc, int cin, int cc, int s) {
          cc % (s * s) != 0;
 }
 
+// ---- B2 in bf16: tensor cores (mma.sync m16n8k16), persistent grid ----
+
+constexpr int M_TH = 8;    // conv rows per tile (two per warp)
+constexpr int M_TW = 16;   // conv columns per tile (one m16 per conv row)
+constexpr int M_THREADS = 128;
+constexpr int M_SMEM_MAX = 232448;
+
+// Shared-memory plan of one launch, computed on the host and passed by value.
+struct MmaPlan {
+  int kch;          // input channels per halo chunk (multiple of 16)
+  int kyg;          // kernel rows whose weights are staged together
+  int hw;           // halo width, M_TW + KW - 1
+  int pstr;         // halo pixel stride in bytes: an odd number of 16-byte chunks
+  int wstr;         // weight row stride in bytes: an odd number of 16-byte chunks
+  int halo_bytes;   // one halo buffer; once its tile's MMAs are done, the tile's output stage
+  int wts_bytes;
+};
+
+template <int NB>
+__device__ __forceinline__ void tail_mma_piece(float (&acc)[2][NB][4], uint32_t halo_s, uint32_t wts_s,
+                                               const MmaPlan& pl, int KW, int ky0, int ky1, int ksteps,
+                                               int warp, int lane) {
+  for (int ky = ky0; ky < ky1; ++ky) {
+    for (int kx = 0; kx < KW; ++kx) {
+      const int row0 = ((ky - ky0) * KW + kx) * pl.kch;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int p = (2 * warp + mi + ky) * pl.hw + (lane & 15) + kx;
+          ldmatrix_x4(a[mi], halo_s + p * pl.pstr + (ks * 2 + (lane >> 4)) * 16);
+        }
+        const int krow = row0 + ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        uint32_t b[NB][2];
+#pragma unroll
+        for (int q = 0; q + 1 < NB; q += 2) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, wts_s + krow * pl.wstr + (q + (lane >> 4)) * 16);
+          b[q][0] = r[0]; b[q][1] = r[1]; b[q + 1][0] = r[2]; b[q + 1][1] = r[3];
+        }
+        if (NB % 2) ldmatrix_x2_trans(b[NB - 1], wts_s + krow * pl.wstr + (NB - 1) * 16);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int q = 0; q < NB; ++q) mma_16816(acc[mi][q], a[mi], b[q]);
+      }
+    }
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(M_THREADS) fused_tail_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H, int W, int Cin,
+    int KH, int KW, int pad_t, int pad_l, int Cc, int s, int Hc, int Wc, int out_h, int out_w,
+    int tiles_w, int tiles_h, int ntiles, MmaPlan pl) {
+  extern __shared__ __align__(128) unsigned char tail_smem[];
+  unsigned char* halo = tail_smem;                     // [2][HH * hw] pixels of pstr bytes
+  unsigned char* wts = tail_smem + 2 * pl.halo_bytes;  // [kyg * KW * kch] rows of wstr bytes
+  const uint32_t halo_s = smem_u32(halo), wts_s = smem_u32(wts);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int ss = s * s, C = Cc / ss, HH = M_TH + KH - 1;
+  const int cin_pad = (Cin + 15) / 16 * 16;
+  const int nchunks = (cin_pad + pl.kch - 1) / pl.kch, nkg = (KH + pl.kyg - 1) / pl.kyg;
+  const bool resident = nchunks == 1 && nkg == 1;
+  const bool vec_x = Cin % 8 == 0, vec_w = Cc % 8 == 0;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+
+  // Where conv channel n = c*s^2 + i*s + j of a position lands in the output
+  // stage, relative to the position's top-left pixel; -1 past Cc.
+  int off[NB][2];
+  float bv[NB][2];
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * q + 2 * t + e;
+      off[q][e] = n < Cc ? (((n % ss) / s) * (M_TW * s) + n % s) * C + n / ss : -1;
+      bv[q][e] = n < Cc ? bias[n] : 0.f;
+    }
+
+  auto tile_origin = [&](int tile, int& img, int& cy0, int& cx0) {
+    const int tx = tile % tiles_w, ty = (tile / tiles_w) % tiles_h;
+    img = tile / (tiles_w * tiles_h);
+    cy0 = ty * M_TH;
+    cx0 = tx * M_TW;
+  };
+  auto stage_halo = [&](int buf, int tile, int chunk) {
+    int img, cy0, cx0;
+    tile_origin(tile, img, cy0, cx0);
+    const int cpp = pl.kch / 8;
+    const size_t img_px = size_t(img) * H * W;
+    for (int idx = tid; idx < HH * pl.hw * cpp; idx += M_THREADS) {
+      const int p = idx / cpp, c = idx % cpp;
+      const int gy = cy0 + p / pl.hw - pad_t, gx = cx0 + p % pl.hw - pad_l;
+      const int ch = chunk * pl.kch + c * 8;
+      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const int o = buf * pl.halo_bytes + p * pl.pstr + c * 16;
+      const __nv_bfloat16* src = x + (img_px + size_t(gy) * W + gx) * Cin + ch;
+      if (vec_x) {
+        const bool ok = inside && ch < Cin;
+        cp_async16(halo_s + o, ok ? src : x, ok);
+      } else {
+        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(halo + o);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) dst[k] = (inside && ch + k < Cin) ? src[k] : zero;
+      }
+    }
+  };
+  auto stage_wts = [&](int chunk, int ky0, int ky1) {
+    const int rows = (ky1 - ky0) * KW * pl.kch;
+    for (int idx = tid; idx < rows * NB; idx += M_THREADS) {
+      const int r = idx / NB, j = idx % NB;
+      const int ky = ky0 + r / (KW * pl.kch), kx = (r / pl.kch) % KW, c = chunk * pl.kch + r % pl.kch;
+      const int o = r * pl.wstr + j * 16;
+      const __nv_bfloat16* src = w + ((size_t(ky) * KW + kx) * Cin + c) * Cc + 8 * j;
+      if (vec_w) {
+        const bool ok = c < Cin && 8 * j < Cc;
+        cp_async16(wts_s + o, ok ? src : w, ok);
+      } else {
+        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(wts + o);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) dst[k] = (c < Cin && 8 * j + k < Cc) ? src[k] : zero;
+      }
+    }
+  };
+  // Bias, one rounding, depth-to-space into the output stage (halo buffer sb,
+  // free once the tile's MMAs are done), then the stage's rows out to y, one
+  // row per warp, consecutive lanes on consecutive 4-byte words.
+  auto finish = [&](float (&acc)[2][NB][4], int tile, int sb) {
+    __nv_bfloat16* ost = reinterpret_cast<__nv_bfloat16*>(halo + sb * pl.halo_bytes);  // [M_TH*s][M_TW*s][C]
+    int img, cy0, cx0;
+    tile_origin(tile, img, cy0, cx0);
+    const int row_el = M_TW * s * C;  // elements in one stage row
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int base = ((2 * warp + mi) * s * (M_TW * s) + (g + 8 * h) * s) * C;
+#pragma unroll
+        for (int q = 0; q < NB; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (off[q][e] >= 0) ost[base + off[q][e]] = __float2bfloat16(acc[mi][q][2 * h + e] + bv[q][e]);
+      }
+    __syncthreads();
+    const int oy0 = cy0 * s, ox0 = cx0 * s;
+    const int nel = min(M_TW * s, out_w - ox0) * C;
+    for (int rr = warp; rr < M_TH * s; rr += M_THREADS / 32) {
+      const int oy = oy0 + rr;
+      if (oy >= out_h) break;
+      // a row of y is 2-byte aligned only: peel one element to reach 4 bytes
+      const size_t ge = ((size_t(img) * out_h + oy) * out_w + ox0) * C;
+      const int head = int(ge & 1);
+      const __nv_bfloat16* srow = ost + rr * row_el;
+      __nv_bfloat16* grow = y + ge;
+      if (head && lane == 0) grow[0] = srow[0];
+      for (int e0 = head + 2 * lane; e0 < nel; e0 += 64) {
+        if (e0 + 1 < nel) {
+          __nv_bfloat162 v;
+          v.x = srow[e0];
+          v.y = srow[e0 + 1];
+          *reinterpret_cast<__nv_bfloat162*>(grow + e0) = v;
+        } else {
+          grow[e0] = srow[e0];
+        }
+      }
+    }
+    __syncthreads();  // the stage is read out before its buffer takes a halo again
+  };
+  auto zero_acc = [&](float (&acc)[2][NB][4]) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][q][e] = 0.f;
+  };
+
+  float acc[2][NB][4];
+  const int first = blockIdx.x;
+  if (resident) {
+    // Weights once per block; the next tile's halo is in flight while this
+    // tile computes.
+    stage_wts(0, 0, KH);
+    cp_async_commit();
+    stage_halo(0, first, 0);
+    cp_async_commit();
+    for (int tile = first, buf = 0; tile < ntiles; tile += gridDim.x, buf ^= 1) {
+      if (tile + gridDim.x < ntiles) {
+        stage_halo(buf ^ 1, tile + gridDim.x, 0);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      zero_acc(acc);
+      tail_mma_piece<NB>(acc, halo_s + buf * pl.halo_bytes, wts_s, pl, KW, 0, KH, cin_pad / 16, warp, lane);
+      __syncthreads();  // every warp is done with the halo buffer: it becomes the output stage
+      finish(acc, tile, buf);
+    }
+  } else {
+    // Geometries whose weights do not fit at once: chunks of input channels
+    // and groups of kernel rows, each staged synchronously.
+    for (int tile = first; tile < ntiles; tile += gridDim.x) {
+      zero_acc(acc);
+      for (int chunk = 0; chunk < nchunks; ++chunk) {
+        const int ksteps = min(pl.kch, cin_pad - chunk * pl.kch) / 16;
+        for (int ky0 = 0; ky0 < KH; ky0 += pl.kyg) {
+          const int ky1 = min(KH, ky0 + pl.kyg);
+          __syncthreads();
+          if (ky0 == 0) stage_halo(0, tile, chunk);
+          stage_wts(chunk, ky0, ky1);
+          cp_async_commit();
+          cp_async_wait<0>();
+          __syncthreads();
+          tail_mma_piece<NB>(acc, halo_s, wts_s, pl, KW, ky0, ky1, ksteps, warp, lane);
+        }
+      }
+      __syncthreads();
+      finish(acc, tile, 0);
+    }
+  }
+}
+
+// The largest channel chunk, then the most kernel rows, whose staging fits.
+bool plan_mma(int kh, int kw, int cin, int cc, int nb, MmaPlan& pl) {
+  const int cin_pad = (cin + 15) / 16 * 16;
+  pl.hw = M_TW + kw - 1;
+  pl.wstr = (nb | 1) * 16;
+  const int stage_bytes = M_TH * M_TW * cc * 2;
+  for (int kch = cin_pad; kch >= 16; kch -= 16) {
+    for (int kyg = kh; kyg >= 1; --kyg) {
+      pl.kch = kch;
+      pl.kyg = kyg;
+      pl.pstr = (kch / 8 + 1) * 16;
+      pl.halo_bytes = std::max((M_TH + kh - 1) * pl.hw * pl.pstr, stage_bytes);
+      pl.wts_bytes = kyg * kw * kch * pl.wstr;
+      if (2 * pl.halo_bytes + pl.wts_bytes <= M_SMEM_MAX) return true;
+    }
+  }
+  return false;
+}
+
+template <int NB>
+cudaError_t launch_mma_nb(const void* x, const void* w, const float* b, void* y, int n, int h,
+                          int wd, int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s,
+                          int hc, int wc, int out_h, int out_w, cudaStream_t stream) {
+  MmaPlan pl;
+  if (!plan_mma(kh, kw, cin, cc, NB, pl)) return cudaErrorInvalidConfiguration;
+  const int smem = 2 * pl.halo_bytes + pl.wts_bytes;
+  auto kern = fused_tail_mma_kernel<NB>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, M_THREADS, smem)) != cudaSuccess)
+    return err;
+  const int tiles_w = (wc + M_TW - 1) / M_TW, tiles_h = (hc + M_TH - 1) / M_TH;
+  const int ntiles = tiles_w * tiles_h * n;
+  const int grid = std::max(1, std::min(ntiles, std::max(per_sm, 1) * sms));
+  kern<<<grid, M_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), b,
+      static_cast<__nv_bfloat16*>(y), h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w,
+      tiles_w, tiles_h, ntiles, pl);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma(const void* x, const void* w, const float* b, void* y, int n, int h, int wd,
+                       int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc, int wc,
+                       int out_h, int out_w, cudaStream_t st) {
+  switch ((cc + 7) / 8) {
+#define TAIL_NB(NB) \
+  case NB: return launch_mma_nb<NB>(x, w, b, y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, st);
+    TAIL_NB(1) TAIL_NB(2) TAIL_NB(3) TAIL_NB(4) TAIL_NB(5) TAIL_NB(6) TAIL_NB(7) TAIL_NB(8)
+#undef TAIL_NB
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// B2. x (n, h, wd, cin) bf16 or f32; w (kh, kw, cin, cc) f32; b (cc,) f32;
-// y (n, out_h, out_w, cc / s^2) in x's dtype, all contiguous. hc, wc: conv
-// output positions to compute (those that reach the crop). Launches on
-// `stream`, does not synchronise, returns cudaGetLastError() after the launch.
+// B2 in f32. x (n, h, wd, cin), w (kh, kw, cin, cc), b (cc,) and y (n, out_h,
+// out_w, cc / s^2), all f32 and contiguous. hc, wc: conv output positions to
+// compute (those that reach the crop). Launches on `stream`, does not
+// synchronise, returns cudaGetLastError() after the launch.
 extern "C" int fused_conv_pixel_shuffle_launch(
     const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
     int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc,
-    int wc, int out_h, int out_w, int is_bf16, void* stream) {
+    int wc, int out_h, int out_w, void* stream) {
   if (bad_geometry(n, hc, wc, cin, cc, s)) return int(cudaErrorInvalidValue);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return int(launch<__nv_bfloat16>(x, wf, bf, y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, st));
-  return int(launch<float>(x, wf, bf, y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, st));
+  return int(launch<float>(x, static_cast<const float*>(w), static_cast<const float*>(b), y, n, h, wd, cin, kh,
+                           kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, static_cast<cudaStream_t>(stream)));
+}
+
+// B2 in bf16 on the tensor cores: x (n, h, wd, cin) bf16; w (kh, kw, cin, cc)
+// bf16; b (cc,) f32; y (n, out_h, out_w, cc / s^2) bf16, all contiguous.
+// Otherwise as fused_conv_pixel_shuffle_launch.
+extern "C" int fused_conv_pixel_shuffle_bf16_launch(
+    const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
+    int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc,
+    int wc, int out_h, int out_w, void* stream) {
+  if (bad_geometry(n, hc, wc, cin, cc, s) || kh <= 0 || kw <= 0) return int(cudaErrorInvalidValue);
+  return int(launch_mma(x, w, static_cast<const float*>(b), y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s,
+                        hc, wc, out_h, out_w, static_cast<cudaStream_t>(stream)));
 }
 
 // B4. As B2 over two sources summed before the bias: x (n, h, wd, cin) with

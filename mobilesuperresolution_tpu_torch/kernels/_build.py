@@ -4,12 +4,14 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``: a few seconds
 per source, where a build against PyTorch's headers takes minutes. Sources
 build in parallel, at first use, into ``_build/`` beside ``csrc/`` (listed in
-.gitignore); a library newer than its source is reused. Nothing here runs at
+.gitignore); a library newer than its source and than every ``csrc/`` header
+the source includes (``hopper.cuh``) is reused. Nothing here runs at
 import time, so the CPU-only test suite imports every kernel module.
 """
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +46,22 @@ def _paths(name):
     return os.path.join(CSRC, f"{name}.cu"), os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def _deps(name):
+    """The source and every header of ``csrc/`` it includes (``#include "x.cuh"``)."""
+    src = _paths(name)[0]
+    with open(src) as f:
+        heads = re.findall(r'^\s*#\s*include\s+"([^"]+)"', f.read(), re.M)
+    return [src] + [os.path.join(CSRC, h) for h in heads]
+
+
 def _stale(name):
-    src, lib = _paths(name)
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    """A library is rebuilt when it is missing or older than its source or
+    any header that source includes."""
+    lib = _paths(name)[1]
+    if not os.path.exists(lib):
+        return True
+    built = os.path.getmtime(lib)
+    return any(built < os.path.getmtime(d) for d in _deps(name))
 
 
 def build(names=SOURCES):

@@ -12,8 +12,12 @@ pad-((1,2),(1,2))/s=4 reconstruction tail of BasicVSR
 shape (see the source note). B4, ``fused_conv_pixel_shuffle_skip``, is the
 tail of models/wdsr_basic.py::BasicModel and models/result_net.py::ResultNet:
 depth_to_space(conv_tail(body) + conv_skip(x_skip) + bias, s), both convs
-SAME. On CPU tensors each wrapper runs its plain version; on CUDA tensors it
-launches the kernel or raises.
+SAME. B2 in bf16 (the main path) runs a tensor-core kernel (mma.sync, cp.async
+double-buffered halo, persistent grid, depth-to-space staged in shared memory
+and written out row by row); B2 in float32 and B4 run the CUDA-core kernel.
+That routing by dtype between hand kernels is a design choice, not a fallback.
+On CPU tensors each wrapper runs its plain version; on CUDA tensors it
+launches a kernel or raises.
 """
 
 import ctypes
@@ -25,7 +29,8 @@ from mobilesuperresolution_tpu_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "fused_conv_pixel_shuffle_launch": [_P] * 4 + [_I] * 15 + [_P],
+    "fused_conv_pixel_shuffle_launch": [_P] * 4 + [_I] * 14 + [_P],
+    "fused_conv_pixel_shuffle_bf16_launch": [_P] * 4 + [_I] * 14 + [_P],
     "fused_conv_pixel_shuffle_skip_launch": [_P] * 4 + [_I] * 14 + [_P] * 2 + [_I] * 8 + [_P],
 }
 MAX_CONV_CHANNELS = 64
@@ -60,29 +65,36 @@ def _output(x, kernel, scale, padding, crop):
 
 
 def _launch(x, kernel, bias, scale, padding, crop, y, x_skip=None, kernel_skip=None):
-    """Launch csrc/fused_tail.cu on checked CUDA tensors: B2, or B4 when
-    ``x_skip`` is given. Kernels and bias are rounded to x.dtype, then read
-    as f32."""
+    """Launch csrc/fused_tail.cu on checked CUDA tensors: B4 when ``x_skip``
+    is given (the CUDA-core kernel), else B2 (the tensor-core kernel in bf16,
+    the CUDA-core kernel in f32). Kernels and bias are rounded to x.dtype; the
+    tensor-core kernel reads the kernel as bf16, the CUDA-core one as f32, and
+    both read the bias as f32."""
     hc, wc, oh, ow = _geometry(x, kernel, scale, padding, crop)
     (pt, _), (pl, _) = padding
-    w32 = kernel.to(x.dtype).float().contiguous()
+    geom = (*x.shape, kernel.shape[0], kernel.shape[1], pt, pl, kernel.shape[3], scale,
+            min(hc, -(-oh // scale)), min(wc, -(-ow // scale)), oh, ow)
     b32 = bias.to(x.dtype).float().contiguous()
-    n, h, wd, cin = x.shape
-    fn, skip = "fused_conv_pixel_shuffle_launch", ()
+    w = kernel.to(x.dtype).contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.load("fused_tail", _SIGNATURES)
     if x_skip is not None:
+        w32 = w.float()
         ws32 = kernel_skip.to(x.dtype).float().contiguous()
         k2 = kernel_skip.shape[0]
-        fn = "fused_conv_pixel_shuffle_skip_launch"
-        skip = (x_skip.data_ptr(), ws32.data_ptr(), x_skip.shape[1], x_skip.shape[2],
-                x_skip.shape[3], k2, kernel_skip.shape[1], k2 // 2, kernel_skip.shape[1] // 2)
-    lib = _build.load("fused_tail", _SIGNATURES)
-    _build.launch(
-        lib, fn,
-        x.data_ptr(), w32.data_ptr(), b32.data_ptr(), y.data_ptr(),
-        n, h, wd, cin, kernel.shape[0], kernel.shape[1], pt, pl, kernel.shape[3], scale,
-        min(hc, -(-oh // scale)), min(wc, -(-ow // scale)), oh, ow,
-        *skip, int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
-    )
+        _build.launch(
+            lib, "fused_conv_pixel_shuffle_skip_launch",
+            x.data_ptr(), w32.data_ptr(), b32.data_ptr(), y.data_ptr(), *geom,
+            x_skip.data_ptr(), ws32.data_ptr(), x_skip.shape[1], x_skip.shape[2], x_skip.shape[3],
+            k2, kernel_skip.shape[1], k2 // 2, kernel_skip.shape[1] // 2,
+            int(x.dtype == torch.bfloat16), stream,
+        )
+    elif x.dtype == torch.bfloat16:
+        _build.launch(lib, "fused_conv_pixel_shuffle_bf16_launch",
+                      x.data_ptr(), w.data_ptr(), b32.data_ptr(), y.data_ptr(), *geom, stream)
+    else:
+        _build.launch(lib, "fused_conv_pixel_shuffle_launch",
+                      x.data_ptr(), w.data_ptr(), b32.data_ptr(), y.data_ptr(), *geom, stream)
 
 
 def fused_conv_pixel_shuffle_plain(x, kernel, bias, scale, padding=((1, 1), (1, 1)), crop=None):
@@ -101,8 +113,9 @@ def fused_conv_pixel_shuffle(x, kernel, bias, scale, padding=((1, 1), (1, 1)), c
     """x: (B, H, W, C) bf16 or f32; kernel: (KH, KW, C, s²·C'), at most 64
     conv channels; bias: (s²·C',); padding: ((top, bottom), (left, right));
     crop: (out_h, out_w) or None for the whole shuffled map. Accumulates in
-    f32 (kernel and bias are read as f32, rounded to x.dtype first) and
-    writes (B, out_h, out_w, C') in x.dtype."""
+    f32 (kernel and bias rounded to x.dtype first) and writes (B, out_h,
+    out_w, C') in x.dtype. On the card, bf16 runs the tensor-core kernel and
+    float32 the CUDA-core one (csrc/fused_tail.cu)."""
     if x.device.type == "cpu":
         return fused_conv_pixel_shuffle_plain(x, kernel, bias, scale, padding, crop)
     if x.device.type != "cuda":

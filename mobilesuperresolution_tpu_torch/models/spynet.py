@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same
+from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, pack_weights
 from mobilesuperresolution_tpu_torch.ops.layers import depth_to_space, space_to_depth
 from mobilesuperresolution_tpu_torch.ops.quant import conv2d_maybe_quantized
 from mobilesuperresolution_tpu_torch.ops.resize import avg_pool_2x2, replicate_pad_hw, resize_bilinear
@@ -43,23 +43,25 @@ class SpyNetBasicModule(nn.Module):
         self.prepare()
 
     def prepare(self, dtype=None):
-        """Derive the s2d 5x5 weights (and the direct OIHW ones) in ``dtype``
-        (default: the last one used)."""
+        """Derive the s2d 5x5 weights (HWIO and packed for kernel B1), and the
+        direct OIHW ones, in ``dtype`` (default: the last one used)."""
         dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
         self._s2d, self._direct = [], []
         for i in range(len(_SPYNET_CHANNELS)):
             k = getattr(self, f"conv{i}_kernel").detach()
             b = getattr(self, f"conv{i}_bias").detach()
-            self._s2d.append((s2d_transform_weights(k).to(dtype).contiguous(),
-                              b.repeat_interleave(4).to(dtype)))
+            w2 = s2d_transform_weights(k).to(dtype).contiguous()
+            wp = pack_weights(w2) if w2.shape[3] % 64 == 0 else None
+            # the bias rounded to dtype, kept in f32 as kernel B1 adds it (no cast per call)
+            self._s2d.append((w2, b.repeat_interleave(4).to(dtype).float(), wp))
             self._direct.append((k.permute(3, 2, 0, 1).to(dtype).contiguous(), b.to(dtype)))
 
     def forward(self, x):
         last = len(_SPYNET_CHANNELS) - 1
         if x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
             y = space_to_depth(x, 2)
-            for i, (w2, b2) in enumerate(self._s2d):
-                y = conv5x5_same(y, w2, b2, relu=i < last)
+            for i, (w2, b2, wp) in enumerate(self._s2d):
+                y = conv5x5_same(y, w2, b2, relu=i < last, w_packed=wp)
             return depth_to_space(y, 2)
         y = x
         for i, (w, b) in enumerate(self._direct):

@@ -1,15 +1,22 @@
-"""Time kernel B2 (csrc/fused_tail.cu) at the VSR tail shape, for the
+"""Time kernels B1 (csrc/conv5x5.cu) and B2 (csrc/fused_tail.cu) at their
+main-path shapes, and the full-width window forward that runs them, for the
 checkout given by ``--root``, so that two commits can be held against each
 other on one card in one run:
 
     python3 scripts/torch_tail_bench.py --root old_checkout
     python3 scripts/torch_tail_bench.py --root .
 
-The shape is BasicVSR x4's reconstruction tail, (10, 240, 426, 48) bf16, 2x2
-conv with padding ((1, 2), (1, 2)), s = 4, cropped to 961x1705: the case
-``chip_smoke.py`` reports as B2's main path. Prints one JSON line with the
-mean ms of 50 calls (CUDA events) in each of 5 repeats, the card's name and
-power limit, and the kernel's register count from the build log. Needs CUDA.
+B1: SpyNet's five finest-level space-to-depth convs of one BasicVSR window,
+(18, 128, 224) bf16, 32->128, 128->256, 256->128, 128->64 (ReLU) and 64->8,
+the cases ``chip_smoke.py`` reports as B1's main path. B2: BasicVSR x4's
+reconstruction tail, (10, 240, 426, 48) bf16, 2x2 conv with padding
+((1, 2), (1, 2)), s = 4, cropped to 961x1705. Window: BasicVSR x4 (nf 24,
+8 blocks, bf16, seeded random weights) on chip_smoke.py's 10 synthetic
+426x240 frames, as chip_smoke.py times it. Prints one JSON line with, per
+case, the mean ms of 20 calls (B2: 50, window: 5; CUDA events) in each of 5
+repeats and the mean over all of them, the card's name and power limit, and
+the kernels' registers and spills from the build logs (chip_smoke.py's
+ptxas_summary). Needs CUDA.
 """
 
 import argparse
@@ -18,7 +25,26 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+B1_CASES = [(32, 128, True), (128, 256, True), (256, 128, True), (128, 64, True), (64, 8, False)]
+
+
+def repeats(call, n_repeats=5, iters=20):
+    out = []
+    for _ in range(n_repeats):
+        for _ in range(3):
+            call()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            call()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    return out
 
 
 def main():
@@ -28,41 +54,66 @@ def main():
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from mobilesuperresolution_tpu_torch.kernels import _build
+    from mobilesuperresolution_tpu_torch.kernels import conv5x5 as b1
     from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    # this checkout's chip_smoke.py: frames and the ptxas summary (the port's
+    # package is imported from --root above, so its submodules stay root's)
+    sys.path.append(REPO)
+    from chip_smoke import H_LR, OH, OW, T_WIN, W_LR, ptxas_summary, synthetic_stream
 
     if not torch.cuda.is_available():
         print("torch_tail_bench: CUDA is not available", file=sys.stderr)
         return 1
-    _build.build(("fused_tail",))
+    _build.build(("conv5x5", "fused_tail"))
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
-    n, h, w, c, s = 10, 240, 426, 48, 4
-    x = (torch.rand((n, h, w, c), generator=g) * 2 - 1).to(dev, torch.bfloat16)
-    kern = ((torch.rand((2, 2, c, c), generator=g) * 2 - 1) / 14).to(dev, torch.bfloat16)
-    b = (torch.rand((c,), generator=g) * 0.2 - 0.1).to(dev, torch.bfloat16)
 
-    def call():
+    def rand(shape, scale=1.0, dtype=torch.bfloat16):
+        return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
+
+    report = {"root": args.root, "b1_ms": {}, "checksum": {}}
+    for cin, cout, relu in B1_CASES:
+        x = rand((18, 128, 224, cin))
+        wt = rand((5, 5, cin, cout), (25 * cin) ** -0.5)
+        b = rand((cout,), 0.1, torch.float32)
+        # the main path passes the weights packed once (SpyNet's prepare);
+        # a checkout without packing takes HWIO only
+        kw = {"w_packed": b1.pack_weights(wt)} if hasattr(b1, "pack_weights") and cout % 64 == 0 else {}
+        out = b1.conv5x5_same(x, wt, b, relu, **kw)
+        torch.cuda.synchronize()
+        key = f"{cin}->{cout}"
+        report["b1_ms"][key] = repeats(lambda: b1.conv5x5_same(x, wt, b, relu, **kw))
+        report["checksum"][f"b1 {key}"] = float(out.float().sum())
+    report["b1_sum_ms"] = sum(sum(r) / len(r) for r in report["b1_ms"].values())
+
+    n, h, w, c, s = 10, 240, 426, 48, 4
+    x = rand((n, h, w, c))
+    kern = rand((2, 2, c, c), 1 / 14)
+    b = rand((c,), 0.1)
+
+    def tail():
         return fused_conv_pixel_shuffle(x, kern, b, s, ((1, 2), (1, 2)), (4 * h + 1, 4 * w + 1))
 
-    out = call()
+    out = tail()
     torch.cuda.synchronize()
-    repeats = []
-    for _ in range(5):
-        for _ in range(3):
-            call()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(50):
-            call()
-        end.record()
-        end.synchronize()
-        repeats.append(start.elapsed_time(end) / 50)
-    with open(os.path.join(_build.BUILD_DIR, "fused_tail.log")) as f:
-        regs = [ln.strip() for ln in f if "registers" in ln]
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({"root": args.root, "card": card, "b2_ms": repeats, "b2_ms_min": min(repeats),
-                      "checksum": float(out.float().sum()), "ptxas": regs}))
+    report["b2_ms"] = repeats(tail, iters=50)
+    report["b2_ms_mean"] = sum(report["b2_ms"]) / len(report["b2_ms"])
+    report["checksum"]["b2"] = float(out.float().sum())
+
+    model = get_vsr_model("basic", scale=4, compute_dtype=torch.bfloat16, device=dev)
+    load_params_npz(model, random_jax_params(model, seed=0))
+    frames = torch.from_numpy(np.stack(synthetic_stream(T_WIN, H_LR, W_LR, seed=0))[None]).to(dev)
+    with torch.inference_mode():
+        report["window_ms"] = repeats(lambda: model(frames, OH, OW), iters=5)
+    report["window_ms_mean"] = sum(report["window_ms"]) / len(report["window_ms"])
+    report["ptxas"] = {name: ptxas_summary(os.path.join(_build.BUILD_DIR, f"{name}.log"))
+                       for name in ("conv5x5", "fused_tail")}
+    report["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                    capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps(report))
     return 0
 
 

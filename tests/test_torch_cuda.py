@@ -9,7 +9,7 @@ off:
 import pytest
 import torch
 
-from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain
+from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain, pack_weights
 from mobilesuperresolution_tpu_torch.kernels.fused_convsep import FusedConvSepFn, fused_convsep, fused_convsep_plain
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
     fused_conv_pixel_shuffle,
@@ -53,6 +53,71 @@ def test_conv5x5_kernel_matches_plain(cuda, dtype, shape):
     assert conv5x5_same.launches == before + 1
     assert got.dtype == dtype and got.shape == (n, h, w, cout)
     assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype)
+
+
+B1_PATH_PAIRS = [(32, 128), (128, 256), (256, 128), (128, 64), (64, 8)]
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 12, 40, cin, cout) for cin, cout in B1_PATH_PAIRS]  # every main-path channel pair
+    + [(1, 9, 33, 20, 8), (1, 9, 33, 24, 24), (2, 10, 18, 24, 8)]  # K tails (Cin 20, 24), N tails (Cout 8, 24)
+    + [(1, 9, 33, 32, 24), (1, 9, 33, 32, 192)]  # N tails in a 32 tile and in a 128 tile copied in bulk
+    + [(1, 9, 33, 40, 96), (1, 9, 33, 20, 64)]  # K and N tails in a 128 tile (cp.async); Cin 20 in a 64 tile
+    + [(1, 19, 37, 128, 256), (1, 21, 35, 256, 128), (1, 19, 37, 64, 8)]  # H, W not multiples of the tile
+    + [(18, 4, 7, cin, cout) for cin, cout in B1_PATH_PAIRS]  # the coarsest level: a map smaller than a tile
+    + [(1, 64, 112, 128, 256), (1, 8, 14, 128, 256)],  # N = 1 at a large and a small map
+    ids=lambda s: "x".join(map(str, s)),
+)
+def test_conv5x5_bf16_tile_edges(cuda, shape):
+    """B1's bf16 wgmma kernel at the channel pairs of the main path, channel
+    tails in K and N, ragged maps, maps smaller than one tile and N = 1,
+    with random (non-symmetric) weights and biases, ReLU on and off, the
+    packed weights made per call and passed in."""
+    n, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(cin * 1000 + cout)
+    x = (torch.rand((n, h, w, cin), generator=g) * 2 - 1).to(cuda, torch.bfloat16)
+    wt = ((torch.rand((5, 5, cin, cout), generator=g) * 2 - 1) / (5 * cin ** 0.5)).to(cuda, torch.bfloat16)
+    b = (torch.rand(cout, generator=g) - 0.5).to(cuda)
+    packed = pack_weights(wt) if cin % 8 == 0 and cout % 64 == 0 else None
+    for relu, wp in ((True, None), (False, packed)):
+        before = conv5x5_same.launches
+        got = conv5x5_same(x, wt, b, relu=relu, w_packed=wp)
+        want = conv5x5_same_plain(x, wt, b, relu=relu)
+        torch.cuda.synchronize()
+        assert conv5x5_same.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == (n, h, w, cout)
+        assert float((got.float() - want.float()).abs().max()) <= _tol(want, torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "n,h,w,cin,k,s,cc,pad,crop",
+    [
+        (2, 13, 21, 48, 2, 4, 48, ((1, 2), (1, 2)), (4 * 13 + 1, 4 * 21 + 1)),  # main-path form, ragged, odd crop
+        (1, 17, 30, 48, 2, 4, 48, ((1, 2), (1, 2)), (61, 107)),  # a crop inside the last tile
+        (2, 11, 19, 16, 2, 4, 48, ((1, 2), (1, 2)), (45, 77)),  # Cin 16
+        (1, 11, 19, 40, 2, 4, 48, ((1, 2), (1, 2)), (45, 77)),  # Cin 40 (a K tail)
+        (2, 11, 19, 24, 2, 2, 12, ((1, 2), (1, 2)), None),  # Cc 12 (an N tail)
+        (2, 11, 19, 16, 3, 2, 12, ((1, 1), (1, 1)), None),  # the Pallas kernel's 3x3/pad-1 form at s 2
+        (1, 10, 19, 64, 7, 2, 64, ((3, 3), (3, 3)), None),  # weights too large to stage at once
+    ],
+    ids=["main", "crop", "cin16", "cin40", "cc12", "3x3s2", "7x7"],
+)
+def test_fused_tail_bf16_tile_edges(cuda, n, h, w, cin, k, s, cc, pad, crop):
+    """B2's bf16 tensor-core kernel: the main-path form with ragged H, W and
+    odd crops, channel tails in K and N, the 3x3/pad-1 form at s 2, and a
+    geometry staged in pieces."""
+    g = torch.Generator().manual_seed(cin * 100 + cc)
+    x = (torch.rand((n, h, w, cin), generator=g) * 2 - 1).to(cuda, torch.bfloat16)
+    kern = ((torch.rand((k, k, cin, cc), generator=g) * 2 - 1) / (k * cin ** 0.5)).to(cuda, torch.bfloat16)
+    b = (torch.rand(cc, generator=g) - 0.5).to(cuda, torch.bfloat16)
+    before = fused_conv_pixel_shuffle.launches
+    got = fused_conv_pixel_shuffle(x, kern, b, s, pad, crop)
+    want = fused_conv_pixel_shuffle_plain(x, kern, b, s, pad, crop)
+    torch.cuda.synchronize()
+    assert fused_conv_pixel_shuffle.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

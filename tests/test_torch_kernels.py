@@ -18,7 +18,7 @@ from mobilesuperresolution_tpu.kernels.conv5x5 import conv5x5_same as j_conv5x5
 from mobilesuperresolution_tpu.kernels.fused_tail import fused_conv_pixel_shuffle as j_tail
 from mobilesuperresolution_tpu.ops.layers import SubpixelConvTranspose as JSubpixel
 from mobilesuperresolution_tpu_torch.kernels import _build
-from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain
+from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain, pack_weights
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
     fused_conv_pixel_shuffle,
     fused_conv_pixel_shuffle_plain,
@@ -117,3 +117,57 @@ def test_build_is_lazy():
     """Importing the kernel modules compiles and loads nothing."""
     assert _build._libs == {}
     assert set(_build.SOURCES) == {"conv5x5", "fused_tail", "fused_wdsr_block", "fused_convsep"}
+
+
+def test_stale_follows_included_headers(tmp_path, monkeypatch):
+    """A built library is rebuilt when its source or any csrc/ header the
+    source includes is newer than it, and reused otherwise."""
+    import os
+
+    csrc, build = tmp_path / "csrc", tmp_path / "_build"
+    csrc.mkdir()
+    build.mkdir()
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n#include "shared.cuh"\nint f();\n')
+    (csrc / "shared.cuh").write_text("#pragma once\n")
+    (csrc / "other.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build))
+    assert _build._stale("k")  # never built
+    (build / "libk.so").write_text("")
+    os.utime(csrc / "k.cu", (100, 100))
+    os.utime(csrc / "shared.cuh", (100, 100))
+    os.utime(csrc / "other.cuh", (300, 300))
+    os.utime(build / "libk.so", (200, 200))
+    assert _build._deps("k") == [str(csrc / "k.cu"), str(csrc / "shared.cuh")]
+    assert not _build._stale("k")  # a header it does not include is newer: reused
+    os.utime(csrc / "shared.cuh", (250, 250))
+    assert _build._stale("k")  # an included header is newer
+    os.utime(csrc / "shared.cuh", (100, 100))
+    os.utime(csrc / "k.cu", (250, 250))
+    assert _build._stale("k")  # the source is newer
+
+
+def test_every_source_include_resolves():
+    """Each quoted include of the kernel sources names a header in csrc/."""
+    import os
+
+    for name in _build.SOURCES:
+        for dep in _build._deps(name):
+            assert os.path.exists(dep), dep
+    assert any(d.endswith("hopper.cuh") for d in _build._deps("conv5x5"))
+    assert any(d.endswith("hopper.cuh") for d in _build._deps("fused_tail"))
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 128), (40, 192)])
+def test_pack_weights_is_an_exact_permutation(cin, cout):
+    """The packed weights the bf16 kernel copies in bulk hold every HWIO
+    value once, in swizzled 8 x 64 atoms, and unpack back to HWIO."""
+    w = torch.arange(5 * 5 * cin * cout, dtype=torch.float32).reshape(5, 5, cin, cout)
+    p = pack_weights(w)
+    assert p.shape == (25, cin // 8, cout // 64, 8, 64) and p.is_contiguous()
+    assert torch.equal(p.flatten().sort().values, w.flatten())
+    r = torch.arange(8)
+    unswizzled = p.reshape(25, cin // 8, cout // 64, 8, 8, 8)[:, :, :, r[:, None], r[None, :] ^ r[:, None]]
+    assert torch.equal(unswizzled.permute(0, 1, 3, 2, 4, 5).reshape(5, 5, cin, cout), w)
+    # tap (1, 2), input channel 8 + 3, output channels 64 + 8 * (5 ^ 3) .. + 7 in chunk 5 of row 3
+    assert torch.equal(p[7, 1, 1, 3, 40:48], w[1, 2, 11, 64 + 8 * (5 ^ 3):64 + 8 * (5 ^ 3) + 8])
