@@ -7,8 +7,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build the hand kernels from mobilesuperresolution_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card at the shapes
    the main path gives it, with kernel / plain / library-call times and the
-   kernel's roofline bound; and B1 over all six pyramid levels of one window
-   (30 launches), per level and summed, against cuDNN;
+   kernel's roofline bound (B3 and B5 at the rate of the unit each product
+   runs on: CUDA-core f32, 3xTF32 or bf16 tensor cores, named in the row);
+   B1 over all six pyramid levels of one window (30 launches), per level and
+   summed, against cuDNN; B3 and B5 also at other widths (B3 16, 32, 64
+   units; B5 16, 48, 24 -> 40 channels) and B5 at the eval shape for k 3, 5,
+   7; B5's search-shape cases with their device time per launch
+   (torch.profiler) and the wrapper's host time per call;
 4. a tiny float32 BasicVSR on the card against the same model on the CPU;
 5. full-width serving: BasicVSR x4 (nf 24, 8 blocks, bf16) with seeded random
    weights through the JAX-checkpoint bridge, streamed by StreamingVSR
@@ -59,8 +64,10 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# published H100 SXM peaks (NVIDIA data sheet, dense)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# published H100 SXM peaks (NVIDIA data sheet, dense), by the unit and type
+# a route computes on; "tf32x3" is the TF32 tensor-core rate over 3, the
+# rate of a 3xTF32 split (hi·hi + hi·lo + lo·hi)
+PEAK_RATES = {"f32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 T_WIN, H_LR, W_LR, OH, OW = 10, 240, 426, 1080, 1920
 N_STREAM_FRAMES = 16
@@ -98,9 +105,54 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 
 def bound(flops, nbytes, dtype):
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    """Bound of B1, B2 and B4: bf16 at the tensor-core rate, f32 on the CUDA
+    cores. Returns (ms, "operations" or "bytes")."""
+    return bound_by_route([(flops, "bf16" if dtype == torch.bfloat16 else "f32")], nbytes)[:2]
+
+
+def bound_by_route(work, nbytes):
+    """Bound of a kernel whose operations run on several units: ``work`` is
+    [(flops, basis)], basis a key of PEAK_RATES; the units work side by side,
+    so the operations take at least the slowest unit's time. Returns (ms,
+    "operations" or "bytes", the basis as text)."""
+    t_ops = max(f / PEAK_RATES[b] for f, b in work) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    basis = " + ".join(f"{f / 1e9:.3f} GFLOP at {b}" for f, b in work)
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), basis
+
+
+def route(dtype):
+    """The tensor-core basis of B3's and B5's products for an I/O dtype."""
+    return "bf16" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def host_us(fn, iters=200):
+    """Host microseconds per call: the host clock around ``iters`` calls the
+    card keeps up with (the launch queue never fills), synchronised after."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e6
+
+
+def device_ms_per_launch(fn, name, iters=30):
+    """Device time per launch of the kernels whose name holds ``name``, from
+    torch.profiler's CUDA events; with the launch count seen."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [ev.device_time_total if hasattr(ev, "device_time_total") else ev.cuda_time_total
+             for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
+    return sum(times) / max(len(times), 1) / 1e3, len(times)
 
 
 def nbytes(*ts):
@@ -264,22 +316,31 @@ def phase_kernels(gen, dev):
 
     # B3: one WDSR-B block at the full-width x2 LR map (678x1020, 24 units:
     # E 144, M 20, k 3) in f32 (the eval CLI's default, the main path) and
-    # bf16, and a ragged 37x53 map (neither side a multiple of the 16 tile)
+    # bf16, with the weights packed once as BasicBlock.prepare packs them; a
+    # ragged 37x53 map (neither side a multiple of the 14 tile); and the
+    # blocks of 16 (E 96, M 13), 32 (E 192, M 26) and 64 units at full width
+    # (f32) and ragged (bf16)
+    from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import block_shape
+    from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import pack_weights as pack_b3
+
     hl, wl = SR_HR[0] // SR_SCALE, SR_HR[1] // SR_SCALE
-    c, e, m = SR_UNITS, int(SR_UNITS * 6), int(SR_UNITS * 0.84)
-    for hh, ww, dtype in ((hl, wl, torch.float32), (hl, wl, torch.bfloat16), (37, 53, torch.float32),
-                          (37, 53, torch.bfloat16)):
+    b3_cases = [(SR_UNITS, hh, ww, dt) for hh, ww in ((hl, wl), (37, 53)) for dt in (torch.float32, torch.bfloat16)]
+    b3_cases += [(u, hh, ww, dt) for u in (16, 32, 64) for hh, ww, dt in ((hl, wl, torch.float32),
+                                                                         (37, 53, torch.bfloat16))]
+    for c, hh, ww, dtype in b3_cases:
+        _, e, m, _ = block_shape(c)
         x = rand((1, hh, ww, c), dtype)
         ws = [rand((c, e), torch.float32, c ** -0.5), rand((e,), torch.float32, 0.2),
               rand((e, m), torch.float32, e ** -0.5), rand((m,), torch.float32, 0.2),
               rand((3, 3, m, c), torch.float32, (9 * m) ** -0.5), rand((c,), torch.float32, 0.2)]
         ws = [w.to(dtype).float() for w in ws]  # as a bf16 model's prepare() holds them
-        got = fused_wdsr_block(x, *ws)
+        packed = pack_b3(*ws, dtype)
+        got = fused_wdsr_block(x, *ws, packed=packed)
         want = fused_wdsr_block_plain(x, *ws)
         torch.cuda.synchronize()
         tag = f"B3 1x{hh}x{ww}x{c} E{e} M{m} k3 {str(dtype)[6:]}"
         err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
-        ms = cuda_ms(lambda: fused_wdsr_block(x, *ws))
+        ms = cuda_ms(lambda: fused_wdsr_block(x, *ws, packed=packed))
         plain_ms = cuda_ms(lambda: fused_wdsr_block_plain(x, *ws))
         # one library chain for the same function: cuDNN 1x1, ReLU, 1x1, 3x3 + residual
         xn = x.permute(0, 3, 1, 2)
@@ -289,14 +350,14 @@ def phase_kernels(gen, dev):
                                                lw[4], lw[5], padding=1))
         px = hh * ww
         flops = 2.0 * px * (c * e + e * m + 9 * m * c)
-        bms, by = bound(flops, nbytes(x, got, *ws), dtype)
-        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
-        rows["B3"].append(dict(case=tag, main_path=(hh, dtype) == (hl, torch.float32), max_abs_err=err, ms=ms,
-                               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                               gflop=flops / 1e9))
+        bms, by, basis = bound_by_route([(flops, route(dtype))], nbytes(x, got, *ws))
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis})")
+        rows["B3"].append(dict(case=tag, main_path=(c, hh, dtype) == (SR_UNITS, hl, torch.float32),
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                               bound_by=by, bound_basis=basis, gflop=flops / 1e9))
 
     # B4: the WDSR tail at full width, body 24 -> 12 (3x3) + skip 3 -> 12 (5x5), s 2
-    cc = 3 * SR_SCALE ** 2
+    c, cc = SR_UNITS, 3 * SR_SCALE ** 2
     for dtype in (torch.float32, torch.bfloat16):
         x = rand((1, hl, wl, c), dtype)
         xs = rand((1, hl, wl, 3), dtype, 0.5)
@@ -322,22 +383,26 @@ def phase_kernels(gen, dev):
                                gflop=flops / 1e9))
 
     # B5: one ConvSep branch at the search's shape, (16, 48, 48, 32) -> 32 for
-    # k = 3, 5, 7 in f32 (the main path: the three branches of one block); the
-    # supernet eval shape (1, 678, 1020, 32) at k = 7 in f32 and bf16; a
-    # ragged 37x53 map
-    c = NAS_UNITS
-    b5_cases = [(NAS_BATCH, NAS_PATCH, NAS_PATCH, k, torch.float32, True) for k in (3, 5, 7)]
-    b5_cases += [(1, hl, wl, 7, dt, False) for dt in (torch.float32, torch.bfloat16)]
-    b5_cases += [(2, 37, 53, 7, dt, False) for dt in (torch.float32, torch.bfloat16)]
-    for nb, hh, ww, k, dtype, on_path in b5_cases:
+    # k = 3, 5, 7 in f32 (the main path: the three branches of one block),
+    # each also with the device time per launch (torch.profiler) and the
+    # wrapper's host time per call; the supernet eval shape (1, 678, 1020, 32)
+    # at k = 3, 5, 7 in f32 and k 7 in bf16; ragged 37x53 maps at 32 channels
+    # and at 16, 48 and 24 -> 40 (C != C_out)
+    b5_cases = [(NAS_BATCH, NAS_PATCH, NAS_PATCH, NAS_UNITS, NAS_UNITS, k, torch.float32, True) for k in (3, 5, 7)]
+    b5_cases += [(1, hl, wl, NAS_UNITS, NAS_UNITS, k, torch.float32, False) for k in (3, 5, 7)]
+    b5_cases += [(1, hl, wl, NAS_UNITS, NAS_UNITS, 7, torch.bfloat16, False)]
+    b5_cases += [(2, 37, 53, NAS_UNITS, NAS_UNITS, 7, dt, False) for dt in (torch.float32, torch.bfloat16)]
+    b5_cases += [(2, 37, 53, ci, co, k, dt, False) for ci, co in ((16, 16), (48, 48), (24, 40))
+                 for k, dt in ((3, torch.float32), (7, torch.bfloat16))]
+    for nb, hh, ww, c, co, k, dtype, on_path in b5_cases:
         x = rand((nb, hh, ww, c), dtype)
         ws = [rand((k, k, c), torch.float32, 1.0 / k), rand((c,), torch.float32, 0.2),
-              rand((c, c), torch.float32, c ** -0.5), rand((c,), torch.float32, 0.2)]
+              rand((c, co), torch.float32, c ** -0.5), rand((co,), torch.float32, 0.2)]
         ws = [w.to(dtype).float() for w in ws]  # as the supernet in bf16 rounds them
         got = fused_convsep(x, *ws)
         want = fused_convsep_plain(x, *ws)
         torch.cuda.synchronize()
-        tag = f"B5 {nb}x{hh}x{ww}x{c} k{k} -> {c} {str(dtype)[6:]}"
+        tag = f"B5 {nb}x{hh}x{ww}x{c} k{k} -> {co} {str(dtype)[6:]}"
         err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
         ms = cuda_ms(lambda: fused_convsep(x, *ws))
         plain_ms = cuda_ms(lambda: fused_convsep_plain(x, *ws))
@@ -346,11 +411,18 @@ def phase_kernels(gen, dev):
         lw = [ws[0].permute(2, 0, 1)[:, None].contiguous().to(dtype), ws[1].to(dtype),
               ws[2].t()[:, :, None, None].contiguous().to(dtype), ws[3].to(dtype)]
         lib_ms = cuda_ms(lambda: F.conv2d(F.relu(F.conv2d(xn, lw[0], lw[1], padding=k // 2, groups=c)), lw[2], lw[3]))
-        flops = 2.0 * nb * hh * ww * (k * k * c + c * c)
-        bms, by = bound(flops, nbytes(x, got, *ws), dtype)
-        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
-        rows["B5"].append(dict(case=tag, main_path=on_path, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               library_ms=lib_ms, bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+        px = nb * hh * ww
+        work = [(2.0 * px * k * k * c, "f32"), (2.0 * px * c * co, route(dtype))]  # depthwise, 1x1
+        bms, by, basis = bound_by_route(work, nbytes(x, got, *ws))
+        row = dict(case=tag, main_path=on_path, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bms, bound_by=by, bound_basis=basis, gflop=sum(f for f, _ in work) / 1e9)
+        extra = ""
+        if on_path:
+            row["device_ms"], seen = device_ms_per_launch(lambda: fused_convsep(x, *ws), "convsep")
+            row["host_us"] = host_us(lambda: fused_convsep(x, *ws))
+            extra = f"; device {row['device_ms']:.4f} ms per launch ({seen} seen), host {row['host_us']:.1f} us per call"
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis}){extra}")
+        rows["B5"].append(row)
     return rows
 
 

@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the hand kernels (B1 in conv5x5.cu, B2 in
-// fused_tail.cu): 16-byte cp.async with zero fill, bulk copies completing on
-// mbarriers, ldmatrix, mma.sync m16n8k16 and warpgroup wgmma (A in registers,
-// B read from shared memory through a descriptor). Raw PTX through inline asm
-// keeps nvcc at seconds. Needs sm_90a for wgmma.
+// fused_tail.cu, B3 in fused_wdsr_block.cu, B5 in fused_convsep.cu): cp.async
+// with zero fill, bulk copies completing on mbarriers, ldmatrix, mma.sync
+// (m16n8k16 bf16, m16n8k8 tf32, and the Tf32x3 / Bf16 fragment policies of
+// B3 and B5) and warpgroup wgmma (A in registers, B read from shared memory
+// through a descriptor). Raw PTX through inline asm keeps nvcc at seconds.
+// Needs sm_90a for wgmma.
 
 #pragma once
 
@@ -20,6 +22,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4- or 8-byte global -> shared copy (cp.async.ca), zero-filled when !valid.
+template <int N>
+__device__ __forceinline__ void cp_async_small(uint32_t dst, const void* src, bool valid) {
+  static_assert(N == 4 || N == 8, "cp.async.ca copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(N),
+               "r"(valid ? N : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -56,6 +66,150 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += a b for one m16n8k8 tile: tf32 in (the low 13 mantissa bits of each
+// operand are ignored), f32 accumulate.
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// f32 -> tf32, round to nearest (ties away), as the f32 bit pattern.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// ---- mma.sync fragment policies (B3, B5) ----
+//
+// Both policies see a k-step of A the same way: lane (g, t) of a warp holds
+// rows g and g + 8 of the m16 tile at columns 2t and 2t + 1 of each group of
+// 8 columns ("element view", v[0..3] = (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1), then the next group of 8). That is exactly the accumulator
+// fragment of an n8 tile, so a product's output feeds the next product's A
+// with no shuffle. B fragments are packed once per lane in the same order:
+// (B[k0 + 2t][n0 + g], B[k0 + 2t + 1][n0 + g]) per group of 8 rows.
+//
+// Tf32x3 (f32 I/O): k-steps of 8 on mma m16n8k8 tf32. The PTX A fragment
+// holds columns t and t + 4; the packed K order maps logical column t to
+// column 2t and t + 4 to 2t + 1, so the element view above is the fragment.
+// Each operand is split into hi = tf32(v) and lo = v - hi, and the product
+// is lo·hi + hi·lo + hi·hi in f32 (3xTF32): ~f32 accuracy on the tensor
+// cores, the small terms first. A packed B lane is a float4 (hi0, hi1, lo0,
+// lo1).
+// Bf16 (bf16 I/O): k-steps of 16 on mma m16n8k16 bf16 (two groups of 8);
+// a packed B lane is two bf16x2 words, (rows 2t, 2t+1), (rows 8+2t, 9+2t).
+struct Tf32x3 {
+  static constexpr int KG = 8;   // k per step
+  static constexpr int BW = 4;   // floats per packed B lane
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+  static __device__ __forceinline__ A make_a(const float (&v)[4]) {
+    A a;
+    const float o[4] = {v[0], v[2], v[1], v[3]};  // fragment order: (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a.hi[i] = tf32_rna(o[i]);
+      a.lo[i] = __float_as_uint(o[i] - __uint_as_float(a.hi[i]));
+    }
+    return a;
+  }
+  static __device__ __forceinline__ B load_b(const float* p) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    B b;
+    b.hi[0] = __float_as_uint(q.x);
+    b.hi[1] = __float_as_uint(q.y);
+    b.lo[0] = __float_as_uint(q.z);
+    b.lo[1] = __float_as_uint(q.w);
+    return b;
+  }
+  // Pack the B lane (s, t) of one n column: get(k) is B[k][n].
+  template <typename F>
+  static __device__ __forceinline__ void pack_b(float* dst, F&& get, int s, int t) {
+    const float v0 = get(KG * s + 2 * t), v1 = get(KG * s + 2 * t + 1);
+    const float h0 = __uint_as_float(tf32_rna(v0)), h1 = __uint_as_float(tf32_rna(v1));
+    *reinterpret_cast<float4*>(dst) = make_float4(h0, h1, v0 - h0, v1 - h1);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
+    mma_1688_tf32(d, a.lo, b.hi);
+    mma_1688_tf32(d, a.hi, b.lo);
+    mma_1688_tf32(d, a.hi, b.hi);
+  }
+  // The element view of k-step s from an f32 row pair in shared memory.
+  static __device__ __forceinline__ A load_a(const float* rg, const float* rg8, int s, int t) {
+    const float2 p = *reinterpret_cast<const float2*>(rg + KG * s + 2 * t);
+    const float2 q = *reinterpret_cast<const float2*>(rg8 + KG * s + 2 * t);
+    const float v[4] = {p.x, p.y, q.x, q.y};
+    return make_a(v);
+  }
+};
+
+struct Bf16 {
+  static constexpr int KG = 16;
+  static constexpr int BW = 2;
+  struct A { uint32_t r[4]; };
+  struct B { uint32_t r[2]; };
+  static __device__ __forceinline__ A make_a(const float (&v)[8]) {
+    A a;
+    a.r[0] = pack_bf16x2(v[0], v[1]);
+    a.r[1] = pack_bf16x2(v[2], v[3]);
+    a.r[2] = pack_bf16x2(v[4], v[5]);
+    a.r[3] = pack_bf16x2(v[6], v[7]);
+    return a;
+  }
+  static __device__ __forceinline__ B load_b(const float* p) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    B b;
+    b.r[0] = q.x;
+    b.r[1] = q.y;
+    return b;
+  }
+  template <typename F>
+  static __device__ __forceinline__ void pack_b(float* dst, F&& get, int s, int t) {
+    const int k = KG * s + 2 * t;
+    uint2 q;
+    q.x = pack_bf16x2(get(k), get(k + 1));
+    q.y = pack_bf16x2(get(k + 8), get(k + 9));
+    *reinterpret_cast<uint2*>(dst) = q;
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) { mma_16816(d, a.r, b.r); }
+  static __device__ __forceinline__ A load_a(const __nv_bfloat16* rg, const __nv_bfloat16* rg8, int s, int t) {
+    A a;
+    a.r[0] = *reinterpret_cast<const uint32_t*>(rg + KG * s + 2 * t);
+    a.r[1] = *reinterpret_cast<const uint32_t*>(rg8 + KG * s + 2 * t);
+    a.r[2] = *reinterpret_cast<const uint32_t*>(rg + KG * s + 8 + 2 * t);
+    a.r[3] = *reinterpret_cast<const uint32_t*>(rg8 + KG * s + 8 + 2 * t);
+    return a;
+  }
+};
+
+// The policy of an I/O type: f32 runs 3xTF32, bf16 runs bf16.
+template <typename T> struct PolicyOf;
+template <> struct PolicyOf<float> { using type = Tf32x3; };
+template <> struct PolicyOf<__nv_bfloat16> { using type = Bf16; };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// Two consecutive values of a row as f32 (8-byte f32 or 4-byte bf16 load).
+__device__ __forceinline__ float2 load_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
 }
 
 // mbarrier in shared memory (phase-parity protocol).

@@ -2,11 +2,18 @@
 relu(depthwise_kxk(x) + b_depth) @ w_point + b_point.
 
 Replaces mobilesuperresolution_tpu/kernels/fused_convsep.py::fused_convsep
-(Pallas) with the hand-written CUDA kernel csrc/fused_convsep.cu, which keeps
-the depthwise output in registers. Any H and W; the kernel is instantiated
-for (C, C_out) in ``INSTANTIATED`` and k in {3, 5, 7}. On CPU tensors the
-wrapper runs ``fused_convsep_plain``; on CUDA tensors it launches the kernel
-or raises.
+(Pallas) with the hand-written CUDA kernel csrc/fused_convsep.cu: the
+depthwise conv register-blocked on the CUDA cores, its ReLU'd output kept in
+registers as the A operand of the 1x1 on the tensor cores (mma.sync; 3xTF32
+for float32, bf16 for bfloat16), persistent blocks with the next tile's halo
+prefetched. Any H and W, any C and C_out from 1 to 64, k in {3, 5, 7}. On
+CPU tensors the wrapper runs ``fused_convsep_plain``; on CUDA tensors it
+launches the kernel or raises.
+
+The wrapper is lean because the search calls it 48 times per forward at a
+shape where the host sets the pace: it validates each (shapes, dtype,
+device) key once and keeps the verdict, converts no weight that is already
+contiguous float32, and holds the C function.
 
 ``FusedConvSepFn`` makes the kernel trainable: its forward is one launch, its
 backward recomputes the branch with the plain version and differentiates
@@ -23,10 +30,10 @@ from mobilesuperresolution_tpu_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"fused_convsep_launch": [_P] * 6 + [_I] * 7 + [_P]}
-# (C, C_out) pairs the CUDA source instantiates: the supernet at 32 units and
-# the tiny parity width
-INSTANTIATED = {(32, 32), (8, 8)}
+MAX_CHANNELS = 64
 KERNEL_SIZES = (3, 5, 7)
+_verdicts = {}  # call key -> None (launchable) or the ValueError message
+_launcher = []  # [C function, current raw stream getter], once loaded
 
 
 def fused_convsep_plain(x, w_depth, b_depth, w_point, b_point):
@@ -41,6 +48,35 @@ def fused_convsep_plain(x, w_depth, b_depth, w_point, b_point):
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def _verdict(x, w_depth, b_depth, w_point, b_point):
+    """None if the kernel takes these CUDA tensors, else why not."""
+    if x.dim() != 4 or w_depth.dim() != 3 or w_point.dim() != 2:
+        return "fused_convsep: x must be (B, H, W, C), w_depth 3-D, w_point 2-D"
+    k, c, c_out = w_depth.shape[0], x.shape[3], w_point.shape[1]
+    if (tuple(w_depth.shape), tuple(b_depth.shape), w_point.shape[0], tuple(b_point.shape)) != (
+        (k, k, c), (c,), c, (c_out,)
+    ):
+        return (f"fused_convsep: inconsistent shapes x={tuple(x.shape)} w_depth={tuple(w_depth.shape)} "
+                f"w_point={tuple(w_point.shape)}")
+    if not (1 <= c <= MAX_CHANNELS and 1 <= c_out <= MAX_CHANNELS) or k not in KERNEL_SIZES:
+        return (f"fused_convsep: (C, C_out) = {(c, c_out)}, k = {k} not taken; "
+                f"need C, C_out <= {MAX_CHANNELS} and k in {KERNEL_SIZES}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
+        return "fused_convsep: x must be contiguous bf16 or f32"
+    if any(t.device != x.device for t in (w_depth, b_depth, w_point, b_point)) or (
+        x.device.index != torch.cuda.current_device()
+    ):
+        return "fused_convsep: tensors must lie on the current CUDA device"
+    return None
+
+
+def _load():
+    lib = _build.load("fused_convsep", _SIGNATURES)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    stream = raw if raw is not None else (lambda _: torch.cuda.current_stream().cuda_stream)
+    _launcher[:] = [lib.fused_convsep_launch, stream]
+
+
 def fused_convsep(x, w_depth, b_depth, w_point, b_point):
     """x: (B, H, W, C) bf16 or f32, contiguous; weights as in
     ``fused_convsep_plain``, read as float32 (a model in bf16 rounds them to
@@ -49,36 +85,25 @@ def fused_convsep(x, w_depth, b_depth, w_point, b_point):
         return fused_convsep_plain(x, w_depth, b_depth, w_point, b_point)
     if x.device.type != "cuda":
         raise ValueError(f"fused_convsep: unsupported device {x.device}")
-    if x.dim() != 4 or w_depth.dim() != 3 or w_point.dim() != 2:
-        raise ValueError("fused_convsep: x must be (B, H, W, C), w_depth 3-D, w_point 2-D")
-    k, c, c_out = w_depth.shape[0], x.shape[3], w_point.shape[1]
-    if (tuple(w_depth.shape), tuple(b_depth.shape), w_point.shape[0], tuple(b_point.shape)) != (
-        (k, k, c), (c,), c, (c_out,)
-    ):
-        raise ValueError(
-            f"fused_convsep: inconsistent shapes x={tuple(x.shape)} w_depth={tuple(w_depth.shape)} "
-            f"w_point={tuple(w_point.shape)}"
-        )
-    if (c, c_out) not in INSTANTIATED or k not in KERNEL_SIZES:
-        raise ValueError(
-            f"fused_convsep: (C, C_out) = {(c, c_out)}, k = {k} not instantiated; "
-            f"have {sorted(INSTANTIATED)} x k in {KERNEL_SIZES}"
-        )
-    if x.dtype not in (torch.bfloat16, torch.float32) or not x.is_contiguous():
-        raise ValueError("fused_convsep: x must be contiguous bf16 or f32")
-    ws = [w_depth, b_depth, w_point, b_point]
-    if any(t.device != x.device for t in ws) or x.device.index != torch.cuda.current_device():
-        raise ValueError("fused_convsep: tensors must lie on the current CUDA device")
-    ws = [t.detach().float().contiguous() for t in ws]
-    n, h, w, _ = x.shape
-    y = torch.empty((n, h, w, c_out), device=x.device, dtype=x.dtype)
-    lib = _build.load("fused_convsep", _SIGNATURES)
-    _build.launch(
-        lib, "fused_convsep_launch",
-        x.data_ptr(), *(t.data_ptr() for t in ws), y.data_ptr(),
-        n, h, w, c, c_out, k, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream().cuda_stream,
-    )
+    key = (x.shape, x.dtype, x.device, x.is_contiguous(), torch.cuda.current_device(), w_depth.shape,
+           w_depth.device, b_depth.shape, b_depth.device, w_point.shape, w_point.device, b_point.shape,
+           b_point.device)
+    if key not in _verdicts:
+        _verdicts[key] = _verdict(x, w_depth, b_depth, w_point, b_point)
+    if _verdicts[key] is not None:
+        raise ValueError(_verdicts[key])
+    ws = [t if t.dtype == torch.float32 and t.is_contiguous() else t.detach().float().contiguous()
+          for t in (w_depth, b_depth, w_point, b_point)]
+    if not _launcher:
+        _load()
+    fn, stream = _launcher
+    n, h, w, c = x.shape
+    k, c_out = w_depth.shape[0], w_point.shape[1]
+    y = x.new_empty((n, h, w, c_out))
+    rc = fn(x.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(), ws[2].data_ptr(), ws[3].data_ptr(), y.data_ptr(),
+            n, h, w, c, c_out, k, int(x.dtype == torch.bfloat16), stream(x.device.index))
+    if rc != 0:
+        raise RuntimeError(f"fused_convsep_launch: CUDA error {rc}")
     fused_convsep.launches += 1
     return y
 

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle_skip
-from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import fused_wdsr_block
+from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import WIDTHS, fused_wdsr_block, pack_weights
 from mobilesuperresolution_tpu_torch.ops.layers import WNConv
 
 
@@ -38,16 +38,19 @@ class BasicBlock(nn.Module):
 
     def prepare(self, dtype=None):
         """Derive B3's weights: the weight-normed kernels rounded to
-        ``dtype`` and held as float32, (C, E), (E, M), (k, k, M, C)."""
+        ``dtype`` and held as float32, (C, E), (E, M), (k, k, M, C); on the
+        card also packed once for the kernel (``pack_weights``)."""
         convs = (self.WNConv_0, self.WNConv_1, self.WNConv_2)
         for c in convs:
             c.prepare(dtype)
         w1, w2, w3 = (c.kernel.float() for c in convs)
         b1, b2, b3 = (c._b.float() for c in convs)
         self._weights = (w1[0, 0].contiguous(), b1, w2[0, 0].contiguous(), b2, w3.contiguous(), b3)
+        on_card = w1.is_cuda and w1.shape[2] <= WIDTHS[-1]
+        self._packed = pack_weights(*self._weights, self.WNConv_0._dtype) if on_card else None
 
     def forward(self, x):
-        return fused_wdsr_block(x.contiguous(), *self._weights)
+        return fused_wdsr_block(x.contiguous(), *self._weights, packed=self._packed)
 
 
 class BasicModel(nn.Module):

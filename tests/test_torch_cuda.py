@@ -145,24 +145,34 @@ def _rand(g, shape, scale, dev, dtype=torch.float32):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 32, 48), (1, 37, 53), (1, 5, 3)], ids=["tiles", "ragged", "tiny"])
-def test_fused_wdsr_block_kernel_matches_plain(cuda, dtype, shape):
-    """Whole tiles, ragged tiles (H, W not multiples of 16) and a map smaller
-    than the halo: h2 must be zero outside the image on every border."""
+@pytest.mark.parametrize("c", [24, 16, 32, 13, 64])
+def test_fused_wdsr_block_kernel_matches_plain(cuda, dtype, shape, c):
+    """Whole tiles, ragged tiles (H, W not multiples of 14) and a map smaller
+    than the halo, at WDSR-B's block for 24 units (the main path) and at 16
+    (E 96, M 13), 32 (E 192, M 26), 13 (odd: pixels staged without cp.async)
+    and 64 units (weights read from global memory in f32): h2 must be zero
+    outside the image on every border. Per-call packing and weights packed
+    once give the same result."""
+    from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import block_shape, pack_weights
+
     n, h, w = shape
-    g = torch.Generator().manual_seed(0)
-    x = _rand(g, (n, h, w, 24), 1.0, cuda, dtype)
-    w1, b1 = _rand(g, (24, 144), 24 ** -0.5, cuda), _rand(g, (144,), 0.2, cuda)
-    w2, b2 = _rand(g, (144, 20), 144 ** -0.5, cuda), _rand(g, (20,), 0.2, cuda)
-    w3, b3 = _rand(g, (3, 3, 20, 24), 180 ** -0.5, cuda), _rand(g, (24,), 0.2, cuda)
+    _, e, m, _ = block_shape(c)
+    g = torch.Generator().manual_seed(c)
+    x = _rand(g, (n, h, w, c), 1.0, cuda, dtype)
+    w1, b1 = _rand(g, (c, e), c ** -0.5, cuda), _rand(g, (e,), 0.2, cuda)
+    w2, b2 = _rand(g, (e, m), e ** -0.5, cuda), _rand(g, (m,), 0.2, cuda)
+    w3, b3 = _rand(g, (3, 3, m, c), (9 * m) ** -0.5, cuda), _rand(g, (c,), 0.2, cuda)
     if dtype == torch.bfloat16:
         w1, b1, w2, b2, w3, b3 = (t.to(dtype).float() for t in (w1, b1, w2, b2, w3, b3))
     before = fused_wdsr_block.launches
     got = fused_wdsr_block(x, w1, b1, w2, b2, w3, b3)
+    again = fused_wdsr_block(x, w1, b1, w2, b2, w3, b3, packed=pack_weights(w1, b1, w2, b2, w3, b3, dtype))
     want = fused_wdsr_block_plain(x, w1, b1, w2, b2, w3, b3)
     torch.cuda.synchronize()
-    assert fused_wdsr_block.launches == before + 1
+    assert fused_wdsr_block.launches == before + 2
     assert got.dtype == dtype and got.shape == x.shape
     assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -187,16 +197,23 @@ def test_fused_tail_skip_kernel_matches_plain(cuda, dtype, cin):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k", [3, 5, 7])
-@pytest.mark.parametrize("shape", [(2, 48, 48, 32), (1, 37, 53, 32), (3, 5, 3, 8)], ids=["search", "ragged", "tiny"])
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 48, 48, 32, 32), (1, 37, 53, 32, 32), (3, 5, 3, 8, 8), (2, 20, 40, 16, 16), (1, 37, 53, 48, 48),
+     (1, 21, 35, 24, 40), (1, 13, 19, 13, 11), (1, 19, 45, 64, 64)],
+    ids=["search", "ragged", "tiny", "c16", "c48", "c24to40", "odd", "c64"],
+)
 def test_fused_convsep_kernel_matches_plain(cuda, dtype, k, shape):
-    """B5 at the search's patch size (whole 16x16 tiles), on a ragged map and
-    on a map smaller than the halo, at both instantiated widths; its
-    autograd Function launches once forward and none backward."""
-    n, h, w, c = shape
+    """B5 at the search's patch size (whole 8x32 tiles), on a ragged map and
+    on a map smaller than the halo, at 32, 8, 16, 48 and 64 channels (f32 at
+    32 and 64 stages 16-byte swizzled chunks, the others channel pairs), with
+    C != C_out, and at odd C and C_out (pixels staged without cp.async);
+    its autograd Function launches once forward and none backward."""
+    n, h, w, c, co = shape
     g = torch.Generator().manual_seed(k)
     x = _rand(g, (n, h, w, c), 1.0, cuda, dtype)
     wd, bd = _rand(g, (k, k, c), 1.0 / k, cuda), _rand(g, (c,), 0.2, cuda)
-    wp, bp = _rand(g, (c, c), c ** -0.5, cuda), _rand(g, (c,), 0.2, cuda)
+    wp, bp = _rand(g, (c, co), c ** -0.5, cuda), _rand(g, (co,), 0.2, cuda)
     if dtype == torch.bfloat16:
         wd, bd, wp, bp = (t.to(dtype).float() for t in (wd, bd, wp, bp))
     before = fused_convsep.launches
@@ -204,11 +221,48 @@ def test_fused_convsep_kernel_matches_plain(cuda, dtype, k, shape):
     want = fused_convsep_plain(x, wd, bd, wp, bp)
     torch.cuda.synchronize()
     assert fused_convsep.launches == before + 1
-    assert got.dtype == dtype and got.shape == (n, h, w, c)
+    assert got.dtype == dtype and got.shape == (n, h, w, co)
     assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype)
     xg = x.float().requires_grad_()
     FusedConvSepFn.apply(xg, wd, bd, wp, bp).square().sum().backward()
     assert fused_convsep.launches == before + 2 and torch.isfinite(xg.grad).all()
+
+
+@pytest.mark.parametrize("units", [16, 32])
+def test_basic_model_runs_b3_at_other_widths(cuda, units):
+    """WDSR-B at 16 and 32 residual units runs every block through B3 on the
+    card and agrees with the same model on the CPU."""
+    from mobilesuperresolution_tpu_torch.models import BasicModel
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    x = torch.rand((1, 23, 31, 3), generator=torch.Generator().manual_seed(units))
+    outs = []
+    for dev in ("cpu", cuda):
+        m = BasicModel(num_blocks=2, num_residual_units=units, scale=2).to(dev)
+        load_params_npz(m, random_jax_params(m, seed=units))
+        before = fused_wdsr_block.launches
+        with torch.inference_mode():
+            outs.append(m(x.to(dev)).cpu())
+        assert fused_wdsr_block.launches - before == (2 if dev == cuda else 0)
+    assert float((outs[1] - outs[0]).abs().max()) <= 1e-4
+
+
+def test_supernet_runs_b5_at_16_units(cuda):
+    """The NAS supernet at 16 units launches B5 three times per block on the
+    card and agrees with the same model on the CPU."""
+    from mobilesuperresolution_tpu_torch.models import NASModel
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    x = torch.rand((2, 20, 24, 3), generator=torch.Generator().manual_seed(16))
+    outs = []
+    for dev in ("cpu", cuda):
+        m = NASModel(num_blocks=2, num_residual_units=16, scale=2).to(dev)
+        load_params_npz(m, random_jax_params(m, seed=16))
+        before = fused_convsep.launches
+        with torch.no_grad():
+            outs.append(m(x.to(dev))[0].cpu())
+        assert fused_convsep.launches - before == (6 if dev == cuda else 0)
+    assert float((outs[1] - outs[0]).abs().max()) <= 1e-4
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
@@ -220,16 +274,22 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         conv5x5_same(x[:, :, ::2], torch.zeros(5, 5, 4, 4, device=cuda), torch.zeros(4, device=cuda))
     with pytest.raises(ValueError):
         fused_conv_pixel_shuffle(x, torch.zeros(3, 3, 4, 80, device=cuda), torch.zeros(80, device=cuda), 2)
-    with pytest.raises(ValueError, match="not instantiated"):
-        z = torch.zeros
+    z = torch.zeros
+    with pytest.raises(ValueError, match="not a WDSR-B block"):  # C > 64
+        fused_wdsr_block(z(1, 8, 8, 72, device=cuda), z(72, 432, device=cuda), z(432, device=cuda),
+                         z(432, 60, device=cuda), z(60, device=cuda), z(3, 3, 60, 72, device=cuda), z(72, device=cuda))
+    with pytest.raises(ValueError, match="not a WDSR-B block"):  # M != int(0.84 C)
         fused_wdsr_block(z(1, 8, 8, 16, device=cuda), z(16, 96, device=cuda), z(96, device=cuda),
-                         z(96, 13, device=cuda), z(13, device=cuda), z(3, 3, 13, 16, device=cuda), z(16, device=cuda))
-    with pytest.raises(ValueError, match="not instantiated"):
-        fused_convsep(torch.zeros(1, 8, 8, 16, device=cuda), torch.zeros(3, 3, 16, device=cuda),
-                      torch.zeros(16, device=cuda), torch.zeros(16, 16, device=cuda), torch.zeros(16, device=cuda))
-    with pytest.raises(ValueError, match="not instantiated"):
-        fused_convsep(torch.zeros(1, 8, 8, 8, device=cuda), torch.zeros(9, 9, 8, device=cuda),
-                      torch.zeros(8, device=cuda), torch.zeros(8, 8, device=cuda), torch.zeros(8, device=cuda))
+                         z(96, 14, device=cuda), z(14, device=cuda), z(3, 3, 14, 16, device=cuda), z(16, device=cuda))
+    with pytest.raises(ValueError, match="not a WDSR-B block"):  # k = 5
+        fused_wdsr_block(z(1, 8, 8, 16, device=cuda), z(16, 96, device=cuda), z(96, device=cuda),
+                         z(96, 13, device=cuda), z(13, device=cuda), z(5, 5, 13, 16, device=cuda), z(16, device=cuda))
+    with pytest.raises(ValueError, match="not taken"):  # C > 64
+        fused_convsep(z(1, 8, 8, 72, device=cuda), z(3, 3, 72, device=cuda), z(72, device=cuda),
+                      z(72, 72, device=cuda), z(72, device=cuda))
+    with pytest.raises(ValueError, match="not taken"):  # k = 9
+        fused_convsep(z(1, 8, 8, 8, device=cuda), z(9, 9, 8, device=cuda), z(8, device=cuda),
+                      z(8, 8, device=cuda), z(8, device=cuda))
     with pytest.raises(ValueError):
         fused_conv_pixel_shuffle_skip(x, torch.zeros(3, 3, 4, 12, device=cuda), torch.zeros(12, device=cuda), 2,
                                       torch.zeros(1, 8, 9, 3, device=cuda), torch.zeros(5, 5, 3, 12, device=cuda))

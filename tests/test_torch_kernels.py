@@ -171,3 +171,50 @@ def test_pack_weights_is_an_exact_permutation(cin, cout):
     assert torch.equal(unswizzled.permute(0, 1, 3, 2, 4, 5).reshape(5, 5, cin, cout), w)
     # tap (1, 2), input channel 8 + 3, output channels 64 + 8 * (5 ^ 3) .. + 7 in chunk 5 of row 3
     assert torch.equal(p[7, 1, 1, 3, 40:48], w[1, 2, 11, 64 + 8 * (5 ^ 3):64 + 8 * (5 ^ 3) + 8])
+
+
+def _unfragment(words, kdim, ndim, dtype):
+    """Invert kernels/fused_wdsr_block.py::_fragments: float32 words of a
+    (kdim, ndim) B operand in mma fragment order -> (hi, lo) for float32
+    (the TF32 split) or (w, None) for bf16, each (kdim, ndim)."""
+    if dtype == torch.float32:
+        v = words.reshape(kdim // 8, ndim // 8, 8, 4, 2, 2)  # s, j, g, t, (hi, lo), e
+        back = [v[..., i, :].permute(0, 3, 4, 1, 2).reshape(kdim, ndim) for i in (0, 1)]
+        return back[0], back[1]
+    v = words.contiguous().view(torch.bfloat16).reshape(kdim // 16, ndim // 8, 8, 4, 2, 2)  # s, j, g, t, h, e
+    return v.permute(0, 4, 3, 5, 1, 2).reshape(kdim, ndim), None
+
+
+@pytest.mark.parametrize("c,dtype", [(24, torch.float32), (13, torch.bfloat16)])
+def test_wdsr_block_pack_weights_is_an_exact_pad_and_permutation(c, dtype):
+    """B3's packed weights hold W1, W2, the nine W3 taps and the biases in mma
+    fragment order, zero-padded to the kernel's widths: in float32 as a TF32
+    split whose hi keeps no mantissa bit past TF32's and whose hi + lo is the
+    weight exactly; in bf16 as the weights rounded to bf16."""
+    from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import _widths, block_shape, pack_weights, packed_size
+
+    c, e, m, k = block_shape(c)
+    g = torch.Generator().manual_seed(c)
+    w1, b1, w2, b2, w3, b3 = (torch.randn(s, generator=g) for s in ((c, e), (e,), (e, m), (m,), (k, k, m, c), (c,)))
+    p = pack_weights(w1, b1, w2, b2, w3, b3, dtype)
+    assert p.dtype == torch.float32 and p.is_contiguous() and p.numel() == packed_size(c, e, dtype)
+    cw, kc, mk, ep = _widths(c, e, dtype)
+    per = 2 if dtype == torch.float32 else 0.5  # words per weight
+    mats = [(w1, kc, ep), (w2, ep, mk)] + [(w3.reshape(k * k, m, c)[i], mk, cw) for i in range(k * k)]
+    at = 0
+    for w, kdim, ndim in mats:
+        n = int(kdim * ndim * per)
+        hi, lo = _unfragment(p[at:at + n], kdim, ndim, dtype)
+        at += n
+        want = torch.zeros(kdim, ndim)
+        want[: w.shape[0], : w.shape[1]] = w
+        if dtype == torch.float32:
+            assert torch.equal(hi.contiguous().view(torch.int32) & 0x1FFF, torch.zeros_like(hi, dtype=torch.int32))
+            assert torch.equal(hi + lo, want)
+            assert float((lo / want.abs().clamp_min(1e-30)).abs().max()) <= 2.0 ** -11
+        else:
+            assert torch.equal(hi, want.to(torch.bfloat16))
+    for b, n in ((b1, ep), (b2, mk), (b3, cw)):
+        assert torch.equal(p[at:at + n], torch.cat([b, torch.zeros(n - b.numel())]))
+        at += n
+    assert at == p.numel()
