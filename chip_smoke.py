@@ -7,13 +7,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build the hand kernels from mobilesuperresolution_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card at the shapes
    the main path gives it, with kernel / plain / library-call times and the
-   kernel's roofline bound (B3 and B5 at the rate of the unit each product
+   kernel's roofline bound (B3, B4 and B5 at the rate of the unit each product
    runs on: CUDA-core f32, 3xTF32 or bf16 tensor cores, named in the row);
    B1 over all six pyramid levels of one window (30 launches), per level and
    summed, against cuDNN; B3 and B5 also at other widths (B3 16, 32, 64
    units; B5 16, 48, 24 -> 40 channels) and B5 at the eval shape for k 3, 5,
-   7; B5's search-shape cases with their device time per launch
-   (torch.profiler) and the wrapper's host time per call;
+   7; B4 (3xTF32 / bf16 tensor cores) at x2, x3, x4 and at 18, 21, 24, 32
+   body channels, with its issued against useful K; B5's search-shape cases
+   with their device time per launch (torch.profiler) and the wrapper's
+   host time per call;
 4. a tiny float32 BasicVSR on the card against the same model on the CPU;
 5. full-width serving: BasicVSR x4 (nf 24, 8 blocks, bf16) with seeded random
    weights through the JAX-checkpoint bridge, streamed by StreamingVSR
@@ -105,7 +107,7 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 
 def bound(flops, nbytes, dtype):
-    """Bound of B1, B2 and B4: bf16 at the tensor-core rate, f32 on the CUDA
+    """Bound of B1 and B2: bf16 at the tensor-core rate, f32 on the CUDA
     cores. Returns (ms, "operations" or "bytes")."""
     return bound_by_route([(flops, "bf16" if dtype == torch.bfloat16 else "f32")], nbytes)[:2]
 
@@ -122,7 +124,7 @@ def bound_by_route(work, nbytes):
 
 
 def route(dtype):
-    """The tensor-core basis of B3's and B5's products for an I/O dtype."""
+    """The tensor-core basis of B3's, B4's and B5's products for an I/O dtype."""
     return "bf16" if dtype == torch.bfloat16 else "tf32x3"
 
 
@@ -356,31 +358,43 @@ def phase_kernels(gen, dev):
                                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                                bound_by=by, bound_basis=basis, gflop=flops / 1e9))
 
-    # B4: the WDSR tail at full width, body 24 -> 12 (3x3) + skip 3 -> 12 (5x5), s 2
-    c, cc = SR_UNITS, 3 * SR_SCALE ** 2
-    for dtype in (torch.float32, torch.bfloat16):
+    # B4: the WDSR tail at full width, body 24 -> 12 (3x3) + skip 3 -> 12
+    # (5x5), s 2, f32 (the main path) and bf16, with the weights packed once
+    # as BasicModel.prepare packs them; then s 3 and 4 (27, 48 conv channels)
+    # and ResultNet's body widths 18, 21, 32, f32 and bf16
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import _skip_plan
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import pack_weights as pack_b4
+
+    b4_cases = [(c, s, dt) for c, s in ((SR_UNITS, SR_SCALE), (SR_UNITS, 3), (SR_UNITS, 4), (18, 2), (21, 2), (32, 2))
+                for dt in (torch.float32, torch.bfloat16)]
+    for c, s, dtype in b4_cases:
+        cc = 3 * s * s
         x = rand((1, hl, wl, c), dtype)
         xs = rand((1, hl, wl, 3), dtype, 0.5)
         kern = rand((3, 3, c, cc), dtype, (9 * c) ** -0.5)
         ks = rand((5, 5, 3, cc), dtype, 75 ** -0.5)
         b = rand((cc,), torch.float32, 0.5)
-        got = fused_conv_pixel_shuffle_skip(x, kern, b, SR_SCALE, xs, ks)
-        want = fused_conv_pixel_shuffle_skip_plain(x, kern, b, SR_SCALE, xs, ks)
+        packed = pack_b4(kern, ks, b, dtype)
+        got = fused_conv_pixel_shuffle_skip(x, kern, b, s, xs, ks, packed=packed)
+        want = fused_conv_pixel_shuffle_skip_plain(x, kern, b, s, xs, ks)
         torch.cuda.synchronize()
-        tag = f"B4 1x{hl}x{wl}x{c} 3x3 + skip 3ch 5x5 s{SR_SCALE} -> {tuple(got.shape)} {str(dtype)[6:]}"
+        tag = f"B4 1x{hl}x{wl}x{c} 3x3 + skip 3ch 5x5 s{s} -> {tuple(got.shape)} {str(dtype)[6:]}"
         err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
-        ms = cuda_ms(lambda: fused_conv_pixel_shuffle_skip(x, kern, b, SR_SCALE, xs, ks))
-        plain_ms = cuda_ms(lambda: fused_conv_pixel_shuffle_skip_plain(x, kern, b, SR_SCALE, xs, ks))
+        ms = cuda_ms(lambda: fused_conv_pixel_shuffle_skip(x, kern, b, s, xs, ks, packed=packed))
+        plain_ms = cuda_ms(lambda: fused_conv_pixel_shuffle_skip_plain(x, kern, b, s, xs, ks))
         xn, xsn = x.permute(0, 3, 1, 2), xs.permute(0, 3, 1, 2)
         kn, ksn, bb = kern.permute(3, 2, 0, 1).contiguous(), ks.permute(3, 2, 0, 1).contiguous(), b.to(dtype)
-        lib_ms = cuda_ms(lambda: F.pixel_shuffle(F.conv2d(xn, kn, bb, padding=1) + F.conv2d(xsn, ksn, padding=2),
-                                                 SR_SCALE))
-        flops = 2.0 * hl * wl * (9 * c + 25 * 3) * cc
-        bms, by = bound(flops, nbytes(x, xs, kern, ks, b, got), dtype)
-        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
-        rows["B4"].append(dict(case=tag, main_path=dtype == torch.float32, max_abs_err=err, ms=ms,
-                               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                               gflop=flops / 1e9))
+        lib_ms = cuda_ms(lambda: F.pixel_shuffle(F.conv2d(xn, kn, bb, padding=1) + F.conv2d(xsn, ksn, padding=2), s))
+        flops = 2.0 * hl * wl * (9 * c + 25 * 3) * cc  # the useful work, whatever the kernel issues
+        bms, by, basis = bound_by_route([(flops, route(dtype))], nbytes(x, xs, kern, ks, b, got))
+        _, run, _, run2, npad = _skip_plan(c, cc, dtype)
+        k_issued, k_useful = (3 * run, 5 * run2, npad), (9 * c, 75, cc)
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis}); "
+            f"K issued body {k_issued[0]} / skip {k_issued[1]} / N {k_issued[2]}, useful {k_useful}")
+        rows["B4"].append(dict(case=tag, main_path=(c, s, dtype) == (SR_UNITS, SR_SCALE, torch.float32),
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                               bound_by=by, bound_basis=basis, gflop=flops / 1e9, k_issued=k_issued,
+                               k_useful=k_useful))
 
     # B5: one ConvSep branch at the search's shape, (16, 48, 48, 32) -> 32 for
     # k = 3, 5, 7 in f32 (the main path: the three branches of one block),

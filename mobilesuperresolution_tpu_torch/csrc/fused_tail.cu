@@ -35,25 +35,59 @@
 // rows (slower; never on the path), and Cin or Cc not a multiple of 8 stage
 // through a synchronous zero-filling loop.
 //
-// f32 design (and B4): one thread per low-resolution conv position, holding
-// all conv output channels (<= 64) in f32 registers. A block covers 16 x 16
+// f32 design: one thread per low-resolution conv position, holding all conv
+// output channels (<= 64) in f32 registers. A block covers 16 x 16
 // positions; the input halo tile and the weights are staged in shared memory
-// 8 input channels at a time (as f32; bf16 inputs are widened exactly), so
-// every weight read is a broadcast. The epilogue adds the bias and scatters
-// each channel to its depth-to-space pixel, rounding once to the working
-// dtype. CUDA-core FMA, full f32.
+// 8 input channels at a time, so every weight read is a broadcast. The
+// epilogue adds the bias and scatters each channel to its depth-to-space
+// pixel. CUDA-core FMA, full f32.
 //
-// Kernel B4 is the CUDA-core kernel with a second source: the WDSR / ResultNet
-// tail (mobilesuperresolution_tpu/models/wdsr_basic.py:67-73,
-// result_net.py:74-77), depth_to_space(conv3x3(body) + conv5x5(x_skip) +
-// bias, s), where the 5x5 skip conv reads the mean-subtracted 3-channel
-// input with its own SAME padding. The skip conv accumulates into the same
-// registers before the epilogue, so the sum is written once. At the SISR
-// path's shape, body (1, 678, 1020, 24) 3x3 -> 12 and skip (1, 678, 1020, 3)
-// 5x5 -> 12 at s = 2, that is 4.8 GFLOP and ~108 MB in f32. Both kernels run
-// the same staged loop (accumulate_conv, once per source) and the same
-// epilogue (store_shuffled); each has its own C entry.
+// Kernel B4 is the WDSR / ResultNet tail
+// (mobilesuperresolution_tpu/models/wdsr_basic.py:67-74, result_net.py:74-77):
+// depth_to_space(conv3x3(body) + conv5x5(x_skip) + bias, s), where the 5x5
+// skip conv reads the mean-subtracted input (<= 3 channels, 3 in the models).
+// At the SISR path's shape, body (1, 678, 1020, 24) 3x3 -> 12 and skip
+// (1, 678, 1020, 3) 5x5 -> 12 at s = 2, it is 4.83 GFLOP and ~108 MB in f32
+// (54 MB in bf16): bound by bytes on the tensor cores (0.032 ms in f32 at the
+// 3xTF32 rate, 0.016 ms in bf16). Design (tail_skip_kernel):
+// - One implicit GEMM on mma.sync with one set of f32 accumulators: M is a
+//   tile of 8 x 16 conv positions (a warp owns two conv rows, two m16 tiles),
+//   N the conv channels rounded up to 16 (12 -> 16, 27 -> 32, 48 -> 48), K
+//   the body segment (3 kernel rows) followed by the skip segment (5 kernel
+//   rows). f32 I/O runs 3xTF32 (m16n8k8), bf16 I/O bf16 (m16n8k16), with
+//   hopper.cuh's Tf32x3 / Bf16 fragment policies.
+// - Row-contiguous K: a halo stores each pixel's channels at a fixed stride
+//   (cp, zero-padded), so the KW taps of one kernel row are KW*cp contiguous
+//   values of one halo row, read as one K run rounded up to the k-step; the
+//   values past KW*cp meet zero weight rows. The 3-channel skip is staged at
+//   stride 3 in f32 (a kernel row is 15 values, 16 issued: K 80 for 75
+//   useful) and 4 in bf16 (20 values, 32 issued: K 160), instead of a k-step
+//   per tap (K 200 in TF32, 400 in bf16). The body's cp
+//   (kernels/fused_tail.py::_pixel_stride) keeps the A loads of a warp free of
+//   bank conflicts where that is cheaper than the extra K.
+// - Weights: packed once on the host (kernels/fused_tail.py::pack_weights)
+//   into fragment order (TF32 hi/lo split for f32) with the fused bias,
+//   copied into shared memory once per block where they fit (every width in
+//   bf16; f32 up to about 40 KB of activations), else read through L1.
+// - Persistent grid, one block barrier per tile. The next tile's body halo
+//   is copied during this tile's MMAs: one TMA box (zero-filled outside the
+//   image and past Cin; every width whose pixel is a whole number of 16-byte
+//   chunks, as WDSR-B's are) or, for the others, 4-byte cp.async units (bf16
+//   of an odd width: elements). Its skip
+//   halo (12 or 6 bytes a pixel, not copyable in aligned units) is loaded
+//   into registers before the MMAs and written to the other skip buffer at
+//   its stride after the epilogue. Staging by 128 threads' copies
+//   stalled on the memory queue for as long as the body's MMAs took.
+// - Epilogue, per warp (a warp's two conv rows are its own 2s output rows):
+//   bias in f32, one rounding, depth-to-space into the warp's stage in
+//   output order, then its rows out to y as one TMA box (clipped at the
+//   image's edges) where a y row is a whole number of 16-byte chunks, else
+//   row by row with coalesced 4-byte stores; the padded channels (27 -> 32
+//   at x3) are never staged.
+// Takes 1 <= Cin <= 64, skip channels <= 3, conv channels <= 64, any s and
+// any H, W; kernels/fused_tail.py raises on the rest.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -70,13 +104,6 @@ constexpr int TILE = 16;   // conv positions per block side
 constexpr int CK = 8;      // input channels staged per step
 constexpr int THREADS = TILE * TILE;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Accumulate one zero-padded KH x KW conv of x (n, H, W, Cin) into acc, for
 // the conv position (ty*TILE + ly, tx*TILE + lx). halo [HH][HW][CK] and wts
@@ -95,7 +122,7 @@ __device__ __forceinline__ void accumulate_conv(
       const int gy = ty * TILE + p / HW - pad_t, gx = tx * TILE + p % HW - pad_l;
       const int c = c0 + k;
       halo[idx] = (gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin)
-                      ? to_f32(x[(img_off + size_t(gy) * W + gx) * Cin + c])
+                      ? to_float(x[(img_off + size_t(gy) * W + gx) * Cin + c])
                       : 0.f;
     }
     for (int idx = threadIdx.x; idx < KH * KW * CK * CO; idx += THREADS) {
@@ -133,7 +160,7 @@ __device__ __forceinline__ void store_shuffled(const float (&acc)[CO], const flo
       const int c = n / ss, i = (n % ss) / s, j = n % s;
       const int oy = cy * s + i, ox = cx * s + j;
       if (oy < out_h && ox < out_w)
-        y[((size_t(img) * out_h + oy) * out_w + ox) * C + c] = from_f32<T>(acc[n] + bias[n]);
+        y[((size_t(img) * out_h + oy) * out_w + ox) * C + c] = from_float<T>(acc[n] + bias[n]);
     }
   }
 }
@@ -163,39 +190,6 @@ __global__ void __launch_bounds__(THREADS) fused_tail_kernel(
   store_shuffled<T, CO>(acc, bias, y, img, cy, cx, Cc, s, out_h, out_w);
 }
 
-// Shape of one conv source: its input map, channels, kernel and padding.
-struct Source {
-  int H, W, Cin, KH, KW, pad_t, pad_l;
-};
-
-template <typename T, int CO>
-__global__ void __launch_bounds__(THREADS) fused_tail_skip_kernel(
-    const T* __restrict__ x, const float* __restrict__ w, Source src,
-    const T* __restrict__ x2, const float* __restrict__ w2, Source src2,
-    const float* __restrict__ bias, T* __restrict__ y, int Cc, int s, int Hc, int Wc,
-    int out_h, int out_w, int tiles_w, int tiles_h, int halo_floats) {
-  extern __shared__ float smem[];
-  float* halo = smem;               // [HH][HW][CK], the larger source's
-  float* wts = smem + halo_floats;  // [KH*KW][CK][CO]
-
-  const int tile = blockIdx.x;
-  const int tx = tile % tiles_w;
-  const int ty = (tile / tiles_w) % tiles_h;
-  const int img = tile / (tiles_w * tiles_h);
-  const int ly = threadIdx.x / TILE, lx = threadIdx.x % TILE;
-  const int cy = ty * TILE + ly, cx = tx * TILE + lx;
-
-  float acc[CO];
-#pragma unroll
-  for (int n = 0; n < CO; ++n) acc[n] = 0.f;
-  accumulate_conv<T, CO>(acc, halo, wts, x, w, img, src.H, src.W, src.Cin, src.KH, src.KW,
-                         src.pad_t, src.pad_l, Cc, tx, ty, ly, lx);
-  accumulate_conv<T, CO>(acc, halo, wts, x2, w2, img, src2.H, src2.W, src2.Cin, src2.KH,
-                         src2.KW, src2.pad_t, src2.pad_l, Cc, tx, ty, ly, lx);
-  if (cy >= Hc || cx >= Wc) return;
-  store_shuffled<T, CO>(acc, bias, y, img, cy, cx, Cc, s, out_h, out_w);
-}
-
 // Call f with the smallest register width (a std::integral_constant) that
 // holds cc <= 64 conv channels.
 template <typename F>
@@ -220,29 +214,6 @@ cudaError_t launch(const void* x, const float* w, const float* b, void* y, int n
     fused_tail_kernel<T, CO><<<tiles_w * tiles_h * n, THREADS, smem, stream>>>(
         static_cast<const T*>(x), w, b, static_cast<T*>(y), h, wd, cin, kh, kw,
         pad_t, pad_l, cc, s, hc, wc, out_h, out_w, tiles_w, tiles_h);
-    return cudaGetLastError();
-  });
-}
-
-template <typename T>
-cudaError_t launch_skip(const void* x, const float* w, const Source& src, const void* x2,
-                        const float* w2, const Source& src2, const float* b, void* y, int n,
-                        int cc, int s, int hc, int wc, int out_h, int out_w, cudaStream_t stream) {
-  return by_width(cc, [&](auto width) {
-    constexpr int CO = decltype(width)::value;
-    const size_t halo1 = size_t(TILE + src.KH - 1) * (TILE + src.KW - 1);
-    const size_t halo2 = size_t(TILE + src2.KH - 1) * (TILE + src2.KW - 1);
-    const size_t wts1 = size_t(src.KH) * src.KW * CO;
-    const size_t wts2 = size_t(src2.KH) * src2.KW * CO;
-    const int halo_floats = int(std::max(halo1, halo2) * CK);
-    const size_t smem = (halo_floats + std::max(wts1, wts2) * CK) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_tail_skip_kernel<T, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    const int tiles_w = (wc + TILE - 1) / TILE, tiles_h = (hc + TILE - 1) / TILE;
-    fused_tail_skip_kernel<T, CO><<<tiles_w * tiles_h * n, THREADS, smem, stream>>>(
-        static_cast<const T*>(x), w, src, static_cast<const T*>(x2), w2, src2, b,
-        static_cast<T*>(y), cc, s, hc, wc, out_h, out_w, tiles_w, tiles_h, halo_floats);
     return cudaGetLastError();
   });
 }
@@ -535,6 +506,412 @@ cudaError_t launch_mma(const void* x, const void* w, const float* b, void* y, in
   }
 }
 
+
+// ---- B4: the WDSR / ResultNet tail on the tensor cores ----
+
+constexpr int S_K = 3;     // body kernel size
+constexpr int S_K2 = 5;    // skip kernel size
+constexpr int S_C2 = 3;    // skip channels, at most
+constexpr int S_BAR_BYTES = 128;  // two mbarriers, padded to keep what follows 128-byte aligned
+
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// Shared-memory plan of one B4 launch, computed on the host, passed by value.
+struct SkipPlan {
+  int cp;          // body halo pixel stride (elements): Cin zero-padded, even
+  int ksb;         // k-steps of one body kernel row: ceil(3 cp / KG)
+  int hwb;         // body halo width (pixels), the K runs' overshoot included
+  int halo_bytes;  // one body halo buffer
+  int tma;         // 1: the body halo is one TMA box (a pixel of whole 16-byte chunks)
+  int tma_out;     // 1: a warp's output rows are one TMA box (a y row of whole 16-byte chunks)
+  int unit;        // else the halo's cp.async unit: 4 bytes, or 0: element by element
+  int upp;         // then units per pixel
+  uint64_t m_upp, m_hwb;  // ceil(2^32 / upp), ceil(2^32 / hwb): the staging loop divides by a multiply
+};
+
+// n / d for 0 <= n < 2^16 and d < 2^16 given m = ceil(2^32 / d): the error
+// n (m - 2^32 / d) / 2^32 stays below 1 / d. (On an H100, runtime divisions
+// made the cp.async staging of 18- and 21-channel f32 bodies 22 % slower.)
+__device__ __forceinline__ int div_by(int n, uint64_t m) { return int((uint64_t(n) * m) >> 32); }
+constexpr uint64_t div_magic(int d) { return ((uint64_t(1) << 32) + d - 1) / d; }
+
+template <typename T>
+struct SkipGeo {
+  using P = typename PolicyOf<T>::type;
+  static constexpr int KG = P::KG, BW = P::BW;
+  // skip halo pixel stride: f32 reads the skip's A by 4-byte loads, so 3
+  // channels a pixel (a kernel row is 15 values, 16 issued); bf16 reads
+  // channel pairs, so 4 (20 values, 32 issued)
+  static constexpr int CP2 = sizeof(T) == 4 ? 3 : 4;
+  static constexpr int KS2 = (S_K2 * CP2 + KG - 1) / KG;  // k-steps of one skip kernel row: 2
+  static constexpr int HHS = M_TH + S_K2 - 1;              // skip halo rows
+  static constexpr int HWS = M_TW + (KS2 * KG - 1) / CP2;  // skip halo width (pixels) the K runs reach
+  static constexpr int SLOTS = HHS * HWS * CP2;
+  static constexpr int NSK = (SLOTS + M_THREADS - 1) / M_THREADS;  // skip values a thread carries
+  static constexpr int SKIP_BYTES = round_up(SLOTS * int(sizeof(T)), 128);
+  // packed floats: body fragments, skip fragments, bias
+  __host__ __device__ static constexpr int body_floats(int ksb, int nb) { return S_K * ksb * nb * 32 * BW; }
+  __host__ __device__ static constexpr int skip_floats(int nb) { return S_K2 * KS2 * nb * 32 * BW; }
+  __host__ __device__ static constexpr int floats(int ksb, int nb) {
+    return body_floats(ksb, nb) + skip_floats(nb) + 8 * nb;
+  }
+  // a warp's output stage: its two conv rows of M_TW positions, cc channels
+  __host__ __device__ static constexpr int stage_bytes(int cc) { return round_up(2 * M_TW * cc * int(sizeof(T)), 128); }
+};
+
+// The skip's A fragment of k-step s: f32 pixels of 3 channels are 4-byte
+// aligned only, so the element view is read by 4-byte loads; bf16 takes the
+// policy's pair loads.
+template <typename P, typename T>
+__device__ __forceinline__ typename P::A load_a_skip(const T* rg, const T* rg8, int s, int t) {
+  if constexpr (sizeof(T) == 4) {
+    const int k = P::KG * s + 2 * t;
+    const float v[4] = {rg[k], rg[k + 1], rg8[k], rg8[k + 1]};
+    return P::make_a(v);
+  } else {
+    return P::load_a(rg, rg8, s, t);
+  }
+}
+
+// One output stage row (nel elements) out to y: consecutive lanes on
+// consecutive 4-byte words. A bf16 row is 2-byte aligned only: one element
+// is peeled to reach 4 bytes.
+__device__ __forceinline__ void store_row(float* dst, const float* src, int nel, int lane) {
+  for (int e = lane; e < nel; e += 32) dst[e] = src[e];
+}
+__device__ __forceinline__ void store_row(__nv_bfloat16* dst, const __nv_bfloat16* src, int nel, int lane) {
+  const int head = int((reinterpret_cast<uintptr_t>(dst) >> 1) & 1);
+  if (head && lane == 0) dst[0] = src[0];
+  for (int e0 = head + 2 * lane; e0 < nel; e0 += 64) {
+    if (e0 + 1 < nel) {
+      __nv_bfloat162 v;
+      v.x = src[e0];
+      v.y = src[e0 + 1];
+      *reinterpret_cast<__nv_bfloat162*>(dst + e0) = v;
+    } else {
+      dst[e0] = src[e0];
+    }
+  }
+}
+
+// bf16 fits three blocks an SM at 128 threads when capped at 170 registers
+template <typename T, int NB, bool WS>
+__global__ void __launch_bounds__(M_THREADS, sizeof(T) == 2 ? 3 : 1) tail_skip_kernel(
+    const T* __restrict__ x, const T* __restrict__ x2, const float* __restrict__ packed, T* __restrict__ y,
+    int H, int W, int Cin, int C2, int Cc, int s, int tiles_w, int tiles_h, int ntiles, SkipPlan pl,
+    const __grid_constant__ CUtensorMap tmap, const __grid_constant__ CUtensorMap tmap_y) {
+  using G = SkipGeo<T>;
+  using P = typename G::P;
+  constexpr int BW = G::BW, HWS = G::HWS, CP2 = G::CP2;
+  extern __shared__ __align__(128) unsigned char skip_smem[];
+  // the two body halo buffers' TMA mbarriers, [2] body halos, [2] skip
+  // halos, [4] warp output stages, the packed weights (WS); each 128-byte
+  // aligned, as TMA needs
+  const uint32_t bar_s = smem_u32(skip_smem);
+  unsigned char* halo = skip_smem + S_BAR_BYTES;
+  T* hs = reinterpret_cast<T*>(halo + 2 * pl.halo_bytes);
+  const int stage_bytes = G::stage_bytes(Cc);
+  T* ost = reinterpret_cast<T*>(halo + 2 * pl.halo_bytes + 2 * G::SKIP_BYTES + (threadIdx.x >> 5) * stage_bytes);
+  float* ws = reinterpret_cast<float*>(halo + 2 * pl.halo_bytes + 2 * G::SKIP_BYTES + 4 * stage_bytes);
+  const uint32_t halo_s = smem_u32(halo);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int ss = s * s, C = Cc / ss, out_h = H * s, out_w = W * s;
+  const int cp = pl.cp, ksb = pl.ksb, hwb = pl.hwb, es = int(sizeof(T));
+  const int o_skip = G::body_floats(ksb, NB), o_bias = o_skip + G::skip_floats(NB);
+  const T zero = from_float<T>(0.f);
+
+  // Where conv channel n = c*s^2 + i*s + j of a position lands in the warp's
+  // output stage, relative to the position's top-left pixel (-1 past Cc),
+  // and its bias.
+  int off[NB][2];
+  float bv[NB][2];
+#pragma unroll
+  for (int q = 0; q < NB; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * q + 2 * t + e;
+      off[q][e] = n < Cc ? (((n % ss) / s) * (M_TW * s) + n % s) * C + n / ss : -1;
+      bv[q][e] = packed[o_bias + n];
+    }
+
+  auto tile_origin = [&](int tile, int& img, int& cy0, int& cx0) {
+    const int tx = tile % tiles_w, ty = (tile / tiles_w) % tiles_h;
+    img = tile / (tiles_w * tiles_h);
+    cy0 = ty * M_TH;
+    cx0 = tx * M_TW;
+  };
+  // The body halo of a tile, (M_TH + 2) x hwb pixels of cp channels, every
+  // element written: zero outside the image and past Cin. One TMA box, or
+  // 4-byte cp.async units, or elements.
+  auto stage_body = [&](int buf, int tile) {
+    int img, cy0, cx0;
+    tile_origin(tile, img, cy0, cx0);
+    if (pl.tma) {
+      if (tid == 0) {
+        mbar_arrive_expect_tx(bar_s + 8 * buf, (M_TH + S_K - 1) * hwb * cp * es);
+        tma_load_4d(halo_s + buf * pl.halo_bytes, &tmap, 0, cx0 - 1, cy0 - 1, img, bar_s + 8 * buf);
+      }
+      return;
+    }
+    const int el = pl.unit ? pl.unit / es : 1;  // elements per unit
+    const T* xi = x + size_t(img) * H * W * Cin;
+    unsigned char* hb = halo + buf * pl.halo_bytes;
+    for (int idx = tid; idx < (M_TH + S_K - 1) * hwb * pl.upp; idx += M_THREADS) {
+      const int p = div_by(idx, pl.m_upp), u = idx - p * pl.upp;
+      const int r = div_by(p, pl.m_hwb);
+      const int gy = cy0 + r - 1, gx = cx0 + p - r * hwb - 1;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && u * el < Cin;
+      const T* src = ok ? xi + (size_t(gy) * W + gx) * Cin + u * el : x;
+      const int o = (p * cp + u * el) * es;
+      if (pl.unit) cp_async_small<4>(halo_s + buf * pl.halo_bytes + o, src, ok);
+      else *reinterpret_cast<T*>(hb + o) = ok ? *src : zero;
+    }
+  };
+  // The skip halo of a tile, (M_TH + 4) x HWS pixels of CP2 channels (zero
+  // past C2), into registers (loads in flight during the MMAs) ...
+  auto load_skip = [&](T (&v)[G::NSK], int tile) {
+    int img, cy0, cx0;
+    tile_origin(tile, img, cy0, cx0);
+    const T* xi = x2 + size_t(img) * H * W * C2;
+#pragma unroll
+    for (int k = 0; k < G::NSK; ++k) {
+      const int idx = tid + k * M_THREADS, p = idx / CP2, c = idx % CP2;
+      const int gy = cy0 + p / HWS - S_K2 / 2, gx = cx0 + p % HWS - S_K2 / 2;
+      const bool ok = idx < G::SLOTS && c < C2 && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      v[k] = ok ? xi[(size_t(gy) * W + gx) * C2 + c] : zero;
+    }
+  };
+  // ... and from them into a skip halo buffer.
+  auto store_skip = [&](const T (&v)[G::NSK], int buf) {
+#pragma unroll
+    for (int k = 0; k < G::NSK; ++k)
+      if (tid + k * M_THREADS < G::SLOTS) hs[buf * (G::SKIP_BYTES / es) + tid + k * M_THREADS] = v[k];
+  };
+
+  if (blockIdx.x >= ntiles) return;
+  if (pl.tma && tid == 0) {
+    mbar_init(bar_s, 1);
+    mbar_init(bar_s + 8, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if constexpr (WS) {
+    const int nw = G::floats(ksb, NB);
+    for (int i = 4 * tid; i < nw; i += 4 * M_THREADS) cp_async16(smem_u32(ws + i), packed + i, true);
+  }
+  const float* wb = WS ? ws : packed;
+  stage_body(0, blockIdx.x);
+  cp_async_commit();
+  T sk[G::NSK];
+  load_skip(sk, blockIdx.x);
+  store_skip(sk, 0);
+
+  float acc[2][NB][4];
+  for (int tile = blockIdx.x, buf = 0, j = 0; tile < ntiles; tile += gridDim.x, buf ^= 1, ++j) {
+    const int next = tile + gridDim.x;
+    cp_async_wait<0>();
+    if (pl.tma) mbar_wait(bar_s + 8 * buf, (j >> 1) & 1);  // buffer buf's (j / 2)-th box
+    // This tile's halos are in; every warp is done with the previous tile,
+    // whose buffers (buf ^ 1) take the next tile's halos.
+    __syncthreads();
+    if (next < ntiles) {
+      stage_body(buf ^ 1, next);
+      cp_async_commit();
+      load_skip(sk, next);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][q][e] = 0.f;
+
+    // body: 3 kernel rows, each one K run of ksb k-steps along a halo row
+    // (the k-step loop outside, so a step's three rows load together)
+    const T* hb = reinterpret_cast<const T*>(halo + buf * pl.halo_bytes) + ((2 * warp) * hwb + g) * cp;
+#pragma unroll 1
+    for (int st = 0; st < ksb; ++st) {
+#pragma unroll
+      for (int ky = 0; ky < S_K; ++ky) {
+        const T* r0 = hb + ky * hwb * cp;
+        const T* r1 = r0 + hwb * cp;
+        const typename P::A a0 = P::load_a(r0, r0 + 8 * cp, st, t);
+        const typename P::A a1 = P::load_a(r1, r1 + 8 * cp, st, t);
+        const float* bp = wb + ((ky * ksb + st) * NB * 32 + lane) * BW;
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+          const typename P::B b = P::load_b(bp + q * 32 * BW);
+          P::mma(acc[0][q], a0, b);
+          P::mma(acc[1][q], a1, b);
+        }
+      }
+    }
+    // skip: 5 kernel rows of KS2 k-steps along the skip halo
+    const T* hsb = hs + buf * (G::SKIP_BYTES / es) + ((2 * warp) * HWS + g) * CP2;
+#pragma unroll
+    for (int ky = 0; ky < S_K2; ++ky) {
+      const T* r0 = hsb + ky * HWS * CP2;
+      const T* r1 = r0 + HWS * CP2;
+#pragma unroll
+      for (int st = 0; st < G::KS2; ++st) {
+        const typename P::A a0 = load_a_skip<P>(r0, r0 + 8 * CP2, st, t);
+        const typename P::A a1 = load_a_skip<P>(r1, r1 + 8 * CP2, st, t);
+        const float* bp = wb + o_skip + ((ky * G::KS2 + st) * NB * 32 + lane) * BW;
+#pragma unroll
+        for (int q = 0; q < NB; ++q) {
+          const typename P::B b = P::load_b(bp + q * 32 * BW);
+          P::mma(acc[0][q], a0, b);
+          P::mma(acc[1][q], a1, b);
+        }
+      }
+    }
+
+    // Epilogue, the warp's own: bias, one rounding, depth-to-space of its two
+    // conv rows into its stage in output order, then its 2s output rows out
+    // to y.
+    int img, cy0, cx0;
+    tile_origin(tile, img, cy0, cx0);
+    const int row_el = M_TW * s * C;
+    if (pl.tma_out) {  // the stage's previous box has been read out
+      if (lane == 0) tma_store_wait_read();
+      __syncwarp();
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int base = mi * s * row_el + (g + 8 * h) * s * C;
+#pragma unroll
+        for (int q = 0; q < NB; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (off[q][e] >= 0) ost[base + off[q][e]] = from_float<T>(acc[mi][q][2 * h + e] + bv[q][e]);
+      }
+    const int oy0 = (cy0 + 2 * warp) * s, ox0 = cx0 * s;
+    if (pl.tma_out) {
+      fence_proxy_async();  // the stage's writes, visible to the TMA engine
+      __syncwarp();
+      if (lane == 0) tma_store_3d(&tmap_y, ox0 * C, oy0, img, smem_u32(ost));
+    } else {
+      __syncwarp();
+      const int nel = min(M_TW * s, out_w - ox0) * C;
+      for (int rr = 0; rr < 2 * s && oy0 + rr < out_h; ++rr)
+        store_row(y + ((size_t(img) * out_h + oy0 + rr) * out_w + ox0) * C, ost + rr * row_el, nel, lane);
+      __syncwarp();  // the stage is read out before the next tile writes it
+    }
+    // last, to give the loads the epilogue's time too
+    if (next < ntiles) store_skip(sk, buf ^ 1);
+  }
+  if (pl.tma_out && lane == 0) tma_store_wait_read();  // the stage outlives its last box's read
+}
+
+template <typename T, int NB, bool WS>
+cudaError_t launch_skip_nb(const void* x, const void* x2, const float* packed, void* y, int n, int h, int w,
+                           int cin, int c2, int cc, int s, const SkipPlan& pl, const CUtensorMap& tmap,
+                           const CUtensorMap& tmap_y, int smem, cudaStream_t stream) {
+  auto kern = tail_skip_kernel<T, NB, WS>;
+  // the shared-memory attribute and the resident blocks, kept per device and
+  // size (the host's work per call)
+  static int last_dev = -1, last_smem = -1, resident = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != last_dev || smem != last_smem) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, M_THREADS, smem)) != cudaSuccess)
+      return err;
+    last_dev = dev;
+    last_smem = smem;
+    resident = std::max(per_sm, 1) * sms;
+  }
+  const int tiles_w = (w + M_TW - 1) / M_TW, tiles_h = (h + M_TH - 1) / M_TH, ntiles = tiles_w * tiles_h * n;
+  const int grid = std::max(1, std::min(ntiles, resident));
+  kern<<<grid, M_THREADS, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(x2), packed,
+                                          static_cast<T*>(y), h, w, cin, c2, cc, s, tiles_w, tiles_h, ntiles, pl,
+                                          tmap, tmap_y);
+  return cudaGetLastError();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A tensor map of `rank` dimensions (innermost first) with zero fill
+// outside the tensor; false where cuTensorMapEncodeTiled refuses it.
+bool tensor_map(CUtensorMap& tmap, CUtensorMapDataType type, const void* base, int rank, const cuuint64_t* dims,
+                const cuuint64_t* strides, const cuuint32_t* box) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault,
+                                &q) != cudaSuccess || q != cudaDriverEntryPointSuccess) {
+      encode = nullptr;
+      return false;
+    }
+  }
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  return encode(&tmap, type, rank, const_cast<void*>(base), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Plan a launch for the body pixel stride cp, stage the weights where they
+// fit, and dispatch on the padded conv-channel width (16, 32, 48, 64).
+template <typename T>
+cudaError_t launch_skip(const void* x, const void* x2, const float* packed, void* y, int n, int h, int w,
+                        int cin, int cp, int c2, int cc, int s, cudaStream_t st) {
+  using G = SkipGeo<T>;
+  const int es = int(sizeof(T));
+  SkipPlan pl;
+  pl.cp = cp;
+  pl.ksb = (S_K * cp + G::KG - 1) / G::KG;
+  pl.hwb = M_TW + (pl.ksb * G::KG - 1) / cp;
+  pl.halo_bytes = round_up((M_TH + S_K - 1) * pl.hwb * cp * es, 128);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const CUtensorMapDataType type = es == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // x (n, h, w, cin) read as boxes of one body halo, (cp, hwb, M_TH + 2, 1):
+  // the channels past cin and the pixels outside the image read as zero
+  CUtensorMap tmap = {}, tmap_y = {};
+  const cuuint64_t ces = cuuint64_t(cin) * es;
+  const cuuint64_t xd[4] = {cuuint64_t(cin), cuuint64_t(w), cuuint64_t(h), cuuint64_t(n)};
+  const cuuint64_t xs[3] = {ces, ces * w, ces * w * h};
+  const cuuint32_t xb[4] = {cuuint32_t(cp), cuuint32_t(pl.hwb), cuuint32_t(M_TH + S_K - 1), 1};
+  pl.tma = (cin * es) % 16 == 0 && (cp * es) % 16 == 0 && xa % 16 == 0;
+  if (pl.tma && !tensor_map(tmap, type, x, 4, xd, xs, xb)) return cudaErrorNotSupported;
+  pl.unit = (cin * es) % 4 == 0 && xa % 4 == 0 ? 4 : 0;
+  pl.upp = pl.unit ? cp * es / pl.unit : cp;
+  pl.m_upp = div_magic(pl.upp);
+  pl.m_hwb = div_magic(pl.hwb);
+  // y (n, s h, s w C) written as boxes of a warp's 2s output rows of M_TW
+  // positions; the part past the image is not written
+  const int C = cc / (s * s);
+  const cuuint64_t row = cuuint64_t(s) * w * C;
+  const cuuint64_t yd[3] = {row, cuuint64_t(s) * h, cuuint64_t(n)}, ys[2] = {row * es, row * es * s * h};
+  const cuuint32_t yb[3] = {cuuint32_t(M_TW * s * C), cuuint32_t(2 * s), 1};
+  pl.tma_out = (row * es) % 16 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 && M_TW * s * C <= 256 &&
+               tensor_map(tmap_y, type, y, 3, yd, ys, yb);
+  const int nb = 2 * ((cc + 15) / 16);
+  const int base = S_BAR_BYTES + 2 * pl.halo_bytes + 2 * G::SKIP_BYTES + 4 * G::stage_bytes(cc);
+  const int smem_ws = base + G::floats(pl.ksb, nb) * 4;
+  if (base > M_SMEM_MAX) return cudaErrorInvalidConfiguration;
+  const bool ws = smem_ws <= M_SMEM_MAX;
+  const int smem = ws ? smem_ws : base;
+  switch (nb) {
+#define SKIP_NB(NB)                                                                                            \
+  case NB:                                                                                                     \
+    if (ws) return launch_skip_nb<T, NB, true>(x, x2, packed, y, n, h, w, cin, c2, cc, s, pl, tmap, tmap_y, smem, st); \
+    if constexpr (std::is_same<T, float>::value)                                                              \
+      return launch_skip_nb<T, NB, false>(x, x2, packed, y, n, h, w, cin, c2, cc, s, pl, tmap, tmap_y, smem, st); \
+    return cudaErrorInvalidConfiguration;
+    SKIP_NB(2) SKIP_NB(4) SKIP_NB(6) SKIP_NB(8)
+#undef SKIP_NB
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // B2 in f32. x (n, h, wd, cin), w (kh, kw, cin, cc), b (cc,) and y (n, out_h,
@@ -562,22 +939,22 @@ extern "C" int fused_conv_pixel_shuffle_bf16_launch(
                         hc, wc, out_h, out_w, static_cast<cudaStream_t>(stream)));
 }
 
-// B4. As B2 over two sources summed before the bias: x (n, h, wd, cin) with
-// w (kh, kw, cin, cc), and x2 (n, h2, wd2, cin2) in x's dtype with w2 (kh2,
-// kw2, cin2, cc), each zero-padded by its own (pad_t, pad_l).
-extern "C" int fused_conv_pixel_shuffle_skip_launch(
-    const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
-    int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc,
-    int wc, int out_h, int out_w, const void* x2, const void* w2, int h2, int wd2,
-    int cin2, int kh2, int kw2, int pad2_t, int pad2_l, int is_bf16, void* stream) {
-  if (bad_geometry(n, hc, wc, cin, cc, s) || !x2 || !w2 || cin2 <= 0) return int(cudaErrorInvalidValue);
-  const Source src{h, wd, cin, kh, kw, pad_t, pad_l};
-  const Source src2{h2, wd2, cin2, kh2, kw2, pad2_t, pad2_l};
-  const float* wf = static_cast<const float*>(w);
-  const float* w2f = static_cast<const float*>(w2);
-  const float* bf = static_cast<const float*>(b);
+
+// B4: depth_to_space(conv3x3(x) + conv5x5(x2) + bias, s), both SAME. x (n, h,
+// w, cin) and x2 (n, h, w, c2) in one dtype (f32, or bf16 when is_bf16);
+// packed: kernels/fused_tail.py::pack_weights(kernel, kernel_skip, bias,
+// dtype) for body pixel stride cp, f32 words; y (n, s*h, s*w, cc / s^2) in
+// x's dtype; all contiguous. Takes 1 <= cin <= 64, cin <= cp <= 80 with cp
+// even, 1 <= c2 <= 3, cc <= 64 a multiple of s^2; anything else returns
+// cudaErrorInvalidValue. Launches on `stream`, does not synchronise, returns
+// cudaGetLastError() after the launch.
+extern "C" int fused_conv_pixel_shuffle_skip_launch(const void* x, const void* x2, const void* packed, void* y,
+                                                    int n, int h, int w, int cin, int cp, int c2, int cc, int s,
+                                                    int is_bf16, void* stream) {
+  if (bad_geometry(n, h, w, cin, cc, s) || cin > 64 || cp < cin || cp > 80 || cp % 2 || c2 < 1 || c2 > S_C2)
+    return int(cudaErrorInvalidValue);
+  const float* p = static_cast<const float*>(packed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return int(launch_skip<__nv_bfloat16>(x, wf, src, x2, w2f, src2, bf, y, n, cc, s, hc, wc, out_h, out_w, st));
-  return int(launch_skip<float>(x, wf, src, x2, w2f, src2, bf, y, n, cc, s, hc, wc, out_h, out_w, st));
+  if (is_bf16) return int(launch_skip<__nv_bfloat16>(x, x2, p, y, n, h, w, cin, cp, c2, cc, s, st));
+  return int(launch_skip<float>(x, x2, p, y, n, h, w, cin, cp, c2, cc, s, st));
 }

@@ -1,6 +1,7 @@
-// Hopper building blocks shared by the hand kernels (B1 in conv5x5.cu, B2 in
-// fused_tail.cu, B3 in fused_wdsr_block.cu, B5 in fused_convsep.cu): cp.async
-// with zero fill, bulk copies completing on mbarriers, ldmatrix, mma.sync
+// Hopper building blocks shared by the hand kernels (B1 in conv5x5.cu, B2 and
+// B4 in fused_tail.cu, B3 in fused_wdsr_block.cu, B5 in fused_convsep.cu):
+// cp.async with zero fill, bulk and TMA tensor copies completing on
+// mbarriers, ldmatrix, mma.sync
 // (m16n8k16 bf16, m16n8k8 tf32, and the Tf32x3 / Bf16 fragment policies of
 // B3 and B5) and warpgroup wgmma (A in registers, B read from shared memory
 // through a descriptor). Raw PTX through inline asm keeps nvcc at seconds.
@@ -246,6 +247,31 @@ __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src, uin
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
                "l"(src), "r"(bytes), "r"(bar)
                : "memory");
+}
+
+// TMA: the box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
+// shared memory (128-byte aligned), zero-filled where the box leaves the
+// tensor (negative coordinates included); completion counts the box's bytes
+// on `bar`. tmap: the address of a __grid_constant__ CUtensorMap parameter.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap, int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(dst), "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+// TMA: shared memory (128-byte aligned) to the box of a 3-D tensor map at
+// (c0, c1, c2); the part of the box outside the tensor is not written.
+// Completes in the thread's bulk group: commit, then wait before the shared
+// memory is written again (tma_store_wait_read) or the block exits.
+__device__ __forceinline__ void tma_store_3d(const void* tmap, int c0, int c1, int c2, uint32_t src) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(tmap),
+               "r"(c0), "r"(c1), "r"(c2), "r"(src)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // Make this thread's generic-proxy writes to shared memory (st.shared,

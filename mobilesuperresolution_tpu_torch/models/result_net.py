@@ -15,6 +15,7 @@ trained tail convs learned the shift.
 import torch
 import torch.nn as nn
 
+from mobilesuperresolution_tpu_torch.kernels import fused_tail
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle_skip
 from mobilesuperresolution_tpu_torch.nas.artifact import read_block_index
 from mobilesuperresolution_tpu_torch.ops.layers import WNConv
@@ -68,6 +69,8 @@ class ResultNet(nn.Module):
         for m in [self.head, *self.blocks(), self.tail, self.skip]:
             m.prepare(dt)
         self._tail_bias = self.tail._b.float() + self.skip._b.float()
+        self._tail_packed = fused_tail.pack_for_card(self.tail.kernel, self.skip.kernel, self._tail_bias,
+                                                     self.scale, dt)
 
     def forward(self, x):
         """x: (B, H, W, 3) in [0, 1] → (B, scale·H, scale·W, 3) in x.dtype."""
@@ -78,7 +81,7 @@ class ResultNet(nn.Module):
             y = blk(y)
         y = fused_conv_pixel_shuffle_skip(
             y.contiguous(), self.tail.kernel, self._tail_bias, self.scale,
-            x.contiguous(), self.skip.kernel,
+            x.contiguous(), self.skip.kernel, packed=self._tail_packed,
         )
         # the reference never re-adds image_mean here
         return y.to(in_dtype)

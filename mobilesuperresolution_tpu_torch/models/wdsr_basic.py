@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn as nn
 
+from mobilesuperresolution_tpu_torch.kernels import fused_tail
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle_skip
 from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import WIDTHS, fused_wdsr_block, pack_weights
 from mobilesuperresolution_tpu_torch.ops.layers import WNConv
@@ -92,6 +93,8 @@ class BasicModel(nn.Module):
             self.WNConv_2.prepare(dt)
             # image_mean folded into B4's bias (exact: depth-to-space only moves values)
             self._tail_bias = self.WNConv_1._b.float() + self.WNConv_2._b.float() + self.image_mean
+            self._tail_packed = fused_tail.pack_for_card(self.WNConv_1.kernel, self.WNConv_2.kernel,
+                                                         self._tail_bias, self.scale, dt)
 
     def forward(self, x):
         """x: (B, H, W, C) in [0, 1] → (B, scale·H, scale·W, C) in x.dtype."""
@@ -103,7 +106,7 @@ class BasicModel(nn.Module):
         if self.has_skip_conv:
             y = fused_conv_pixel_shuffle_skip(
                 y.contiguous(), self.WNConv_1.kernel, self._tail_bias, self.scale,
-                x.contiguous(), self.WNConv_2.kernel,
+                x.contiguous(), self.WNConv_2.kernel, packed=self._tail_packed,
             )
         else:  # scale 1: the input itself is the skip
             y = self.WNConv_1(y) + x + self.image_mean

@@ -1,5 +1,6 @@
-"""Time kernels B3 (csrc/fused_wdsr_block.cu) and B5 (csrc/fused_convsep.cu)
-at their path shapes, and the models that run them, for the checkout given
+"""Time kernels B3 (csrc/fused_wdsr_block.cu), B4 (csrc/fused_tail.cu, the
+WDSR tail) and B5 (csrc/fused_convsep.cu) at their path shapes, and the
+models that run them, for the checkout given
 by ``--root``, so that two commits can be held against each other on one
 card in one run (parent, change, change, parent):
 
@@ -8,7 +9,9 @@ card in one run (parent, change, change, parent):
 
 B3: one WDSR-B block at 24 units on the full-width x2 LR map (1, 678, 1020,
 24), f32 and bf16, weights packed once where the checkout packs them (as
-BasicBlock.prepare does). B5: one ConvSep branch, C = C_out = 32, at the
+BasicBlock.prepare does). B4: the WDSR-B x2 tail on the same map, body 24
+-> 12 (3x3) + skip 3 -> 12 (5x5), f32 and bf16, weights packed once where
+the checkout packs them (as BasicModel.prepare does). B5: one ConvSep branch, C = C_out = 32, at the
 search's shape (16, 48, 48, 32) and the supernet eval shape (1, 678, 1020,
 32), k = 3, 5, 7, f32 (and k 7 bf16 at the eval shape); at the search shape
 also the wrapper's host microseconds per call (host clock over 200 calls
@@ -60,6 +63,7 @@ def main():
     sys.path.insert(0, root)
     from mobilesuperresolution_tpu_torch.kernels import _build
     from mobilesuperresolution_tpu_torch.kernels import fused_convsep as b5
+    from mobilesuperresolution_tpu_torch.kernels import fused_tail as b4
     from mobilesuperresolution_tpu_torch.kernels import fused_wdsr_block as b3
     from mobilesuperresolution_tpu_torch.models import get_model
     from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
@@ -73,7 +77,7 @@ def main():
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build(("fused_wdsr_block", "fused_convsep"))
+    _build.build(("fused_wdsr_block", "fused_convsep", "fused_tail"))
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     hl, wl = SR_HR[0] // SR_SCALE, SR_HR[1] // SR_SCALE
@@ -81,7 +85,7 @@ def main():
     def rand(shape, scale=1.0, dtype=torch.float32):
         return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
 
-    report = {"root": args.root, "b3_ms": {}, "b5_ms": {}, "b5_host_us": {}, "b5_device_us": {}, "checksum": {}}
+    report = {"root": args.root, "b3_ms": {}, "b4_ms": {}, "b5_ms": {}, "b5_host_us": {}, "b5_device_us": {}, "checksum": {}}
     c, e, m = SR_UNITS, int(SR_UNITS * 6), int(SR_UNITS * 0.84)
     for dtype in (torch.float32, torch.bfloat16):
         x = rand((1, hl, wl, c), dtype=dtype)
@@ -94,6 +98,22 @@ def main():
         key = str(dtype)[6:]
         report["b3_ms"][key] = repeats(lambda: b3.fused_wdsr_block(x, *ws, **kw))
         report["checksum"][f"b3 {key}"] = float(out.float().sum())
+
+    cc = 3 * SR_SCALE ** 2
+    for dtype in (torch.float32, torch.bfloat16):
+        x, xs = rand((1, hl, wl, SR_UNITS), dtype=dtype), rand((1, hl, wl, 3), 0.5, dtype=dtype)
+        kern = rand((3, 3, SR_UNITS, cc), (9 * SR_UNITS) ** -0.5).to(dtype)
+        ks, b = rand((5, 5, 3, cc), 75 ** -0.5).to(dtype), rand((cc,), 0.5)
+        kw = {"packed": b4.pack_weights(kern, ks, b, dtype)} if hasattr(b4, "pack_weights") else {}
+
+        def call():
+            return b4.fused_conv_pixel_shuffle_skip(x, kern, b, SR_SCALE, xs, ks, **kw)
+
+        out = call()
+        torch.cuda.synchronize()
+        key = str(dtype)[6:]
+        report["b4_ms"][key] = repeats(call)
+        report["checksum"][f"b4 {key}"] = float(out.float().sum())
 
     cases = [(NAS_BATCH, NAS_PATCH, NAS_PATCH, k, torch.float32) for k in (3, 5, 7)]
     cases += [(1, hl, wl, k, torch.float32) for k in (3, 5, 7)] + [(1, hl, wl, 7, torch.bfloat16)]
@@ -134,7 +154,7 @@ def main():
         v = report[k]
         report[k + "_mean"] = {kk: mean(vv) for kk, vv in v.items()} if isinstance(v, dict) else mean(v)
     report["ptxas"] = {name: ptxas_summary(os.path.join(_build.BUILD_DIR, f"{name}.log"))
-                       for name in ("fused_wdsr_block", "fused_convsep")}
+                       for name in ("fused_wdsr_block", "fused_convsep", "fused_tail")}
     report["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                     capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps(report))

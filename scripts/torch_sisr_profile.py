@@ -45,7 +45,8 @@ def profile(model, x):
 
         def tail():
             return fused_conv_pixel_shuffle_skip(feats, model.WNConv_1.kernel, model._tail_bias, model.scale,
-                                                 xm.contiguous(), model.WNConv_2.kernel)
+                                                 xm.contiguous(), model.WNConv_2.kernel,
+                                                 packed=model._tail_packed)
 
         torch.cuda.reset_peak_memory_stats()
         stages = {

@@ -176,23 +176,37 @@ def test_fused_wdsr_block_kernel_matches_plain(cuda, dtype, shape, c):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("cin", [24, 18])
-def test_fused_tail_skip_kernel_matches_plain(cuda, dtype, cin):
-    """B4: tail 3x3 (WDSR 24 or ResultNet 18 channels) + skip 5x5 from 3
-    channels, s = 2, on a ragged 21x35 map."""
-    g = torch.Generator().manual_seed(1)
-    x = _rand(g, (2, 21, 35, cin), 1.0, cuda, dtype)
-    xs = _rand(g, (2, 21, 35, 3), 0.5, cuda, dtype)
-    kern = _rand(g, (3, 3, cin, 12), (9 * cin) ** -0.5, cuda)
-    ks = _rand(g, (5, 5, 3, 12), 75 ** -0.5, cuda)
-    b = _rand(g, (12,), 0.5, cuda)
-    before = (fused_conv_pixel_shuffle.launches, fused_conv_pixel_shuffle_skip.launches)
-    got = fused_conv_pixel_shuffle_skip(x, kern, b, 2, xs, ks)
-    want = fused_conv_pixel_shuffle_skip_plain(x, kern, b, 2, xs, ks)
-    torch.cuda.synchronize()
-    assert (fused_conv_pixel_shuffle.launches, fused_conv_pixel_shuffle_skip.launches) == (before[0], before[1] + 1)
-    assert got.dtype == dtype and got.shape == (2, 42, 70, 3)
-    assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype)
+@pytest.mark.parametrize("scale", [2, 3, 4])
+@pytest.mark.parametrize("cin", [8, 13, 18, 21, 24, 32, 64])
+def test_fused_tail_skip_kernel_matches_plain(cuda, dtype, scale, cin):
+    """B4 on the tensor cores: tail 3x3 (8..64 body channels: WDSR-B's
+    units, ResultNet's 18, the searched 21 and 32; 13 and 21 staged without
+    16-byte copies) + skip 5x5 from 3 channels, s 2, 3, 4 (12, 27, 48 conv
+    channels: 27 pads N and masks), batch 2 on ragged maps: 21x35, whose
+    output rows are written row by row, and 21x40, whose rows are a whole
+    number of 16-byte chunks and go out as TMA boxes. A repeated call is
+    bit-equal, and weights packed once give the per-call result."""
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import pack_weights as pack_b4
+
+    cc = 3 * scale * scale
+    g = torch.Generator().manual_seed(cin * 10 + scale)
+    kern = _rand(g, (3, 3, cin, cc), (9 * cin) ** -0.5, cuda)
+    ks = _rand(g, (5, 5, 3, cc), 75 ** -0.5, cuda)
+    b = _rand(g, (cc,), 0.5, cuda)
+    for h, w in ((21, 35), (21, 40)):
+        x = _rand(g, (2, h, w, cin), 1.0, cuda, dtype)
+        xs = _rand(g, (2, h, w, 3), 0.5, cuda, dtype)
+        before = (fused_conv_pixel_shuffle.launches, fused_conv_pixel_shuffle_skip.launches)
+        got = fused_conv_pixel_shuffle_skip(x, kern, b, scale, xs, ks)
+        again = fused_conv_pixel_shuffle_skip(x, kern, b, scale, xs, ks)
+        packed = fused_conv_pixel_shuffle_skip(x, kern, b, scale, xs, ks, packed=pack_b4(kern, ks, b, dtype))
+        want = fused_conv_pixel_shuffle_skip_plain(x, kern, b, scale, xs, ks)
+        torch.cuda.synchronize()
+        assert (fused_conv_pixel_shuffle.launches, fused_conv_pixel_shuffle_skip.launches) == (before[0],
+                                                                                                before[1] + 3)
+        assert got.dtype == dtype and got.shape == (2, h * scale, w * scale, 3)
+        assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype), (h, w)
+        assert torch.equal(got, again) and torch.equal(got, packed)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -293,3 +307,18 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         fused_conv_pixel_shuffle_skip(x, torch.zeros(3, 3, 4, 12, device=cuda), torch.zeros(12, device=cuda), 2,
                                       torch.zeros(1, 8, 9, 3, device=cuda), torch.zeros(5, 5, 3, 12, device=cuda))
+
+
+def test_fused_tail_skip_raises_past_its_widths(cuda):
+    """B4 raises, naming the shapes, on a body past 64 channels, more than 64
+    conv channels, a skip past 3 channels and kernels other than 3x3 + 5x5;
+    it never runs its plain version on the card."""
+    z = torch.zeros
+    before = fused_conv_pixel_shuffle_skip.launches
+    for cin, cc, c2, k, k2, s in ((72, 12, 3, 3, 5, 2), (24, 75, 3, 3, 5, 5), (24, 12, 4, 3, 5, 2),
+                                  (24, 12, 3, 5, 5, 2), (24, 12, 3, 3, 3, 2)):
+        with pytest.raises(ValueError, match="not taken"):
+            fused_conv_pixel_shuffle_skip(z(1, 8, 8, cin, device=cuda), z(k, k, cin, cc, device=cuda),
+                                          z(cc, device=cuda), s, z(1, 8, 8, c2, device=cuda),
+                                          z(k2, k2, c2, cc, device=cuda))
+    assert fused_conv_pixel_shuffle_skip.launches == before

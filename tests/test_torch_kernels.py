@@ -218,3 +218,67 @@ def test_wdsr_block_pack_weights_is_an_exact_pad_and_permutation(c, dtype):
         assert torch.equal(p[at:at + n], torch.cat([b, torch.zeros(n - b.numel())]))
         at += n
     assert at == p.numel()
+
+
+@pytest.mark.parametrize("cin,scale,dtype", [(24, 2, torch.float32), (13, 3, torch.bfloat16), (18, 4, torch.float32)])
+def test_tail_skip_pack_weights_is_an_exact_pad_and_permutation(cin, scale, dtype):
+    """B4's packed weights hold the body kernel as three row-contiguous K
+    runs (row ky * run + kx * cp + c) over a halo of pixel stride cp, the
+    skip kernel as five runs over a stride of 3 (float32) or 4 (bf16), and
+    the bias, each zero
+    past its values, in mma fragment order: in float32 as a TF32 split whose
+    hi + lo is the weight exactly, in bf16 as the weights rounded to bf16.
+    Read as the kernel reads them (each position's K run a contiguous slice
+    of one halo row), they compute the plain version's tail."""
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
+        _skip_plan,
+        fused_conv_pixel_shuffle_skip_plain,
+        pack_weights as pack_b4,
+        packed_size,
+    )
+
+    cc = 3 * scale * scale
+    g = torch.Generator().manual_seed(cin)
+    kt, ks = torch.randn((3, 3, cin, cc), generator=g), torch.randn((5, 5, 3, cc), generator=g)
+    b = torch.randn(cc, generator=g)
+    p = pack_b4(kt, ks, b, dtype)
+    assert p.dtype == torch.float32 and p.is_contiguous() and p.numel() == packed_size(cin, cc, dtype)
+    cp, run, cp2, run2, npad = _skip_plan(cin, cc, dtype)
+    assert cp >= cin and cp % 2 == 0 and cp2 >= 3 and npad % 16 == 0 and npad >= cc
+    per = 2 if dtype == torch.float32 else 0.5  # words per weight
+    mats = []
+    at = 0
+    for w, stride, r in ((kt, cp, run), (ks, cp2, run2)):
+        k, c = w.shape[0], w.shape[2]
+        n = int(k * r * npad * per)
+        hi, lo = _unfragment(p[at:at + n], k * r, npad, dtype)
+        at += n
+        want = torch.zeros(k * r, npad)
+        for ky in range(k):
+            for kx in range(k):
+                want[ky * r + kx * stride: ky * r + kx * stride + c, :cc] = w[ky, kx].to(dtype).float()
+        if dtype == torch.float32:
+            assert torch.equal(hi.contiguous().view(torch.int32) & 0x1FFF, torch.zeros_like(hi, dtype=torch.int32))
+            assert torch.equal(hi + lo, want)
+            mats.append(hi + lo)
+        else:
+            assert torch.equal(hi, want.to(torch.bfloat16))
+            mats.append(hi.float())
+    bias = b.to(dtype).float()
+    assert torch.equal(p[at:], torch.cat([bias, torch.zeros(npad - cc)]))
+
+    x = torch.randn((2, 5, 7, cin), generator=g).to(dtype)
+    xs = torch.randn((2, 5, 7, 3), generator=g).to(dtype)
+    acc = bias.new_zeros(2, 5, 7, npad) + torch.cat([bias, torch.zeros(npad - cc)])
+    for inp, c, stride, r, k, mat in ((x, cin, cp, run, 3, mats[0]), (xs, 3, cp2, run2, 5, mats[1])):
+        # the halo: pad k // 2, channels zero to the stride, and columns past
+        # the image for the last position's run overshoot
+        halo = torch.zeros(2, 5 + k - 1, 7 + k - 1 + -(-r // stride), stride)
+        halo[:, k // 2: k // 2 + 5, k // 2: k // 2 + 7, :c] = inp.float()
+        rows = halo.reshape(2, 5 + k - 1, -1)
+        for ky in range(k):
+            a = torch.stack([rows[:, ky: ky + 5, px * stride: px * stride + r] for px in range(7)], dim=2)
+            acc += a @ mat[ky * r: (ky + 1) * r]
+    y = torch.nn.functional.pixel_shuffle(acc[..., :cc].permute(0, 3, 1, 2), scale).permute(0, 2, 3, 1)
+    want = fused_conv_pixel_shuffle_skip_plain(x, kt, b, scale, xs, ks).float()
+    assert float((y - want).abs().max()) <= (1e-4 if dtype == torch.float32 else 2.0 ** -6 * float(want.abs().max()))

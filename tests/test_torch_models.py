@@ -1,5 +1,6 @@
 """Port parity for SpyNet and BasicVSR (float32 on the CPU, weights carried
-over from the JAX ``model.init`` by the port's checkpoint bridge), the
+over from the JAX ``model.init`` by the port's checkpoint bridge, or for
+the whole BasicVSR seeded random weights in the JAX layout fed to both), the
 shipped basicvsr_x4 weights' PSNR through the port, and the port's guards:
 no JAX import, CUDA by default.
 
@@ -45,6 +46,18 @@ def _flat(params):
         "/".join(str(getattr(p, "key", p)) for p in path): np.asarray(leaf)
         for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]
     }
+
+
+def _tree(flat):
+    """The flat layout back to a JAX params tree."""
+    tree = {}
+    for key, arr in flat.items():
+        node = tree
+        *scopes, leaf = key.split("/")
+        for s in scopes:
+            node = node.setdefault(s, {})
+        node[leaf] = jnp.asarray(arr)
+    return tree
 
 
 @pytest.mark.parametrize("hw", [(16, 24), (7, 9)], ids=["s2d", "odd_fallback"])
@@ -102,13 +115,15 @@ def test_stack_directions_matches_jax(rng):
 
 @pytest.fixture(scope="module")
 def tiny_pair():
-    """JAX BasicVSR nf=8, 1 block, x4, and the port loaded from its init."""
+    """JAX BasicVSR nf=8, 1 block, x4, and the port, both on the same seeded
+    random weights in the JAX layout (the bridge's, not a jitted JAX init:
+    the same comparison without its compile)."""
     jm = jb.BasicVSR(num_feat=8, num_block=1, scale=4)
     x = np.random.default_rng(5).random((1, 3, 64, 96, 3)).astype(np.float32)
-    params = jax.jit(jm.init, static_argnums=(2, 3))(jax.random.key(1), jnp.asarray(x), 256, 384)["params"]
     tm = tb.BasicVSR(num_feat=8, num_block=1, scale=4)
-    load_params_npz(tm, _flat(params))
-    return jm, params, tm, x
+    flat = random_jax_params(tm, seed=1)
+    load_params_npz(tm, flat)
+    return jm, _tree(flat), tm, x
 
 
 def test_basicvsr_matches_jax(tiny_pair):

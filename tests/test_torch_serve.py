@@ -20,7 +20,7 @@ from mobilesuperresolution_tpu.serve import StreamingVSR as JStreamingVSR
 from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
 from mobilesuperresolution_tpu_torch.parallel.temporal import chunked_vsr_apply
 from mobilesuperresolution_tpu_torch.serve import StreamingVSR
-from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz
+from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 
 torch.set_num_threads(2)
 H, W, OH, OW = 16, 20, 32, 40
@@ -28,16 +28,21 @@ H, W, OH, OW = 16, 20, 32, 40
 
 @pytest.fixture(scope="module")
 def pair():
-    """(JAX jitted apply, port apply) of one tiny x2 BasicVSR."""
+    """(JAX jitted apply, port apply) of one tiny x2 BasicVSR, both on the
+    same seeded random weights in the JAX layout (the bridge's: no jitted
+    JAX init to compile)."""
     jm = JBasicVSR(num_feat=8, num_block=1, scale=2)
-    params = jax.jit(jm.init, static_argnums=(2, 3))(jax.random.key(0), jnp.zeros((1, 7, H, W, 3)), OH, OW)["params"]
-    j_apply = jax.jit(lambda x, oh, ow: jm.apply({"params": params}, x, oh, ow), static_argnums=(1, 2))
-    flat = {
-        "/".join(str(getattr(p, "key", p)) for p in path): np.asarray(leaf)
-        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]
-    }
     tm = BasicVSR(num_feat=8, num_block=1, scale=2)
+    flat = random_jax_params(tm, seed=0)
     load_params_npz(tm, flat)
+    params = {}
+    for key, arr in flat.items():
+        node = params
+        *scopes, leaf = key.split("/")
+        for sc in scopes:
+            node = node.setdefault(sc, {})
+        node[leaf] = jnp.asarray(arr)
+    j_apply = jax.jit(lambda x, oh, ow: jm.apply({"params": params}, x, oh, ow), static_argnums=(1, 2))
 
     def t_apply(x, oh, ow):
         with torch.inference_mode():
@@ -165,7 +170,6 @@ def test_serve_cli_eval_model_no_save(tmp_path, rng):
     with pytest.raises(KeyError):
         _serve(["--job_dir", str(tmp_path / "job"), "--input_dir", d, "--eval_model", npz, "--device", "cpu"])
     from mobilesuperresolution_tpu_torch.models import get_vsr_model
-    from mobilesuperresolution_tpu_torch.train.checkpoint import random_jax_params
 
     ours = str(tmp_path / "models.npz")
     np.savez(ours, **random_jax_params(get_vsr_model("basic", device="cpu"), seed=3))

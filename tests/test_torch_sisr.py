@@ -116,7 +116,7 @@ def test_basic_block_matches_jax(rng):
         np.testing.assert_allclose(tm(_t(x)).numpy(), want, atol=ATOL * float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("cin,scale", [(24, 2), (18, 3)])
+@pytest.mark.parametrize("cin,scale", [(24, 2), (18, 3), (32, 4)])
 def test_fused_tail_skip_plain_matches_jax_tail(rng, cin, scale):
     """B4 against the JAX models' tail math: depth_to_space(conv3x3(y) +
     conv5x5(x) + biases)."""
