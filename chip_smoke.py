@@ -15,13 +15,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    7; B4 (3xTF32 / bf16 tensor cores) at x2, x3, x4 and at 18, 21, 24, 32
    body channels, with its issued against useful K; B5's search-shape cases
    with their device time per launch (torch.profiler) and the wrapper's
-   host time per call;
+   host time per call; B1 at the flow cache's group (8 pair samples) and B3
+   and B4 at the training step's batch (16 x 48x48) too;
 4. a tiny float32 BasicVSR on the card against the same model on the CPU;
 5. full-width serving: BasicVSR x4 (nf 24, 8 blocks, bf16) with seeded random
    weights through the JAX-checkpoint bridge, streamed by StreamingVSR
    (chunk 4, overlap 3: 10-frame windows) over 16 frames of 426x240 to 16
    finite 1080x1920 frames, with the kernels' launch counts checked, then the
    steady-state frames/s of the 10-frame window forward;
+5b. the same model, weights and frames through the flow-cached stream
+   (serve/flow_cache.py): its output within bf16_tol of the plain stream's,
+   each pair flow computed once, B1 launched 30 times per flow group and B2
+   once per window; sr_fn's ms per window and flow_fn's per group of 4
+   pairs, both streams' frames/s end to end (plain, cached, cached, plain);
+   then one window with flow_downscale 2, finite, with its SpyNet ms;
 6. a tiny float32 WDSR-B BasicModel (2 blocks, 24 units, x2) on the card
    against the same model on the CPU;
 7. the shipped wdsr_b_x2 and result_net_x2 weights through the port's
@@ -33,6 +40,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    HR from synthetic_image, degraded to 678x1020 by imresize_np) in float32
    and bf16, with 16 B3 + 1 B4 launches per image checked, then the
    steady-state ms per image and the peak device memory;
+8b. SISR pretraining through its entry point (cli/pretrain.py) at the
+   pretraining launcher's width (x2, 16 blocks, 24 units, batch 16, 48x48
+   LR patches, lr 1e-3, float32) on synthetic_isr for one epoch (8 steps, 8
+   eval images): finite losses, 16 B3 + 1 B4 launches per training forward
+   and per eval image, a weights npz with every JAX key; then the
+   steady-state training step (mean of 10, CUDA events) in f32 and bf16;
+8c. retraining of the searched net through its entry point
+   (cli/retrain_searched.py) on artifacts/search_depth_tpu/block_index.txt,
+   the same checks and data, B4 once per forward, and its steady-state step;
+8d. three training steps of a tiny float32 WDSR-B on the card against the
+   CPU: per-step losses and the first step's gradients within 1e-4;
 9. a tiny float32 NAS supernet (2 blocks, 8 units, x2) on the card against
    the same model on the CPU: sr, the latency estimate and every
    parameter's gradient of one search step;
@@ -44,7 +62,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ms per search step and per 678x1020 supernet eval forward, and the peak
    device memory.
 
-Prints the kernel table as one JSON line, the nvidia-smi line, and last
+Prints the kernel table as one JSON line (launches from this slice's paths:
+B1 and B2 from the flow-cached stream, B3 and B4 from the pretraining run,
+B5 from the search), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 Needs CUDA; imports nothing of JAX.
 """
@@ -85,6 +105,10 @@ SHIPPED_PSNR = {"wdsr_b_x2": 30.2841, "result_net_x2": 30.1743}
 # NAS search: the supernet at launchers/search.sh's width
 NAS_BLOCKS, NAS_UNITS, NAS_BATCH, NAS_PATCH = 16, 32, 16, 48
 NAS_NUM_PATCHES = 6  # synthetic_isr: 8 images x 6 patches / batch 16 = 3 steps per epoch
+# SISR training at launchers/pretraining.sh's width (batch 16, 48x48 LR patches, lr 1e-3, f32)
+TRAIN_BATCH, TRAIN_PATCH = 16, 48
+TRAIN_NUM_PATCHES = 16  # synthetic_isr: 8 images x 16 patches / batch 16 = 8 steps per epoch
+TRAIN_STEPS = 8 * TRAIN_NUM_PATCHES // TRAIN_BATCH
 B5_PER_FORWARD = 3 * NAS_BLOCKS
 
 
@@ -233,6 +257,8 @@ def phase_kernels(gen, dev):
     shapes = [(32, 128, True), (128, 256, True), (256, 128, True), (128, 64, True), (64, 8, False)]
     cases = [(cin, cout, relu, torch.bfloat16, n) for cin, cout, relu in shapes]
     cases.append((128, 64, True, torch.float32, 2))  # one f32 shape (fewer images)
+    # the flow cache's group: CHUNK pairs x 2 directions
+    cases += [(cin, cout, relu, torch.bfloat16, 2 * CHUNK) for cin, cout, relu in shapes]
     for cin, cout, relu, dtype, nimg in cases:
         x = rand((nimg, h, w, cin), dtype)
         wt = rand((5, 5, cin, cout), dtype, 1.0 / np.sqrt(25 * cin))
@@ -250,7 +276,7 @@ def phase_kernels(gen, dev):
         flops = 2.0 * nimg * h * w * cin * cout * 25
         bms, by = bound(flops, nbytes(x, wt, b, got), dtype)
         log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
-        rows["B1"].append(dict(case=tag, main_path=dtype == torch.bfloat16, max_abs_err=err, ms=ms,
+        rows["B1"].append(dict(case=tag, main_path=dtype == torch.bfloat16 and nimg == n, max_abs_err=err, ms=ms,
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
                                gflop=flops / 1e9))
 
@@ -326,12 +352,14 @@ def phase_kernels(gen, dev):
     from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import pack_weights as pack_b3
 
     hl, wl = SR_HR[0] // SR_SCALE, SR_HR[1] // SR_SCALE
-    b3_cases = [(SR_UNITS, hh, ww, dt) for hh, ww in ((hl, wl), (37, 53)) for dt in (torch.float32, torch.bfloat16)]
-    b3_cases += [(u, hh, ww, dt) for u in (16, 32, 64) for hh, ww, dt in ((hl, wl, torch.float32),
-                                                                         (37, 53, torch.bfloat16))]
-    for c, hh, ww, dtype in b3_cases:
+    b3_cases = [(1, SR_UNITS, hh, ww, dt) for hh, ww in ((hl, wl), (37, 53)) for dt in (torch.float32, torch.bfloat16)]
+    b3_cases += [(1, u, hh, ww, dt) for u in (16, 32, 64) for hh, ww, dt in ((hl, wl, torch.float32),
+                                                                            (37, 53, torch.bfloat16))]
+    # the training step's batch of LR patches (cli/pretrain.py)
+    b3_cases += [(TRAIN_BATCH, SR_UNITS, TRAIN_PATCH, TRAIN_PATCH, dt) for dt in (torch.float32, torch.bfloat16)]
+    for nb, c, hh, ww, dtype in b3_cases:
         _, e, m, _ = block_shape(c)
-        x = rand((1, hh, ww, c), dtype)
+        x = rand((nb, hh, ww, c), dtype)
         ws = [rand((c, e), torch.float32, c ** -0.5), rand((e,), torch.float32, 0.2),
               rand((e, m), torch.float32, e ** -0.5), rand((m,), torch.float32, 0.2),
               rand((3, 3, m, c), torch.float32, (9 * m) ** -0.5), rand((c,), torch.float32, 0.2)]
@@ -340,7 +368,7 @@ def phase_kernels(gen, dev):
         got = fused_wdsr_block(x, *ws, packed=packed)
         want = fused_wdsr_block_plain(x, *ws)
         torch.cuda.synchronize()
-        tag = f"B3 1x{hh}x{ww}x{c} E{e} M{m} k3 {str(dtype)[6:]}"
+        tag = f"B3 {nb}x{hh}x{ww}x{c} E{e} M{m} k3 {str(dtype)[6:]}"
         err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
         ms = cuda_ms(lambda: fused_wdsr_block(x, *ws, packed=packed))
         plain_ms = cuda_ms(lambda: fused_wdsr_block_plain(x, *ws))
@@ -350,11 +378,11 @@ def phase_kernels(gen, dev):
               ws[3].to(dtype), ws[4].permute(3, 2, 0, 1).contiguous().to(dtype), ws[5].to(dtype)]
         lib_ms = cuda_ms(lambda: xn + F.conv2d(F.conv2d(F.relu(F.conv2d(xn, lw[0], lw[1])), lw[2], lw[3]),
                                                lw[4], lw[5], padding=1))
-        px = hh * ww
+        px = nb * hh * ww
         flops = 2.0 * px * (c * e + e * m + 9 * m * c)
         bms, by, basis = bound_by_route([(flops, route(dtype))], nbytes(x, got, *ws))
         log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis})")
-        rows["B3"].append(dict(case=tag, main_path=(c, hh, dtype) == (SR_UNITS, hl, torch.float32),
+        rows["B3"].append(dict(case=tag, main_path=(nb, c, hh, dtype) == (1, SR_UNITS, hl, torch.float32),
                                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                                bound_by=by, bound_basis=basis, gflop=flops / 1e9))
 
@@ -365,12 +393,15 @@ def phase_kernels(gen, dev):
     from mobilesuperresolution_tpu_torch.kernels.fused_tail import _skip_plan
     from mobilesuperresolution_tpu_torch.kernels.fused_tail import pack_weights as pack_b4
 
-    b4_cases = [(c, s, dt) for c, s in ((SR_UNITS, SR_SCALE), (SR_UNITS, 3), (SR_UNITS, 4), (18, 2), (21, 2), (32, 2))
-                for dt in (torch.float32, torch.bfloat16)]
-    for c, s, dtype in b4_cases:
+    b4_cases = [(1, hl, wl, c, s, dt) for c, s in ((SR_UNITS, SR_SCALE), (SR_UNITS, 3), (SR_UNITS, 4), (18, 2),
+                                                   (21, 2), (32, 2)) for dt in (torch.float32, torch.bfloat16)]
+    # the training step's batch of LR patches (cli/pretrain.py)
+    b4_cases += [(TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, SR_UNITS, SR_SCALE, dt) for dt in (torch.float32,
+                                                                                          torch.bfloat16)]
+    for nb, hh, ww, c, s, dtype in b4_cases:
         cc = 3 * s * s
-        x = rand((1, hl, wl, c), dtype)
-        xs = rand((1, hl, wl, 3), dtype, 0.5)
+        x = rand((nb, hh, ww, c), dtype)
+        xs = rand((nb, hh, ww, 3), dtype, 0.5)
         kern = rand((3, 3, c, cc), dtype, (9 * c) ** -0.5)
         ks = rand((5, 5, 3, cc), dtype, 75 ** -0.5)
         b = rand((cc,), torch.float32, 0.5)
@@ -378,20 +409,20 @@ def phase_kernels(gen, dev):
         got = fused_conv_pixel_shuffle_skip(x, kern, b, s, xs, ks, packed=packed)
         want = fused_conv_pixel_shuffle_skip_plain(x, kern, b, s, xs, ks)
         torch.cuda.synchronize()
-        tag = f"B4 1x{hl}x{wl}x{c} 3x3 + skip 3ch 5x5 s{s} -> {tuple(got.shape)} {str(dtype)[6:]}"
+        tag = f"B4 {nb}x{hh}x{ww}x{c} 3x3 + skip 3ch 5x5 s{s} -> {tuple(got.shape)} {str(dtype)[6:]}"
         err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
         ms = cuda_ms(lambda: fused_conv_pixel_shuffle_skip(x, kern, b, s, xs, ks, packed=packed))
         plain_ms = cuda_ms(lambda: fused_conv_pixel_shuffle_skip_plain(x, kern, b, s, xs, ks))
         xn, xsn = x.permute(0, 3, 1, 2), xs.permute(0, 3, 1, 2)
         kn, ksn, bb = kern.permute(3, 2, 0, 1).contiguous(), ks.permute(3, 2, 0, 1).contiguous(), b.to(dtype)
         lib_ms = cuda_ms(lambda: F.pixel_shuffle(F.conv2d(xn, kn, bb, padding=1) + F.conv2d(xsn, ksn, padding=2), s))
-        flops = 2.0 * hl * wl * (9 * c + 25 * 3) * cc  # the useful work, whatever the kernel issues
+        flops = 2.0 * nb * hh * ww * (9 * c + 25 * 3) * cc  # the useful work, whatever the kernel issues
         bms, by, basis = bound_by_route([(flops, route(dtype))], nbytes(x, xs, kern, ks, b, got))
         _, run, _, run2, npad = _skip_plan(c, cc, dtype)
         k_issued, k_useful = (3 * run, 5 * run2, npad), (9 * c, 75, cc)
         log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis}); "
             f"K issued body {k_issued[0]} / skip {k_issued[1]} / N {k_issued[2]}, useful {k_useful}")
-        rows["B4"].append(dict(case=tag, main_path=(c, s, dtype) == (SR_UNITS, SR_SCALE, torch.float32),
+        rows["B4"].append(dict(case=tag, main_path=(nb, c, s, dtype) == (1, SR_UNITS, SR_SCALE, torch.float32),
                                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                                bound_by=by, bound_basis=basis, gflop=flops / 1e9, k_issued=k_issued,
                                k_useful=k_useful))
@@ -527,7 +558,113 @@ def phase_serving(dev):
     log(f"  window forward {win_ms:.3f} ms = {stats['fps']:.2f} frames/s "
         f"(repeats {', '.join(f'{r:.3f}' for r in win_repeats)} ms); "
         f"SpyNet flows {flow_ms:.3f} ms; output range [{stats['out_min']:.3f}, {stats['out_max']:.3f}]")
-    return stats, launches, windows
+    return stats, launches, windows, (model, frames, out)
+
+
+def run_stream(stream, frames):
+    """Push ``frames`` through a fresh stream and flush it: (outputs, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    for fr in frames:
+        out.extend(stream.push(fr))
+    out.extend(stream.flush())
+    return out, time.perf_counter() - t0
+
+
+def phase_flow_cache(dev, model, frames, plain_out):
+    """The flow-cached stream (serve/flow_cache.py) on phase_serving's model,
+    weights and frames: its output against the plain stream's, each pair
+    flow computed once, B1's launches 30 per flow group and B2's one per
+    window; then sr_fn's ms per window and flow_fn's per group, both streams'
+    frames/s end to end (plain, cached, cached, plain), and one
+    flow_downscale 2 window."""
+    from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.models.basicvsr import compute_flows
+    from mobilesuperresolution_tpu_torch.serve import FlowCachedStreamingVSR, StreamingVSR, make_flow_sr_fns
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    flow_fn, sr_fn = make_flow_sr_fns(model, OH, OW)
+    groups = []
+
+    def counted_flow(ref, supp):
+        groups.append(ref.shape[0])
+        return flow_fn(ref, supp)
+
+    def cached_stream(flow=flow_fn):
+        return FlowCachedStreamingVSR(flow, sr_fn, OH, OW, chunk=CHUNK, overlap=OVERLAP, device=dev)
+
+    stream = cached_stream(counted_flow)
+    stream.warmup((H_LR, W_LR, 3))
+    torch.cuda.synchronize()
+    groups.clear()
+    computed = []
+    ensure = stream._ensure_flows
+
+    def spying(pairs):
+        computed.extend(k for k in dict.fromkeys(pairs) if k not in stream._pair_flows)
+        return ensure(pairs)
+
+    stream._ensure_flows = spying
+    conv5x5_same.launches = 0
+    fused_conv_pixel_shuffle.launches = 0
+    out, wall = run_stream(stream, frames)
+    launches = {"B1": conv5x5_same.launches, "B2": fused_conv_pixel_shuffle.launches}
+    windows = len(range(0, N_STREAM_FRAMES, CHUNK))
+    n = N_STREAM_FRAMES
+    log(f"  cached stream: {len(out)} frames, {windows} windows, {len(groups)} flow groups of {groups[0]} pair "
+        f"samples, {len(computed)} pairs computed; launches {launches}")
+    if len(out) != n:
+        raise AssertionError(f"{len(out)} cached output frames, expected {n}")
+    want = torch.from_numpy(np.stack(plain_out))
+    err = check("cached stream vs plain stream (bf16)", torch.from_numpy(np.stack(out)), want, bf16_tol(want))
+    if len(computed) != len(set(computed)) or set(computed) != {(i, i + 1) for i in range(n - 1)} | {(0, 0),
+                                                                                                  (n - 1, n - 1)}:
+        raise AssertionError(f"pairs computed {computed}")
+    if launches != {"B1": B1_PER_WINDOW * len(groups), "B2": B2_PER_WINDOW * windows}:
+        raise AssertionError(f"cached stream launches {launches} for {len(groups)} groups, {windows} windows")
+
+    x = torch.from_numpy(np.stack(frames[:T_WIN])[None]).to(dev)
+    with torch.inference_mode():
+        ff, fb = compute_flows(model.spynet, x.to(torch.bfloat16))
+        sr_ms = cuda_ms(lambda: sr_fn(x, ff, fb), iters=5, warmup=2)
+        ab = x[0, : 2 * CHUNK]
+        ba = torch.cat([ab[CHUNK:], ab[:CHUNK]])
+        flow_ms = cuda_ms(lambda: flow_fn(ab, ba), iters=5, warmup=2)
+
+    def plain_stream():
+        def apply_fn(xx, oh, ow):
+            with torch.inference_mode():
+                return model(xx, oh, ow)
+
+        return StreamingVSR(apply_fn, OH, OW, chunk=CHUNK, overlap=OVERLAP, device=dev)
+
+    walls = {"plain": [], "cached": []}
+    for kind in ("plain", "cached", "cached", "plain"):
+        walls[kind].append(run_stream(plain_stream() if kind == "plain" else cached_stream(), frames)[1])
+    fps = {k: [n / w for w in v] for k, v in walls.items()}
+    log(f"  sr_fn {sr_ms:.3f} ms per window + flow_fn {flow_ms:.3f} ms per group of {CHUNK} pairs = "
+        f"{sr_ms + flow_ms:.3f} ms per steady window ({CHUNK / (sr_ms + flow_ms) * 1e3:.2f} output frames/s); "
+        f"end to end (plain, cached, cached, plain): plain {fps['plain']} frames/s, cached {fps['cached']}")
+
+    # one flow_downscale 2 window: SpyNet on 213x120 frames
+    m2 = get_vsr_model("basic", scale=4, compute_dtype=torch.bfloat16, device=dev, flow_downscale=2)
+    load_params_npz(m2, random_jax_params(m2, seed=0))
+    conv5x5_same.launches = 0
+    with torch.inference_mode():
+        y = m2(x, OH, OW)
+        torch.cuda.synchronize()
+        ds_launches = conv5x5_same.launches
+        ds_flow_ms = cuda_ms(lambda: compute_flows(m2.spynet, x.to(torch.bfloat16), 2), iters=5, warmup=2)
+    if tuple(y.shape) != (1, T_WIN, OH, OW, 3) or not torch.isfinite(y).all():
+        raise AssertionError(f"flow_downscale 2 window: {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+    log(f"  flow_downscale 2 window: finite {tuple(y.shape)}, SpyNet {ds_flow_ms:.3f} ms, B1 launches {ds_launches}")
+    return dict(launches=launches, groups=len(groups), group_samples=groups[0], pairs_computed=len(computed),
+                max_abs_err=err, wall_s=wall, sr_fn_ms=sr_ms, flow_fn_ms_per_group=flow_ms,
+                steady_window_ms=sr_ms + flow_ms, steady_fps=CHUNK / (sr_ms + flow_ms) * 1e3,
+                stream_fps_end_to_end=fps, downscale2=dict(spynet_ms=ds_flow_ms, b1_launches=ds_launches)), launches
 
 
 def sisr_launches():
@@ -664,6 +801,149 @@ def phase_sisr_full(dev):
             f"output range [{stats[name]['out_min']:.3f}, {stats[name]['out_max']:.3f}]")
         del model, outs
     return stats, main_launches
+
+
+def sisr_train_argv(job_dir):
+    return ["--job_dir", job_dir, "--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr", "--scale",
+            str(SR_SCALE), "--epochs", "1", "--num_patches", str(TRAIN_NUM_PATCHES), "--train_batch_size",
+            str(TRAIN_BATCH), "--lr_patch_size", str(TRAIN_PATCH), "--learning_rate", "1e-3"]
+
+
+def steady_step_ms(model, dev):
+    """Mean ms of a SISR training step (make_sisr_step, Adam) over 10 steps on
+    one fixed batch, CUDA events, after 3 warm-up steps; with the B3 and B4
+    launches per step."""
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters
+    from mobilesuperresolution_tpu_torch.train.state import multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
+
+    g = torch.Generator().manual_seed(6)
+    lr = torch.rand((TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3), generator=g).to(dev)
+    hr = torch.rand((TRAIN_BATCH, SR_SCALE * TRAIN_PATCH, SR_SCALE * TRAIN_PATCH, 3), generator=g).to(dev)
+    model.train()
+    step = make_sisr_step(model, multistep_adam(jax_named_parameters(model), 1e-3, 100, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_sisr_launches()
+    ms = cuda_ms(lambda: step((lr, hr)), iters=10, warmup=3)
+    per_step = {k: v / 13 for k, v in sisr_launches().items()}
+    return ms, per_step, torch.cuda.max_memory_allocated() / 2**30
+
+
+def check_training_run(name, out, launches, per_forward, npz_keys, want_keys):
+    steps = out["steps"]
+    log(f"  {name}: {len(steps)} steps, losses {[round(s['loss'], 5) for s in steps]}, "
+        f"{out['eval_images']} eval images, eval PSNR {out['eval'][-1]['synthetic_isr']['PSNR']:.4f}; "
+        f"launches {launches}")
+    if len(steps) != TRAIN_STEPS or not all(np.isfinite(s["loss"]) and s["skipped"] == 0 for s in steps):
+        raise AssertionError(f"{name}: steps {[(s['loss'], s['skipped']) for s in steps]}")
+    forwards = out["train_forwards"] + out["eval_images"]
+    want = {k: v * forwards for k, v in per_forward.items()}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want} for {forwards} forwards")
+    if npz_keys != want_keys:
+        raise AssertionError(f"{name}: npz keys differ from the JAX layout: {sorted(npz_keys ^ want_keys)[:5]}")
+
+
+def phase_pretrain(dev):
+    """SISR pretraining through its entry point (cli/pretrain.py) at the
+    pretraining launcher's width on synthetic_isr for one epoch; then the
+    steady-state training step in f32 and bf16."""
+    from mobilesuperresolution_tpu_torch.cli import pretrain
+    from mobilesuperresolution_tpu_torch.models import get_model
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_param_shapes, load_params_npz, random_jax_params
+
+    with tempfile.TemporaryDirectory() as job_dir:
+        argv = sisr_train_argv(job_dir) + ["--num_blocks", str(SR_BLOCKS), "--num_residual_units", str(SR_UNITS)]
+        reset_sisr_launches()
+        t0 = time.perf_counter()
+        out = pretrain.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = sisr_launches()
+        npz_keys = set(np.load(os.path.join(job_dir, "weights", "models.npz")).keys())
+    stats = dict(steps=out["steps"], eval=out["eval"], train_forwards=out["train_forwards"],
+                 eval_images=out["eval_images"], wall_s=wall, launches=launches)
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        params = argparse.Namespace(model_type="BASIC_MODEL", num_blocks=SR_BLOCKS, num_residual_units=SR_UNITS,
+                                    scale=SR_SCALE, bf16=bf16)
+        model = get_model(params, device=dev)
+        if name == "f32":
+            check_training_run("cli.pretrain", out, launches, {"B3": B3_PER_IMAGE, "B4": B4_PER_IMAGE}, npz_keys,
+                               set(jax_param_shapes(model)))
+        load_params_npz(model, random_jax_params(model, seed=0))
+        ms, per_step, peak = steady_step_ms(model, dev)
+        stats[f"step_ms_{name}"], stats[f"step_launches_{name}"], stats[f"step_peak_gib_{name}"] = ms, per_step, peak
+        log(f"  pretrain step {name}: {ms:.3f} ms (batch {TRAIN_BATCH}, {TRAIN_PATCH}x{TRAIN_PATCH}), launches per "
+            f"step {per_step}, peak {peak:.3f} GiB")
+        del model
+    return stats, launches
+
+
+def phase_retrain(dev):
+    """Retraining of the searched net through its entry point
+    (cli/retrain_searched.py) on artifacts/search_depth_tpu/block_index.txt
+    for one epoch; then the steady-state step (f32)."""
+    from mobilesuperresolution_tpu_torch.cli import retrain_searched
+    from mobilesuperresolution_tpu_torch.models import ResultNet
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_param_shapes, load_params_npz, random_jax_params
+
+    block_index = os.path.join(ROOT, "artifacts", "search_depth_tpu", "block_index.txt")
+    with tempfile.TemporaryDirectory() as job_dir:
+        reset_sisr_launches()
+        t0 = time.perf_counter()
+        out = retrain_searched.main(sisr_train_argv(job_dir) + ["--block_index", block_index])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = sisr_launches()
+        npz_keys = set(np.load(os.path.join(job_dir, "weights", "models.npz")).keys())
+    model = ResultNet.from_artifact(block_index, scale=SR_SCALE).to(dev)
+    check_training_run("cli.retrain_searched", out, launches, {"B3": 0, "B4": 1}, npz_keys,
+                       set(jax_param_shapes(model)))
+    load_params_npz(model, random_jax_params(model, seed=0))
+    ms, per_step, peak = steady_step_ms(model, dev)
+    log(f"  retrain step f32 ({model.idx}): {ms:.3f} ms, launches per step {per_step}, peak {peak:.3f} GiB")
+    return dict(steps=out["steps"], eval=out["eval"], train_forwards=out["train_forwards"],
+                eval_images=out["eval_images"], wall_s=wall, launches=launches, idx=model.idx, step_ms_f32=ms,
+                step_launches_f32=per_step, step_peak_gib_f32=peak)
+
+
+def phase_train_parity(dev):
+    """Three SISR training steps of a tiny float32 WDSR-B (2 blocks, 24 units,
+    x2) on the card against the CPU: per-step losses, and every parameter's
+    gradient of the first step (the same weights on both sides)."""
+    from mobilesuperresolution_tpu_torch.models import BasicModel
+    from mobilesuperresolution_tpu_torch.train.checkpoint import (
+        jax_named_parameters,
+        load_params_npz,
+        random_jax_params,
+    )
+    from mobilesuperresolution_tpu_torch.train.state import multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
+
+    g = torch.Generator().manual_seed(9)
+    batches = [(torch.rand((2, 20, 22, 3), generator=g), torch.rand((2, 40, 44, 3), generator=g)) for _ in range(3)]
+    runs = []
+    for d in ("cpu", dev):
+        m = BasicModel(num_blocks=2, num_residual_units=SR_UNITS, scale=SR_SCALE).to(d)
+        load_params_npz(m, random_jax_params(m, seed=5))
+        m.train()
+        named = jax_named_parameters(m)
+        step = make_sisr_step(m, multistep_adam(named, 1e-3, 3, 1))
+        losses = []
+        for i, (lr, hr) in enumerate(batches):
+            losses.append(float(step((lr.to(d), hr.to(d)))["loss"]))
+            if i == 0:
+                grads = {k: p.grad.cpu() for k, p in named.items()}
+        runs.append((losses, grads))
+    (l0, g0), (l1, g1) = runs
+    lerr = max(abs(a - b) for a, b in zip(l0, l1))
+    gerr = max(float((g1[k] - g0[k]).abs().max()) / max(float(g0[k].abs().max()), 1e-3) for k in g0)
+    log(f"  losses card {l1}, CPU {l0}: max difference {lerr:.3e}; first-step gradients of {len(g0)} parameters: "
+        f"max difference {gerr:.3e} of each one's largest (tol 1e-4)")
+    if not (lerr <= 1e-4 and gerr <= 1e-4):
+        raise AssertionError(f"tiny training steps: losses differ by {lerr}, gradients by {gerr}")
+    return {"loss_err": lerr, "grad_err_rel": gerr}
 
 
 def phase_nas_parity(dev):
@@ -814,19 +1094,29 @@ def main():
         log("small-model parity:")
         report["tiny_parity_err"] = phase_small_parity(dev)
         log("full-width serving:")
-        stats, launches, windows = phase_serving(dev)
+        stats, launches, windows, served = phase_serving(dev)
         report["serving"] = stats
+        log("flow-cached serving at full width:")
+        report["flow_cache"], launches = phase_flow_cache(dev, *served)
+        del served
         log("small SISR parity:")
         report["tiny_sisr_parity_err"] = phase_sisr_parity(dev)
         log("shipped SISR weights and the eval entry point:")
         report["shipped"] = phase_shipped(dev)
         log("full-width SISR:")
         report["sisr"], sisr_main = phase_sisr_full(dev)
+        log("SISR pretraining at full width:")
+        report["pretrain"], train_main = phase_pretrain(dev)
+        log("searched-net retraining:")
+        report["retrain"] = phase_retrain(dev)
+        log("tiny SISR training steps, card vs CPU:")
+        report["train_parity"] = phase_train_parity(dev)
         log("small NAS supernet parity:")
         report["tiny_nas_parity"] = phase_nas_parity(dev)
         log("NAS search at full width:")
         report["search"], search_main = phase_search(dev)
-        launches = {**launches, **sisr_main, **search_main}
+        report["launches_sisr_eval"] = sisr_main
+        launches = {**launches, **train_main, **search_main}
     except Exception:
         traceback.print_exc()
         return 1

@@ -5,8 +5,8 @@ Flags that only concern XLA or multi-host JAX (``--compile_cache``,
 ``--xla_profile_steps``, ``--distributed``, ``--coordinator_address``,
 ``--num_processes``, ``--process_id``) have no counterpart here;
 ``--resume``, ``--max_steps_per_run``, ``--checkpoint_every_steps`` and
-``--debug`` come with checkpointing and preemption (ROADMAP.md).
-``--device`` picks CUDA (the default) or the CPU.
+``--debug`` come with checkpointing and preemption (ROADMAP.md, queue A3),
+so argparse refuses them. ``--device`` picks CUDA (the default) or the CPU.
 """
 
 import argparse
@@ -15,6 +15,12 @@ import os
 import mobilesuperresolution_tpu_torch.data as data_pkg
 import mobilesuperresolution_tpu_torch.models as models_pkg
 from mobilesuperresolution_tpu_torch.data import isr
+
+
+def train_steps_per_epoch(n_items, batch_size):
+    """Optimizer steps per epoch: one process, batches with drop_last (the
+    LR schedule's milestones count these)."""
+    return max(n_items // batch_size, 1)
 
 
 def base_parser(description):
@@ -39,12 +45,25 @@ def add_train_args(parser):
     isr.add_train_args(parser)
 
 
-def parse_with_plugins(parser, argv=None):
-    """Parse known args, let the dataset and model modules inject their
-    flags, then re-parse (the reference's plugin idiom)."""
+def add_eval_args(parser):
+    """The flags of the SISR entry points that evaluate or train one model
+    (cli/pretrain.py, cli/retrain_searched.py)."""
+    parser.add_argument("--eval_model", type=str, default=None,
+                        help="Path to a params .npz (the JAX package's flat layout) to evaluate or "
+                        "initialize from.")
+    parser.add_argument("--eval_only", action="store_true")
+    parser.add_argument("--eval_tile", type=int, default=0,
+                        help="Overlap-tiled evaluation. Only 0 (whole images) is supported: tiling "
+                        "bounds XLA recompiles, and eager PyTorch compiles nothing per shape.")
+
+
+def parse_with_plugins(parser, argv=None, with_models=True):
+    """Parse known args, let the dataset and (``with_models``) model modules
+    inject their flags, then re-parse (the reference's plugin idiom)."""
     known, _ = parser.parse_known_args(argv)
     data_pkg.get_dataset_module(known.dataset).update_argparser(parser)
-    models_pkg.update_argparser(parser)
+    if with_models:
+        models_pkg.update_argparser(parser)
     params = parser.parse_args(argv)
     os.makedirs(params.job_dir, exist_ok=True)
     return params

@@ -1,31 +1,56 @@
-"""SISR evaluation entry (counterpart of the ``--eval_only`` path of
-mobilesuperresolution_tpu/cli/pretrain.py).
+"""SISR pretraining entry (counterpart of mobilesuperresolution_tpu/cli/pretrain.py).
 
-    python -m mobilesuperresolution_tpu_torch.cli.pretrain --job_dir runs/eval \\
-        --eval_only --eval_model artifacts/convergence/wdsr_b_x2/weights/models.npz \\
-        --num_blocks 8 --dataset div2k --eval_datasets set5 set14 --scale 2
+    python -m mobilesuperresolution_tpu_torch.cli.pretrain --job_dir runs/x2 \\
+        --dataset div2k --eval_datasets set5 --scale 2 --num_blocks 16 \\
+        --num_residual_units 24 --train_batch_size 16 --lr_patch_size 48 --epochs 30
 
-Builds the WDSR-B ``BASIC_MODEL`` (``models.get_model``), loads a JAX
-flat-npz checkpoint through the weight bridge (seeded random weights without
-``--eval_model``), runs every eval set through ``train.evaluate`` and logs
-PSNR, PSNR_Y, SSIM, the bilinear baseline and the Charbonnier loss per set.
-Runs on CUDA unless ``--device cpu`` is given. A float32 evaluation runs its
-convs in full float32: TF32 is off for cuDNN and matmuls while it runs, and
-the caller's settings are restored after. Training (the rest of the JAX
-entry) is not ported yet and raises.
+Trains the WDSR-B ``BASIC_MODEL`` (``models.get_model``) from seeded random
+weights (``--seed``) or a JAX flat-npz checkpoint (``--eval_model``): L1 loss,
+Adam with the reference's MultiStepLR ([E/2, 9E/10] epochs, gamma 0.3) over
+every parameter, shuffled drop-last batches made ahead in a thread, the
+non-finite guard of ``train.steps``. After every epoch it scores the eval
+sets and writes ``<job_dir>/weights/models.npz`` (the JAX package's layout),
+and it appends the epoch's loss and eval metrics to
+``<job_dir>/metrics.jsonl``. ``--eval_only`` evaluates the loaded weights
+instead. Runs on CUDA unless ``--device cpu`` is given; float32 convs run in
+full float32 (TF32 off, the caller's flags restored after); ``--bf16``
+computes in bfloat16.
+
+Not ported (argparse refuses them): ``--resume``, ``--max_steps_per_run``,
+``--checkpoint_every_steps``, ``--debug`` (ROADMAP.md, queue A3) and
+``--spatial_shards`` (A8).
 """
 
 import logging
+import time
 
 import torch
 
-from mobilesuperresolution_tpu_torch.cli.common_cli import base_parser, eval_modules, parse_with_plugins
+import mobilesuperresolution_tpu_torch.data as data_pkg
+from mobilesuperresolution_tpu_torch.cli.common_cli import (
+    add_eval_args,
+    add_train_args,
+    base_parser,
+    eval_modules,
+    parse_with_plugins,
+    train_steps_per_epoch,
+)
 from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
+from mobilesuperresolution_tpu_torch.core.meters import AverageMeter
+from mobilesuperresolution_tpu_torch.core.metrics_writer import MetricsWriter
+from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.models import get_model
-from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+from mobilesuperresolution_tpu_torch.train.checkpoint import (
+    jax_named_parameters,
+    load_params_npz,
+    random_jax_params,
+    save_params_npz,
+)
 from mobilesuperresolution_tpu_torch.train.evaluate import evaluate
+from mobilesuperresolution_tpu_torch.train.state import multistep_adam
+from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
 
 log = logging.getLogger("msr_torch.pretrain")
 
@@ -49,30 +74,77 @@ def run_evaluation(params, model, eval_mods, device):
     return results
 
 
-def main(argv=None):
-    parser = base_parser("SISR pretraining (PyTorch/CUDA; evaluation only so far)")
-    parser.add_argument("--eval_model", type=str, default=None,
-                        help="Path to a params .npz (the JAX package's flat layout) to evaluate.")
-    parser.add_argument("--eval_only", action="store_true")
-    parser.add_argument("--eval_tile", type=int, default=0,
-                        help="Overlap-tiled evaluation. Only 0 (whole images) is "
-                        "supported: tiling bounds XLA recompiles, and eager "
-                        "PyTorch compiles nothing per shape.")
-    params = parse_with_plugins(parser, argv)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s")
-    if not params.eval_only:
-        raise NotImplementedError("SISR training is not ported yet (ROADMAP.md, queue A10); pass --eval_only")
+def check_eval_tile(params):
     if params.eval_tile:
         raise NotImplementedError(
             "--eval_tile bounds XLA recompiles for mixed-shape eval sets; eager PyTorch "
             "compiles nothing per shape, so the port evaluates whole images only"
         )
+
+
+def train_sisr(params, model, device):
+    """Train ``model`` for ``params.epochs`` epochs with ``make_sisr_step``,
+    evaluating and saving after each. Returns a summary: per-step metrics
+    (``steps``), per-epoch eval results (``eval``), and the number of
+    training forwards and eval images."""
+    train_ds = data_pkg.get_dataset_module(params.dataset).get_dataset(modes.TRAIN, params)
+    steps_per_epoch = train_steps_per_epoch(len(train_ds), params.train_batch_size)
+    opt = multistep_adam(jax_named_parameters(model), params.learning_rate, steps_per_epoch, params.epochs)
+    step = make_sisr_step(model, opt)
+    writer = MetricsWriter(params.job_dir)
+    eval_mods = eval_modules(params)
+    n_eval_images = sum(len(mod.get_dataset(modes.EVAL, params)) for _, mod in eval_mods)
+    summary = {"steps": [], "eval": [], "train_forwards": 0, "eval_images": 0}
+    for epoch in range(1, params.epochs + 1):
+        model.train()
+        meter, t0 = AverageMeter(), time.time()
+        batches = batch_iterator(train_ds, params.train_batch_size, shuffle=True, seed=params.seed + epoch,
+                                 drop_last=True, prefetch=2)
+        for bidx, (lr_np, hr_np) in enumerate(batches):
+            batch = (torch.from_numpy(lr_np).to(device), torch.from_numpy(hr_np).to(device))
+            metrics = {k: float(v) for k, v in step(batch).items()}
+            meter.update(metrics["loss"])
+            summary["train_forwards"] += 1
+            summary["steps"].append(dict(metrics, epoch=epoch, batch=bidx))
+        log.info(f"epoch {epoch}: loss={meter.avg:.4e} ({meter.count} steps, {time.time() - t0:.1f}s)")
+        writer.scalar("training_loss_smooth", meter.avg, epoch)
+        # the eval path runs on the weights prepare() derives: stale after
+        # every optimizer step until it runs again
+        model.eval()
+        model.prepare()
+        results = run_evaluation(params, model, eval_mods, device)
+        for name, vals in results.items():
+            writer.scalars(vals, epoch, prefix=f"{name}/")
+        summary["eval"].append({"epoch": epoch, **results})
+        summary["eval_images"] += n_eval_images
+        save_params_npz(params.job_dir, model)
+    log.info("Finish Training")
+    return summary
+
+
+def main(argv=None):
+    """Train (or with ``--eval_only`` evaluate) the SISR model; returns the
+    training summary of ``train_sisr``, or {set name: metrics}."""
+    parser = base_parser("SISR pretraining (PyTorch/CUDA)")
+    add_train_args(parser)
+    add_eval_args(parser)
+    params = parse_with_plugins(parser, argv)
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO, format="%(message)s")
+    log.info(attr_extractor(params))
+    check_eval_tile(params)
+    if not params.eval_only and params.model_type != "BASIC_MODEL":
+        # the reference's pretrain crashes on the supernet (its model returns
+        # (sr, speed)); the supernet trains in cli.search
+        raise ValueError("pretrain trains BASIC_MODEL only: use cli.search for the NAS supernet and "
+                         "cli.retrain_searched for the searched net")
     device = resolve_device(params.device)
     model = get_model(params, device=device)
     load_params_npz(model, params.eval_model or random_jax_params(model, params.seed))
     with no_tf32():
-        return run_evaluation(params, model, eval_modules(params), device)
+        if params.eval_only:
+            return run_evaluation(params, model.eval(), eval_modules(params), device)
+        return train_sisr(params, model, device)
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ from mobilesuperresolution_tpu_torch.cli.common_cli import (
     base_parser,
     eval_modules,
     parse_with_plugins,
+    train_steps_per_epoch,
 )
 from mobilesuperresolution_tpu_torch.cli.pretrain import run_evaluation
 from mobilesuperresolution_tpu_torch.core import modes
@@ -94,7 +95,7 @@ def _search(params, device):
     model = get_model(params, device=device)
     named = jax_named_parameters(model)
     train_ds = data_pkg.get_dataset_module(params.dataset).get_dataset(modes.TRAIN, params)
-    steps_per_epoch = max(len(train_ds) // params.train_batch_size, 1)  # one process, drop_last
+    steps_per_epoch = train_steps_per_epoch(len(train_ds), params.train_batch_size)
 
     speed_table = None
     if params.speed_table:

@@ -1,5 +1,6 @@
 """Streaming VSR serving entry (counterpart of
-mobilesuperresolution_tpu/cli/serve.py, plain path).
+mobilesuperresolution_tpu/cli/serve.py, without ``--spatial_shards`` and
+``--quantize``, which are not ported).
 
 Reads an ordered directory of frames, pushes them in arrival order through
 ``serve.StreamingVSR`` (windows are enqueued ahead of result fetches, outputs
@@ -7,10 +8,12 @@ leave with a bounded lookahead of chunk + overlap - 1 frames), writes SR PNGs
 and prints one JSON line of end-to-end throughput/latency stats (end to end:
 host decode, host-to-device, device-to-host and PNG encode included).
 Several comma-separated input directories serve as lockstep streams batched
-into one window.
+into one window. ``--flow_cache`` computes each SpyNet pair flow once and
+reuses it across overlapping windows (``serve.FlowCachedStreamingVSR``);
+``--flow_downscale d`` runs SpyNet on 1/d-res frames.
 
     python -m mobilesuperresolution_tpu_torch.cli.serve --job_dir runs/serve \\
-        --input_dir frames/ --bf16 --chunk_frames 4 --chunk_overlap 3
+        --input_dir frames/ --bf16 --chunk_frames 4 --chunk_overlap 3 --flow_cache
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -27,7 +30,7 @@ import torch
 from mobilesuperresolution_tpu_torch.core.device import resolve_device
 from mobilesuperresolution_tpu_torch.data.io_cache import load_image, save_png
 from mobilesuperresolution_tpu_torch.models import get_vsr_model
-from mobilesuperresolution_tpu_torch.serve import StreamingVSR
+from mobilesuperresolution_tpu_torch.serve import FlowCachedStreamingVSR, StreamingVSR, make_flow_sr_fns
 from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 
 
@@ -50,6 +53,11 @@ def build_parser():
                    help="Output frames per window (0 = 4).")
     p.add_argument("--chunk_overlap", type=int, default=4,
                    help="Context frames on each side of a window.")
+    p.add_argument("--flow_cache", action="store_true",
+                   help="Compute each SpyNet pair flow once and reuse it across overlapping "
+                   "windows (serve/flow_cache.py). Matches the plain stream to float tolerance.")
+    p.add_argument("--flow_downscale", type=int, default=1,
+                   help="Run SpyNet on 1/d-res frames and upsample the flow (1 = exact reference flows).")
     p.add_argument("--height", type=int, default=None,
                    help="Output height (default: input height x scale).")
     p.add_argument("--width", type=int, default=None,
@@ -69,7 +77,8 @@ def main(argv=None):
     os.makedirs(params.job_dir, exist_ok=True)
     chunk = params.chunk_frames or 4
     dtype = torch.bfloat16 if params.bf16 else torch.float32
-    model = get_vsr_model(params.model_type, scale=params.scale, compute_dtype=dtype, device=device)
+    model = get_vsr_model(params.model_type, scale=params.scale, compute_dtype=dtype, device=device,
+                          flow_downscale=params.flow_downscale)
     load_params_npz(model, params.eval_model or random_jax_params(model, params.seed))
 
     in_dirs = [d for d in params.input_dir.split(",") if d]
@@ -89,8 +98,13 @@ def main(argv=None):
         with torch.inference_mode():
             return model(x, oh, ow)
 
-    stream = StreamingVSR(apply_fn, out_h, out_w, chunk=chunk, overlap=params.chunk_overlap,
-                          num_streams=n_streams, device=device)
+    if params.flow_cache:
+        flow_fn, sr_fn = make_flow_sr_fns(model, out_h, out_w)
+        stream = FlowCachedStreamingVSR(flow_fn, sr_fn, out_h, out_w, chunk=chunk, overlap=params.chunk_overlap,
+                                        num_streams=n_streams, device=device)
+    else:
+        stream = StreamingVSR(apply_fn, out_h, out_w, chunk=chunk, overlap=params.chunk_overlap,
+                              num_streams=n_streams, device=device)
     stream.warmup((h, w, c))
 
     out_dir = params.output_dir or os.path.join(params.job_dir, "serve")

@@ -4,7 +4,8 @@ Each dataset module exposes ``update_argparser(parser)`` and
 ``get_dataset(mode, params)``; modules hosting several named datasets
 (eval sets, synthetic) expose ``bind(name)``. Only the SISR evaluation sets
 (DIV2K validation, Set5, Set14, BSDS100, Urban100, synthetic_isr) are
-registered so far; training data and the VSR sets are queued in ROADMAP.md.
+registered so far, and DIV2K's training half; the VSR sets are queued in
+ROADMAP.md.
 """
 
 import importlib
@@ -22,6 +23,11 @@ _DATASET_MODULES = {
 def update_argparser(parser):
     """Base flags shared by every dataset."""
     parser.add_argument("--data_dir", type=str, default="data")
+    parser.add_argument("--cache_dir", type=str, default="data/cache",
+                        help="Decoded-image cache of the file-backed sets ('' = none).")
+    parser.add_argument("--cache_compress", type=int, default=1,
+                        help="1 = zlib-compress new cache entries; 0 = raw .npy with mmap "
+                        "reads. Reads accept both forms.")
 
 
 def get_dataset_module(name):

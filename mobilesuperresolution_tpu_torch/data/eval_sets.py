@@ -1,7 +1,9 @@
 """SISR sets: DIV2K (training and validation halves), Set5, Set14, BSDS100
 and Urban100 (counterpart of mobilesuperresolution_tpu/data/eval_sets.py
 and data/div2k.py): bicubic-degraded HR images read from
-``<data_dir>/<dir>/`` PNG/BMP files.
+``<data_dir>/<dir>/`` PNG/BMP files, decoded once into an ``ArrayCache``
+under ``--cache_dir`` (``div2k_<mode>`` for DIV2K, the set's name for the
+others) unless it is empty.
 """
 
 import os
@@ -38,7 +40,11 @@ def bind(name):
             if name != "div2k":
                 raise NotImplementedError(f"{name} is eval-only")
             d = os.path.join("DIV2K", "DIV2K_train_HR")
-        return _isr.ImageSRBicubicDataset(mode, params, list_image_files(os.path.join(params.data_dir, d)))
+        cache = getattr(params, "cache_dir", None)
+        if cache:
+            cache = os.path.join(cache, f"div2k_{mode}" if name == "div2k" else name)
+        return _isr.ImageSRBicubicDataset(mode, params, list_image_files(os.path.join(params.data_dir, d)),
+                                          cache_dir=cache)
 
     argparser = _div2k_argparser if name == "div2k" else _isr.update_argparser
     return SimpleNamespace(name=name, update_argparser=argparser, get_dataset=get_dataset)

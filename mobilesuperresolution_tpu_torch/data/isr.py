@@ -10,8 +10,9 @@ mobilesuperresolution_tpu/data/isr.py; one process, so no per-host sharding):
 - EVAL: paired LR/HR files with HR cropped to the LR size times the scale,
   or HR files cropped to a multiple of the scale and degraded.
 
-Arrays are HWC uint8 until the final conversion to float32 [0, 1] (the
-reference's to_tensor). Output layout is NHWC. ``batch_iterator`` draws
+A dataset given a ``cache_dir`` decodes each file once into an ``ArrayCache``
+there and reads the decoded arrays after. Arrays are HWC uint8 until the
+final conversion to float32 [0, 1] (the reference's to_tensor). Output layout is NHWC. ``batch_iterator`` draws
 every TRAIN item from a random stream that depends only on (seed, index),
 so the batches are a function of its arguments alone.
 """
@@ -22,7 +23,7 @@ import numpy as np
 
 from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.data.imresize import imresize_np
-from mobilesuperresolution_tpu_torch.data.io_cache import load_image
+from mobilesuperresolution_tpu_torch.data.io_cache import ArrayCache, load_image
 
 
 def update_argparser(parser):
@@ -57,17 +58,29 @@ def _augment(rng, lr, hr):
 
 
 class ImageSRDataset:
-    """Paired LR/HR files, [(name, path), ...] each."""
+    """Paired LR/HR files, [(name, path), ...] each; decoded through an
+    ``ArrayCache`` in ``cache_dir`` when one is given (``--cache_compress``
+    picks its form)."""
 
-    def __init__(self, mode, params, lr_files, hr_files):
+    def __init__(self, mode, params, lr_files, hr_files, cache_dir=None):
         self.mode = mode
         self.params = params
         self.lr_files = lr_files
         self.hr_files = hr_files
         self.rng = np.random.default_rng(getattr(params, "seed", 0))
+        self.cache = None
+        if cache_dir:
+            self.cache = ArrayCache(cache_dir, compress=bool(getattr(params, "cache_compress", 1)))
+            for name, path in list(lr_files) + list(hr_files):
+                if name not in self.cache:
+                    self.cache.add(name, load_image(path))
+            self.cache.log_build_stats(f"{type(self).__name__} cache")
 
     def _load(self, files, index):
-        return load_image(files[index][1])
+        name, path = files[index]
+        if self.cache is not None:
+            return np.asarray(self.cache.get(name))
+        return load_image(path)
 
     def _load_item(self, index):
         return self._load(self.lr_files, index), self._load(self.hr_files, index)
@@ -107,8 +120,8 @@ class ImageSRDataset:
 class ImageSRBicubicDataset(ImageSRDataset):
     """HR-only files; LR synthesized with the MATLAB-exact bicubic."""
 
-    def __init__(self, mode, params, hr_files):
-        super().__init__(mode, params, hr_files, hr_files)
+    def __init__(self, mode, params, hr_files, cache_dir=None):
+        super().__init__(mode, params, hr_files, hr_files, cache_dir)
 
     def _load_item(self, index):
         hr = self._load(self.hr_files, index)

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from mobilesuperresolution_tpu_torch.kernels import _build
+from mobilesuperresolution_tpu_torch.kernels._autograd import plain_backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"fused_convsep_launch": [_P] * 6 + [_I] * 7 + [_P]}
@@ -123,9 +124,4 @@ class FusedConvSepFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_y):
-        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            y = fused_convsep_plain(*inputs)
-        grads = iter(torch.autograd.grad(y, wanted, grad_y))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+        return plain_backward(fused_convsep_plain, ctx, grad_y)

@@ -18,6 +18,8 @@ cores in both dtypes (3xTF32 for float32, bf16 for bfloat16), reading its
 weights packed once by ``pack_weights``. That routing by dtype between hand
 kernels is a design choice, not a fallback. On CPU tensors each wrapper
 runs its plain version; on CUDA tensors it launches a kernel or raises.
+``FusedTailSkipFn`` gives B4 a gradient for training: the kernel forward,
+the plain version recomputed backward.
 """
 
 import ctypes
@@ -28,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from mobilesuperresolution_tpu_torch.kernels import _build
+from mobilesuperresolution_tpu_torch.kernels._autograd import plain_backward
 from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import _fragments, _pad, _round_up
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -326,3 +329,25 @@ def fused_conv_pixel_shuffle_skip(x, kernel, bias, scale, x_skip, kernel_skip, p
 
 
 fused_conv_pixel_shuffle_skip.launches = 0
+
+
+class FusedTailSkipFn(torch.autograd.Function):
+    """``fused_conv_pixel_shuffle_skip`` with a gradient, for training on
+    weights that change every step: ``apply(x, kernel, bias, x_skip,
+    kernel_skip, scale)``; forward = one kernel launch with the weights
+    packed for that call (the plain version on the CPU); backward = the
+    plain version recomputed under autograd, differentiated for every input
+    that needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, x_skip, kernel_skip, scale):
+        ctx.save_for_backward(x, kernel, bias, x_skip, kernel_skip)
+        ctx.scale = scale
+        return fused_conv_pixel_shuffle_skip(x, kernel, bias, scale, x_skip, kernel_skip)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        def plain(x, kernel, bias, x_skip, kernel_skip):
+            return fused_conv_pixel_shuffle_skip_plain(x, kernel, bias, ctx.scale, x_skip, kernel_skip)
+
+        return plain_backward(plain, ctx, grad_y) + (None,)

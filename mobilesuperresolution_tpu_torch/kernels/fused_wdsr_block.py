@@ -10,7 +10,8 @@ with the next tile's input prefetched. Any H and W, and every block WDSR-B
 builds at 8 to 64 residual units (E = int(6C), M = int(0.84C), k = 3).
 The kernel reads its weights packed once by ``pack_weights``. On CPU tensors
 the wrapper runs ``fused_wdsr_block_plain``; on CUDA tensors it launches the
-kernel or raises.
+kernel or raises. ``FusedWdsrBlockFn`` gives the block a gradient for
+training: the kernel forward, the plain version recomputed backward.
 """
 
 import ctypes
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from mobilesuperresolution_tpu_torch.kernels import _build
+from mobilesuperresolution_tpu_torch.kernels._autograd import plain_backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"fused_wdsr_block_launch": [_P] * 3 + [_I] * 8 + [_P]}
@@ -166,3 +168,20 @@ def fused_wdsr_block(x, w1, b1, w2, b2, w3, b3, packed=None):
 
 
 fused_wdsr_block.launches = 0
+
+
+class FusedWdsrBlockFn(torch.autograd.Function):
+    """``fused_wdsr_block`` with a gradient, for training on weights that
+    change every step: forward = one kernel launch with the weights packed
+    for that call (the plain version on the CPU); backward = the plain
+    version recomputed under autograd, differentiated for every input that
+    needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3):
+        ctx.save_for_backward(x, w1, b1, w2, b2, w3, b3)
+        return fused_wdsr_block(x, w1, b1, w2, b2, w3, b3)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        return plain_backward(fused_wdsr_block_plain, ctx, grad_y)

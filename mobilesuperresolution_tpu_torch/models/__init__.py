@@ -42,7 +42,7 @@ def get_model(params, device=None):
     train: seeded random weights from the JAX initializers
     (``random_jax_params``, seed ``params.seed``), train mode."""
     if getattr(params, "quantize", "none") == "int8":
-        raise NotImplementedError("int8 quantized convs are not ported yet (ROADMAP.md, queue A12)")
+        raise NotImplementedError("int8 quantized convs are not ported yet (ROADMAP.md, queue A8)")
     if params.model_type not in ("BASIC_MODEL", "NAS_MODEL"):
         raise KeyError(f"unknown SISR model_type {params.model_type!r}")
     dev = resolve_device(device)
@@ -65,17 +65,22 @@ def get_model(params, device=None):
     return model.eval()
 
 
-def get_vsr_model(model_type="basic", scale=4, compute_dtype=torch.float32, device=None):
+def get_vsr_model(model_type="basic", scale=4, compute_dtype=torch.float32, device=None, flow_downscale=1):
     """Build a VSR model at the reference's canonical size on ``device``
     (default CUDA; raises without it unless ``device="cpu"``). Parameters
     start at zero: load weights with ``train.checkpoint.load_params_npz``
-    (a JAX checkpoint, or ``random_jax_params`` for seeded random ones)."""
+    (a JAX checkpoint, or ``random_jax_params`` for seeded random ones).
+    ``flow_downscale`` d runs SpyNet on 1/d-res frames and upsamples the
+    flow (1 = the reference's flows)."""
+    if flow_downscale < 1:
+        raise ValueError(f"flow_downscale must be >= 1, got {flow_downscale}")
     if model_type != "basic":
         raise NotImplementedError(
             f"VSR model {model_type!r} is not ported yet (ROADMAP.md, queue A); "
             "only 'basic' is"
         )
     dev = resolve_device(device)
-    model = BasicVSR(num_feat=24, num_block=8, scale=scale, compute_dtype=compute_dtype)
+    model = BasicVSR(num_feat=24, num_block=8, scale=scale, compute_dtype=compute_dtype,
+                     flow_downscale=flow_downscale)
     model.to(dev).prepare()
     return model.eval()

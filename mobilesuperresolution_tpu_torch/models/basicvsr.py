@@ -141,18 +141,30 @@ class BasicVSRBase(nn.Module):
     uses, and must run again after the parameters or their device change
     (``train.checkpoint.load_params_npz`` calls it)."""
 
-    def __init__(self, num_feat, num_block, scale=4, compute_dtype=torch.float32):
+    def __init__(self, num_feat, num_block, scale=4, compute_dtype=torch.float32, flow_downscale=1):
         super().__init__()
         self.num_feat = num_feat
         self.num_block = num_block
         self.scale = scale
         self.compute_dtype = compute_dtype
+        # SpyNet runs on 1/flow_downscale-res frames and its flow is
+        # upsampled (1 = the reference's flows)
+        self.flow_downscale = flow_downscale
         self.spynet = SpyNet()
         self.propagation = _MergedPropagation(3, num_feat, num_block)
 
     def prepare(self):
         self.spynet.prepare(self.compute_dtype)
         self.propagation.trunks.prepare(self.compute_dtype)
+
+    def _flows(self, x, flows=None):
+        """(flows_forward, flows_backward), each (T-1, B, H, W, 2): the
+        given time-major pair (the flow-cached serving path,
+        serve/flow_cache.py) cast to x.dtype, else SpyNet's."""
+        if flows is not None:
+            ff, fb = flows
+            return ff.to(x.dtype), fb.to(x.dtype)
+        return compute_flows(self.spynet, x, self.flow_downscale)
 
     def _propagate(self, x, flows_forward, flows_backward):
         """Step j >= 1 of the backward leg processes frame T-1-j with
@@ -174,8 +186,8 @@ class BasicVSR(BasicVSRBase):
     ConvTranspose(5, stride=scale) → bilinear resize to (H, W) → + bilinear
     base."""
 
-    def __init__(self, num_feat=24, num_block=8, scale=4, compute_dtype=torch.float32):
-        super().__init__(num_feat, num_block, scale, compute_dtype)
+    def __init__(self, num_feat=24, num_block=8, scale=4, compute_dtype=torch.float32, flow_downscale=1):
+        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale)
         self.fusion = PlainConv(2 * num_feat, 2 * num_feat, 1)
         self.conv_last = SubpixelConvTranspose(2 * num_feat, 3, kernel_size=5, stride=scale)
         self.prepare()
@@ -185,12 +197,14 @@ class BasicVSR(BasicVSRBase):
         self.fusion.prepare(self.compute_dtype)
         self.conv_last.prepare(self.compute_dtype)
 
-    def forward(self, x, height=1080, width=1920):
-        """x: (B, T, H, W, C) → (B, T, height, width, C) in x.dtype."""
+    def forward(self, x, height=1080, width=1920, flows=None):
+        """x: (B, T, H, W, C) → (B, T, height, width, C) in x.dtype.
+        flows: optional precomputed (flows_forward, flows_backward), each
+        (T-1, B, H, W, 2) time-major; SpyNet is then skipped."""
         in_dtype = x.dtype
         x = x.to(self.compute_dtype)
         b, t, h, w, c = x.shape
-        ff, fb = compute_flows(self.spynet, x)
+        ff, fb = self._flows(x, flows)
         out_b, out_f = self._propagate(x, ff, fb)
         feats = torch.cat([out_b, out_f], dim=-1).reshape(b * t, h, w, 2 * self.num_feat)
         out = lrelu(self.fusion(feats))

@@ -10,13 +10,17 @@ ReLU (a dense conv on a channel slice, ``F.conv2d``). The tail 3x3 and the
 Quirk kept from the reference: the forward subtracts image_mean and never
 adds it back (mobilesuperresolution_tpu/models/result_net.py:78); the
 trained tail convs learned the shift.
+
+In train mode the layers derive their weights from the live parameters on
+each call, and the tail runs through B4's autograd Function, as in
+models/wdsr_basic.py; in eval mode they use what ``prepare()`` derived.
 """
 
 import torch
 import torch.nn as nn
 
 from mobilesuperresolution_tpu_torch.kernels import fused_tail
-from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle_skip
+from mobilesuperresolution_tpu_torch.kernels.fused_tail import FusedTailSkipFn, fused_conv_pixel_shuffle_skip
 from mobilesuperresolution_tpu_torch.nas.artifact import read_block_index
 from mobilesuperresolution_tpu_torch.ops.layers import WNConv
 
@@ -33,7 +37,8 @@ class _SplitConvBlock(nn.Module):
     def forward(self, x):
         p = self.passthrough
         x1, x2 = (x[..., :p], x[..., p:]) if p > 0 else (None, x)
-        x2 = torch.relu(self.WNConv_0(x2)) + x2
+        y2 = self.WNConv_0.forward_live(x2) if self.training else self.WNConv_0(x2)
+        x2 = torch.relu(y2) + x2
         return x2 if x1 is None else torch.cat([x1, x2], dim=-1)
 
 
@@ -68,20 +73,33 @@ class ResultNet(nn.Module):
         dt = self.compute_dtype
         for m in [self.head, *self.blocks(), self.tail, self.skip]:
             m.prepare(dt)
-        self._tail_bias = self.tail._b.float() + self.skip._b.float()
+        self._tail_bias = self._live_tail_bias().detach()
         self._tail_packed = fused_tail.pack_for_card(self.tail.kernel, self.skip.kernel, self._tail_bias,
                                                      self.scale, dt)
+
+    def _live_tail_bias(self):
+        """B4's bias, float32, from the live parameters: both convs' biases
+        rounded to the compute dtype."""
+        dt = self.compute_dtype
+        return self.tail.b.to(dt).float() + self.skip.b.to(dt).float()
 
     def forward(self, x):
         """x: (B, H, W, 3) in [0, 1] → (B, scale·H, scale·W, 3) in x.dtype."""
         in_dtype = x.dtype
         x = x.to(self.compute_dtype) - self.image_mean
-        y = self.head(x)
+        y = self.head.forward_live(x) if self.training else self.head(x)
         for blk in self.blocks():
             y = blk(y)
-        y = fused_conv_pixel_shuffle_skip(
-            y.contiguous(), self.tail.kernel, self._tail_bias, self.scale,
-            x.contiguous(), self.skip.kernel, packed=self._tail_packed,
-        )
+        if self.training:
+            dt = self.compute_dtype
+            y = FusedTailSkipFn.apply(
+                y.contiguous(), self.tail.effective_kernel().to(dt), self._live_tail_bias(),
+                x.contiguous(), self.skip.effective_kernel().to(dt), self.scale,
+            )
+        else:
+            y = fused_conv_pixel_shuffle_skip(
+                y.contiguous(), self.tail.kernel, self._tail_bias, self.scale,
+                x.contiguous(), self.skip.kernel, packed=self._tail_packed,
+            )
         # the reference never re-adds image_mean here
         return y.to(in_dtype)

@@ -12,6 +12,12 @@ tail, skip, shuffle and mean are one launch of kernel B4
 folded into its bias: depth-to-space only moves values, so adding the mean
 to every conv channel is exact. The head stays ``F.conv2d``. NHWC
 throughout; compute in ``compute_dtype`` with float32 parameters.
+
+In eval mode every layer runs on the weights ``prepare()`` derived (packed
+once for the kernels); call it again after the parameters change. In train
+mode every layer derives its weights from the live parameters on each call,
+rounded to the compute dtype as ``prepare()`` rounds them, and B3 and B4 run
+through their autograd Functions (kernel forward, plain-version backward).
 """
 
 import math
@@ -20,8 +26,13 @@ import torch
 import torch.nn as nn
 
 from mobilesuperresolution_tpu_torch.kernels import fused_tail
-from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle_skip
-from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import WIDTHS, fused_wdsr_block, pack_weights
+from mobilesuperresolution_tpu_torch.kernels.fused_tail import FusedTailSkipFn, fused_conv_pixel_shuffle_skip
+from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import (
+    WIDTHS,
+    FusedWdsrBlockFn,
+    fused_wdsr_block,
+    pack_weights,
+)
 from mobilesuperresolution_tpu_torch.ops.layers import WNConv
 
 
@@ -41,16 +52,27 @@ class BasicBlock(nn.Module):
         """Derive B3's weights: the weight-normed kernels rounded to
         ``dtype`` and held as float32, (C, E), (E, M), (k, k, M, C); on the
         card also packed once for the kernel (``pack_weights``)."""
-        convs = (self.WNConv_0, self.WNConv_1, self.WNConv_2)
-        for c in convs:
+        for c in (self.WNConv_0, self.WNConv_1, self.WNConv_2):
             c.prepare(dtype)
-        w1, w2, w3 = (c.kernel.float() for c in convs)
-        b1, b2, b3 = (c._b.float() for c in convs)
-        self._weights = (w1[0, 0].contiguous(), b1, w2[0, 0].contiguous(), b2, w3.contiguous(), b3)
-        on_card = w1.is_cuda and w1.shape[2] <= WIDTHS[-1]
+        with torch.no_grad():
+            self._weights = tuple(t.contiguous() for t in self.live_weights())
+        w1 = self._weights[0]
+        on_card = w1.is_cuda and w1.shape[0] <= WIDTHS[-1]
         self._packed = pack_weights(*self._weights, self.WNConv_0._dtype) if on_card else None
 
+    def live_weights(self):
+        """B3's weights from the live parameters, differentiably: the
+        weight-normed kernels and the biases rounded to the compute dtype and
+        held as float32."""
+        convs = (self.WNConv_0, self.WNConv_1, self.WNConv_2)
+        dt = self.WNConv_0._dtype
+        w1, w2, w3 = (c.effective_kernel().to(dt).float() for c in convs)
+        b1, b2, b3 = (c.b.to(dt).float() for c in convs)
+        return w1[0, 0], b1, w2[0, 0], b2, w3, b3
+
     def forward(self, x):
+        if self.training:
+            return FusedWdsrBlockFn.apply(x.contiguous(), *self.live_weights())
         return fused_wdsr_block(x.contiguous(), *self._weights, packed=self._packed)
 
 
@@ -91,23 +113,35 @@ class BasicModel(nn.Module):
         self.WNConv_1.prepare(dt)
         if self.has_skip_conv:
             self.WNConv_2.prepare(dt)
-            # image_mean folded into B4's bias (exact: depth-to-space only moves values)
-            self._tail_bias = self.WNConv_1._b.float() + self.WNConv_2._b.float() + self.image_mean
+            self._tail_bias = self._live_tail_bias().detach()
             self._tail_packed = fused_tail.pack_for_card(self.WNConv_1.kernel, self.WNConv_2.kernel,
                                                          self._tail_bias, self.scale, dt)
+
+    def _live_tail_bias(self):
+        """B4's bias, float32, from the live parameters: both convs' biases
+        rounded to the compute dtype, plus image_mean (folded in: exact, as
+        depth-to-space only moves values)."""
+        dt = self.compute_dtype
+        return self.WNConv_1.b.to(dt).float() + self.WNConv_2.b.to(dt).float() + self.image_mean
 
     def forward(self, x):
         """x: (B, H, W, C) in [0, 1] → (B, scale·H, scale·W, C) in x.dtype."""
         in_dtype = x.dtype
         x = x.to(self.compute_dtype) - self.image_mean
-        y = self.WNConv_0(x)
+        y = self.WNConv_0.forward_live(x) if self.training else self.WNConv_0(x)
         for blk in self.blocks():
             y = blk(y)
-        if self.has_skip_conv:
+        if not self.has_skip_conv:  # scale 1: the input itself is the skip
+            y = (self.WNConv_1.forward_live(y) if self.training else self.WNConv_1(y)) + x + self.image_mean
+        elif self.training:
+            dt = self.compute_dtype
+            y = FusedTailSkipFn.apply(
+                y.contiguous(), self.WNConv_1.effective_kernel().to(dt), self._live_tail_bias(),
+                x.contiguous(), self.WNConv_2.effective_kernel().to(dt), self.scale,
+            )
+        else:
             y = fused_conv_pixel_shuffle_skip(
                 y.contiguous(), self.WNConv_1.kernel, self._tail_bias, self.scale,
                 x.contiguous(), self.WNConv_2.kernel, packed=self._tail_packed,
             )
-        else:  # scale 1: the input itself is the skip
-            y = self.WNConv_1(y) + x + self.image_mean
         return y.to(in_dtype)

@@ -64,19 +64,35 @@ class StreamingVSR:
         dummy = torch.zeros((self.num_streams, self.window, *frame_shape), device=self.device)
         self._apply(dummy, *self._hw).cpu()
 
-    def _dispatch(self, s, last_idx):
+    def _window_indices(self, s, last_idx):
+        """Stream indices of the window whose kept outputs start at ``s``,
+        clip edges replicated."""
         lo = s - self.overlap
-        idx = np.clip(np.arange(lo, lo + self.window), 0, last_idx)
-        window = torch.from_numpy(np.stack([self._frames[i - self._base] for i in idx], axis=1))
+        return np.clip(np.arange(lo, lo + self.window), 0, last_idx)
+
+    def _to_device(self, arr):
+        """A host array as a tensor on the device. From a pinned source the
+        copy is queued behind the work already enqueued instead of blocking
+        the host until the device catches up."""
+        t = torch.from_numpy(arr)
         if self.device.type == "cpu":
-            return self._apply(window, *self._hw), min(self.chunk, self._seen - s), None
-        # pinned source: the copy is queued behind the previous window
-        # instead of blocking the host until the device catches up
-        window = window.pin_memory().to(self.device, non_blocking=True)
-        out = self._apply(window, *self._hw)
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _done_event(self):
+        """A CUDA event recorded after the work enqueued so far (None on the
+        CPU, where the work is already done)."""
+        if self.device.type == "cpu":
+            return None
         done = torch.cuda.Event()
         done.record()
-        return out, min(self.chunk, self._seen - s), done
+        return done
+
+    def _dispatch(self, s, last_idx):
+        idx = self._window_indices(s, last_idx)
+        window = self._to_device(np.stack([self._frames[i - self._base] for i in idx], axis=1))
+        out = self._apply(window, *self._hw)
+        return out, min(self.chunk, self._seen - s), self._done_event()
 
     def _ready(self):
         done = self._inflight[2]

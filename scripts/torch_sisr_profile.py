@@ -8,8 +8,11 @@ float32 and in bf16: its stages with CUDA events (mean subtraction + head
 conv, the 16 B3 blocks, the B4 tail), then one profiled forward
 (torch.profiler, device time by kernel name) and the peak device memory.
 The device's busy share is the profiled kernel time over the unprofiled
-forward time. Prints a summary and writes everything to
-chiprun_out/sisr_profile.json. Needs CUDA.
+forward time. Then the same for one SISR training step at the pretraining
+launcher's width (batch 16, 48x48 LR patches; make_sisr_step with Adam):
+the forward, the forward and backward, and the whole step with CUDA events,
+one profiled step, its busy share and its kernel launches. Prints a summary
+and writes everything to chiprun_out/sisr_profile.json. Needs CUDA.
 """
 
 import argparse
@@ -24,7 +27,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import SR_BLOCKS, SR_HR, SR_SCALE, SR_UNITS, cuda_ms  # noqa: E402
+from chip_smoke import SR_BLOCKS, SR_HR, SR_SCALE, SR_UNITS, TRAIN_BATCH, TRAIN_PATCH, cuda_ms  # noqa: E402
 
 
 def profile(model, x):
@@ -62,16 +65,52 @@ def profile(model, x):
             model(x)
             torch.cuda.synchronize()
 
+    rows, busy = kernel_rows(prof)
+    return {"stages_ms": stages, "peak_mem_gib": peak, "profiled_device_ms": busy,
+            "busy_share": busy / stages["forward"], "kernels": rows[:15]}
+
+
+def kernel_rows(prof):
+    """Device time by kernel name (device-side events only: an aten op's
+    entry repeats its kernels' time), and their sum in ms."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    # device-side events only: an aten op's entry repeats its kernels' time
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted(({"name": e.key[:90], "count": e.count, "device_ms": dev_us(e) / 1e3} for e in kernels),
                   key=lambda r: -r["device_ms"])
-    busy = sum(r["device_ms"] for r in rows)
-    return {"stages_ms": stages, "peak_mem_gib": peak, "profiled_device_ms": busy,
-            "busy_share": busy / stages["forward"], "kernels": rows[:15]}
+    return rows, sum(r["device_ms"] for r in rows)
+
+
+def profile_train(model):
+    """One training step at the launcher's width: stages by CUDA events, one
+    profiled step, its busy share and launches."""
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters
+    from mobilesuperresolution_tpu_torch.train.losses import l1_loss
+    from mobilesuperresolution_tpu_torch.train.state import multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
+
+    g = torch.Generator().manual_seed(6)
+    lr = torch.rand((TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3), generator=g).cuda()
+    hr = torch.rand((TRAIN_BATCH, SR_SCALE * TRAIN_PATCH, SR_SCALE * TRAIN_PATCH, 3), generator=g).cuda()
+    model.train()
+    step = make_sisr_step(model, multistep_adam(jax_named_parameters(model), 1e-3, 100, 1))
+
+    def fwd_bwd():
+        l1_loss(model(lr), hr).backward()
+
+    stages = {
+        "forward + loss": cuda_ms(lambda: l1_loss(model(lr), hr), iters=10, warmup=2),
+        "forward + backward": cuda_ms(fwd_bwd, iters=10, warmup=2),
+        "step (+ guard, Adam)": cuda_ms(lambda: step((lr, hr)), iters=10, warmup=3),
+    }
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step((lr, hr))
+        torch.cuda.synchronize()
+    rows, busy = kernel_rows(prof)
+    return {"stages_ms": stages, "profiled_device_ms": busy, "launches": sum(r["count"] for r in rows),
+            "busy_share": busy / stages["step (+ guard, Adam)"], "kernels": rows[:15]}
 
 
 def main():
@@ -102,6 +141,14 @@ def main():
         print(f"  device busy {r['profiled_device_ms']:.3f} ms of {r['stages_ms']['forward']:.3f} ms "
               f"({r['busy_share']:.1%}); peak {r['peak_mem_gib']:.3f} GiB")
         for k in r["kernels"][:8]:
+            print(f"  {k['device_ms']:8.3f} ms  x{k['count']:<5d} {k['name']}")
+        t = report[f"train_{name}"] = profile_train(model)
+        print(f"{name} training step, batch {TRAIN_BATCH}, {TRAIN_PATCH}x{TRAIN_PATCH}:")
+        for k, v in t["stages_ms"].items():
+            print(f"  {k:26s} {v:9.3f} ms")
+        print(f"  device busy {t['profiled_device_ms']:.3f} ms of {t['stages_ms']['step (+ guard, Adam)']:.3f} ms "
+              f"({t['busy_share']:.1%}), {t['launches']} kernel launches")
+        for k in t["kernels"][:8]:
             print(f"  {k['device_ms']:8.3f} ms  x{k['count']:<5d} {k['name']}")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "sisr_profile.json"), "w") as f:

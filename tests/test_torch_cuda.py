@@ -12,12 +12,18 @@ import torch
 from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain, pack_weights
 from mobilesuperresolution_tpu_torch.kernels.fused_convsep import FusedConvSepFn, fused_convsep, fused_convsep_plain
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
+    FusedTailSkipFn,
     fused_conv_pixel_shuffle,
     fused_conv_pixel_shuffle_plain,
     fused_conv_pixel_shuffle_skip,
     fused_conv_pixel_shuffle_skip_plain,
 )
-from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import fused_wdsr_block, fused_wdsr_block_plain
+from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import (
+    FusedWdsrBlockFn,
+    block_shape,
+    fused_wdsr_block,
+    fused_wdsr_block_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -322,3 +328,111 @@ def test_fused_tail_skip_raises_past_its_widths(cuda):
                                           z(cc, device=cuda), s, z(1, 8, 8, c2, device=cuda),
                                           z(k2, k2, c2, cc, device=cuda))
     assert fused_conv_pixel_shuffle_skip.launches == before
+
+
+def _fn_against_plain(fn, plain, inputs, dtype):
+    """Forward of an autograd Function (a kernel launch) and its gradients
+    against autograd through the plain version on the same card tensors:
+    forward within the kernel tolerance; every gradient (the backward
+    recomputes the plain version, whose cuDNN sums are not bit-reproducible)
+    within 1e-4 of the largest in float32, and, where it is bf16 (the
+    gradient of a bf16 input), within the bf16 tolerance."""
+    outs = []
+    cot = None
+    for f in (fn, plain):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        y = f(*leaves)
+        if cot is None:  # one cotangent for both: the gradients then differ only by summation order
+            g = torch.Generator().manual_seed(1)
+            cot = (torch.rand(tuple(y.shape), generator=g) * 2 - 1).to(y.device, y.dtype)
+        y.backward(cot)
+        outs.append((y.detach(), [t.grad for t in leaves]))
+    (y, grads), (y_want, grads_want) = outs
+    torch.cuda.synchronize()
+    assert float((y.float() - y_want.float()).abs().max()) <= _tol(y_want, dtype)
+    for i, (g, gw) in enumerate(zip(grads, grads_want)):
+        tol = _tol(gw, gw.dtype) if gw.dtype == torch.bfloat16 else 1e-4 * float(gw.abs().max()) + 1e-6
+        assert float((g.float() - gw.float()).abs().max()) <= tol, i
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [8, 16, 24, 32, 64])
+def test_wdsr_block_fn_gradients_on_card(cuda, dtype, c):
+    """FusedWdsrBlockFn (B3 forward with per-call packed weights) on the card:
+    one launch per forward, forward and gradients against the plain version,
+    at the residual-unit widths the SISR models train at."""
+    _, e, m, k = block_shape(c)
+    g = torch.Generator().manual_seed(c)
+
+    def r(*shape, scale=1.0):
+        return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(cuda)
+
+    x = r(2, 21, 19, c).to(dtype)
+    ws = [r(c, e, scale=c ** -0.5), r(e, scale=0.2), r(e, m, scale=e ** -0.5), r(m, scale=0.2),
+          r(k, k, m, c, scale=(9 * m) ** -0.5), r(c, scale=0.2)]
+    ws = [w.to(dtype).float() for w in ws]  # as a model in dtype rounds them
+    before = fused_wdsr_block.launches
+    _fn_against_plain(FusedWdsrBlockFn.apply, fused_wdsr_block_plain, [x, *ws], dtype)
+    assert fused_wdsr_block.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale", [2, 3, 4])
+@pytest.mark.parametrize("cin", [18, 24, 32])
+def test_tail_skip_fn_gradients_on_card(cuda, dtype, scale, cin):
+    """FusedTailSkipFn (B4 forward with per-call packed weights) on the card:
+    one launch per forward, forward and gradients against the plain version,
+    at every scale and at the WDSR-B and searched nets' body widths."""
+    cc = 3 * scale * scale
+    g = torch.Generator().manual_seed(cin * scale)
+
+    def r(*shape, scale=1.0):
+        return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(cuda)
+
+    inputs = [r(2, 13, 17, cin).to(dtype), r(3, 3, cin, cc, scale=(9 * cin) ** -0.5).to(dtype), r(cc, scale=0.5),
+              r(2, 13, 17, 3, scale=0.5).to(dtype), r(5, 5, 3, cc, scale=75 ** -0.5).to(dtype)]
+    before = fused_conv_pixel_shuffle_skip.launches
+    _fn_against_plain(lambda *a: FusedTailSkipFn.apply(*a, scale),
+                      lambda x, kb, b, xs, ks: fused_conv_pixel_shuffle_skip_plain(x, kb, b, scale, xs, ks),
+                      inputs, dtype)
+    assert fused_conv_pixel_shuffle_skip.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["basic", "result_net"])
+def test_tiny_training_steps_match_cpu(cuda, kind):
+    """Three SISR training steps of a tiny float32 model on the card (B3 and
+    B4 through their Functions) against the same steps on the CPU: per-step
+    losses within 1e-4, and every parameter's gradient of the first step (the
+    same weights on both sides; Adam then amplifies summation-order noise in
+    the weights whose gradients are near zero) within 1e-4 of its largest."""
+    from mobilesuperresolution_tpu_torch.models import BasicModel, ResultNet
+    from mobilesuperresolution_tpu_torch.train.checkpoint import (
+        jax_named_parameters,
+        load_params_npz,
+        random_jax_params,
+    )
+    from mobilesuperresolution_tpu_torch.train.state import multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
+
+    g = torch.Generator().manual_seed(9)
+    batches = [(torch.rand((2, 12, 14, 3), generator=g), torch.rand((2, 24, 28, 3), generator=g)) for _ in range(3)]
+    runs = []
+    for dev in ("cpu", cuda):
+        m = BasicModel(2, 24, 2) if kind == "basic" else ResultNet(2, ((18, 14, 7), (18, 18, 3)))
+        m.to(dev)
+        load_params_npz(m, random_jax_params(m, seed=5))
+        m.train()
+        named = jax_named_parameters(m)
+        step = make_sisr_step(m, multistep_adam(named, 1e-3, 3, 1))
+        losses = []
+        for i, (lr, hr) in enumerate(batches):
+            losses.append(float(step((lr.to(dev), hr.to(dev)))["loss"]))
+            if i == 0:
+                grads = {k: p.grad.cpu() for k, p in named.items()}
+        runs.append((losses, grads))
+    (l0, g0), (l1, g1) = runs
+    for i in range(3):
+        assert abs(l1[i] - l0[i]) <= 1e-4 * max(1.0, abs(l0[i])), (i, l1[i], l0[i])
+    for k in g0:
+        top = float(g0[k].abs().max())
+        assert float((g1[k] - g0[k]).abs().max()) <= 1e-4 * max(top, 1e-3), k

@@ -1,6 +1,6 @@
-"""Port parity for SpyNet and BasicVSR (float32 on the CPU, weights carried
-over from the JAX ``model.init`` by the port's checkpoint bridge, or for
-the whole BasicVSR seeded random weights in the JAX layout fed to both), the
+"""Port parity for SpyNet and BasicVSR (float32 on the CPU, seeded random
+weights in the JAX layout fed to both through the port's checkpoint bridge,
+and the JAX init's layout checked against the bridge's), the
 shipped basicvsr_x4 weights' PSNR through the port, and the port's guards:
 no JAX import, CUDA by default.
 
@@ -64,10 +64,10 @@ def _tree(flat):
 def test_spynet_basic_module_matches_jax(rng, hw):
     x = rng.standard_normal((2, *hw, 8)).astype(np.float32)
     jm = js.SpyNetBasicModule()
-    params = jax.jit(jm.init)(jax.random.key(0), jnp.asarray(x))["params"]
-    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
     tm = ts.SpyNetBasicModule()
-    load_params_npz(tm, _flat(params))
+    flat = random_jax_params(tm, seed=0)
+    load_params_npz(tm, flat)
+    want = np.asarray(jax.jit(lambda p, a: jm.apply({"params": p}, a))(_tree(flat), x))
     with torch.no_grad():
         got = tm(_t(x)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
@@ -79,10 +79,10 @@ def test_spynet_matches_jax(rng):
     ref = rng.random((2, 70, 90, 3)).astype(np.float32)
     supp = np.roll(ref, (2, -3), axis=(1, 2)) * 0.9 + 0.05
     jm = js.SpyNet()
-    params = jax.jit(jm.init)(jax.random.key(3), jnp.asarray(ref), jnp.asarray(supp))["params"]
-    want = np.asarray(jax.jit(lambda p, a, b: jm.apply({"params": p}, a, b))(params, ref, supp))
     tm = ts.SpyNet()
-    load_params_npz(tm, _flat(params))
+    flat = random_jax_params(tm, seed=3)
+    load_params_npz(tm, flat)
+    want = np.asarray(jax.jit(lambda p, a, b: jm.apply({"params": p}, a, b))(_tree(flat), ref, supp))
     with torch.no_grad():
         got = tm(_t(ref), _t(supp)).numpy()
     assert got.shape == (2, 70, 90, 2)
@@ -239,12 +239,16 @@ def test_port_imports_no_jax():
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
-    # the NAS search slice's modules are among those checked
+    # the NAS search slice's modules, and the flow cache's and SISR
+    # training's, are among those checked
     rel = {os.path.relpath(f, REPO) for f in files}
     for mod in ("ops/ste", "kernels/fused_convsep", "nas/speed_estimator", "nas/speed_loss", "nas/search",
-                "nas/artifact", "models/wdsr_nas", "train/state", "train/steps", "core/utils", "cli/search"):
+                "nas/artifact", "models/wdsr_nas", "train/state", "train/steps", "core/utils", "cli/search",
+                "serve/flow_cache", "kernels/_autograd", "core/meters", "core/metrics_writer", "data/io_cache",
+                "cli/pretrain", "cli/retrain_searched"):
         assert os.path.join("mobilesuperresolution_tpu_torch", mod + ".py") in rel, mod
-    assert os.path.join("scripts", "torch_search_profile.py") in rel
+    for script in ("torch_search_profile.py", "torch_bench.py"):
+        assert os.path.join("scripts", script) in rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

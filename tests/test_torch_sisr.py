@@ -226,10 +226,17 @@ def test_pretrain_eval_only_on_cpu(tmp_path):
 
 
 def test_pretrain_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Training runs (tests/test_torch_train.py); the checkpoint, preemption
+    and sharding flags are not parsed, the supernet does not pretrain, and
+    --eval_tile other than 0 and int8 raise."""
     base = ["--job_dir", str(tmp_path), "--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr",
             "--num_blocks", "1"]
-    with pytest.raises(NotImplementedError, match="training is not ported"):
-        pretrain.main(base + ["--device", "cpu"])
+    for flag in (["--resume"], ["--max_steps_per_run", "2"], ["--checkpoint_every_steps", "2"], ["--debug"],
+                 ["--spatial_shards", "2"]):
+        with pytest.raises(SystemExit):
+            pretrain.main(base + ["--device", "cpu"] + flag)
+    with pytest.raises(ValueError, match="BASIC_MODEL only"):
+        pretrain.main(base + ["--device", "cpu", "--model_type", "NAS_MODEL"])
     with pytest.raises(NotImplementedError, match="eval_tile"):
         pretrain.main(base + ["--device", "cpu", "--eval_only", "--eval_tile", "64"])
     with pytest.raises(KeyError, match="unknown SISR model_type"):
