@@ -16,7 +16,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    body channels, with its issued against useful K; B5's search-shape cases
    with their device time per launch (torch.profiler) and the wrapper's
    host time per call; B1 at the flow cache's group (8 pair samples) and B3
-   and B4 at the training step's batch (16 x 48x48) too;
+   and B4 at the training step's batch (16 x 48x48) too; B1 over the VSR
+   training step's six SpyNet levels (36 samples, f32: 30 launches) and B2
+   at its tail (20 x 64x64, f32 and bf16), this slice's path;
 4. a tiny float32 BasicVSR on the card against the same model on the CPU;
 5. full-width serving: BasicVSR x4 (nf 24, 8 blocks, bf16) with seeded random
    weights through the JAX-checkpoint bridge, streamed by StreamingVSR
@@ -60,10 +62,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    parseable block_index.txt, a weights npz with every JAX key, B5 launched
    48 times per training forward and per eval image; then the steady-state
    ms per search step and per 678x1020 supernet eval forward, and the peak
-   device memory.
+   device memory;
+11. VSR training through its entry point (cli/train_vsr.py) at
+   launchers/video_train_basic.sh's width (basic nf 24, 8 blocks, x4,
+   10-frame clips, batch 2, 64x64 LR patches, lr 1e-4, f32) on synthetic_vsr
+   (4 clips of 10 512x512 frames), two epochs of 4 steps with a whole-clip
+   eval after each: finite losses, B1 30 and B2 once per forward, a weights
+   npz with exactly the JAX model's keys and shapes, SpyNet bit-untouched;
+   then the steady step in f32 and bf16 (CUDA events) with its device-busy
+   share, launches and top kernels (torch.profiler);
+12. resume round trips: that run stopped by --max_steps_per_run mid-epoch
+   and resumed with --resume against the uninterrupted one (within the Adam
+   drift bound, bit-equality reported), cli.pretrain the same way at a small
+   depth, and cli.search stopped inside its width phase, whose resume
+   finishes every phase;
+13. cli/test_vsr.py on the trained npz: whole clips (the run's last eval
+   PSNR), and bf16 windows plain and flow-cached, which agree;
+14. three tiny VSR training steps on the card against the CPU, and
+   FusedConvPixelShuffleFn's forward and gradients against autograd through
+   the plain version at the training tail and a ragged shape, f32 and bf16.
 
-Prints the kernel table as one JSON line (launches from this slice's paths:
-B1 and B2 from the flow-cached stream, B3 and B4 from the pretraining run,
+Prints the kernel table as one JSON line (launches from this slice's paths,
+each count set to 0 before its path: B1 and B2 from the VSR training run,
+B3 and B4 from the pretraining run,
 B5 from the search), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 Needs CUDA; imports nothing of JAX.
@@ -73,6 +94,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -110,6 +132,13 @@ TRAIN_BATCH, TRAIN_PATCH = 16, 48
 TRAIN_NUM_PATCHES = 16  # synthetic_isr: 8 images x 16 patches / batch 16 = 8 steps per epoch
 TRAIN_STEPS = 8 * TRAIN_NUM_PATCHES // TRAIN_BATCH
 B5_PER_FORWARD = 3 * NAS_BLOCKS
+# VSR training at launchers/video_train_basic.sh's width: basic (nf 24, 8
+# blocks), x4, 10-frame clips, batch 2, 64x64 LR patches, lr 1e-4, float32; on
+# synthetic_vsr clips of 10 512x512 HR frames (128x128 LR, every SpyNet level
+# even), 4 clips x 2 patches / batch 2 = 4 steps per epoch, two epochs
+VSR_T, VSR_BATCH, VSR_PATCH, VSR_SCALE, VSR_LR = 10, 2, 64, 4, 1e-4
+VSR_CLIPS, VSR_HR, VSR_NUM_PATCHES, VSR_EPOCHS = 4, 512, 2, 2
+VSR_STEPS_PER_EPOCH = VSR_CLIPS * VSR_NUM_PATCHES // VSR_BATCH
 
 
 def log(*a):
@@ -276,9 +305,34 @@ def phase_kernels(gen, dev):
         flops = 2.0 * nimg * h * w * cin * cout * 25
         bms, by = bound(flops, nbytes(x, wt, b, got), dtype)
         log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
-        rows["B1"].append(dict(case=tag, main_path=dtype == torch.bfloat16 and nimg == n, max_abs_err=err, ms=ms,
-                               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                               gflop=flops / 1e9))
+        rows["B1"].append(dict(case=tag, main_path=False, serving=dtype == torch.bfloat16 and nimg == n,
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                               bound_by=by, gflop=flops / 1e9))
+
+    # B1 on the VSR training step's path (this slice's): SpyNet's six levels
+    # for 64x64 LR patches, 2 clips x 9 pairs x 2 directions = 36 samples,
+    # each level's five s2d convs at half its size (32x32 down to 1x1), f32
+    nv = VSR_BATCH * (VSR_T - 1) * 2
+    for lvl in range(6):
+        lh = (VSR_PATCH // 2) >> lvl
+        for cin, cout, relu in shapes:
+            x = rand((nv, lh, lh, cin), torch.float32)
+            wt = rand((5, 5, cin, cout), torch.float32, 1.0 / np.sqrt(25 * cin))
+            b = rand((cout,), torch.float32, 0.1)
+            got = conv5x5_same(x, wt, b, relu)
+            want = conv5x5_same_plain(x, wt, b, relu)
+            torch.cuda.synchronize()
+            tag = f"B1 train {nv}x{lh}x{lh} {cin}->{cout} float32"
+            err = check(tag, got, want, f32_tol(want))
+            xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
+            ms = cuda_ms(lambda: conv5x5_same(x, wt, b, relu))
+            plain_ms = cuda_ms(lambda: conv5x5_same_plain(x, wt, b, relu))
+            lib_ms = cuda_ms(lambda: F.conv2d(xn, wn, b, padding=2))
+            flops = 2.0 * nv * lh * lh * cin * cout * 25
+            bms, by = bound(flops, nbytes(x, wt, b, got), torch.float32)
+            log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+            rows["B1"].append(dict(case=tag, main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   library_ms=lib_ms, bound_ms=bms, bound_by=by, gflop=flops / 1e9))
 
     # B1 over one window's whole pyramid: SpyNet's six levels (426x240 is
     # resized to 448x256, then halved five times; the s2d convs run at half
@@ -312,9 +366,14 @@ def phase_kernels(gen, dev):
 
     # B2: the main-path tail (2x2, pad ((1,2),(1,2)), 48 -> 48, s=4, crop to
     # (4h+1, 4w+1)) in bf16, and the Pallas kernel's 3x3/pad-1 form at s=2 in f32
+    # the VSR training step's tail (this slice's path, f32; bf16 beside it):
+    # 2 clips x 10 frames of 64x64, cropped to 257x257
+    vp = VSR_PATCH
     tail_cases = [
         (T_WIN, H_LR, W_LR, 48, 2, 4, ((1, 2), (1, 2)), (4 * H_LR + 1, 4 * W_LR + 1), torch.bfloat16),
         (4, 120, 214, 16, 3, 2, ((1, 1), (1, 1)), None, torch.float32),
+        (VSR_BATCH * VSR_T, vp, vp, 48, 2, 4, ((1, 2), (1, 2)), (4 * vp + 1, 4 * vp + 1), torch.float32),
+        (VSR_BATCH * VSR_T, vp, vp, 48, 2, 4, ((1, 2), (1, 2)), (4 * vp + 1, 4 * vp + 1), torch.bfloat16),
     ]
     for nb, hh, ww, cin, k, s, pad, crop, dtype in tail_cases:
         cc = 3 * s * s
@@ -338,7 +397,9 @@ def phase_kernels(gen, dev):
         flops = 2.0 * nb * hc * wc * k * k * cin * cc
         bms, by = bound(flops, nbytes(x, kern, b, got), dtype)
         log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
-        rows["B2"].append(dict(case=tag, main_path=dtype == torch.bfloat16, max_abs_err=err, ms=ms,
+        train = nb == VSR_BATCH * VSR_T
+        rows["B2"].append(dict(case=tag, main_path=train and dtype == torch.float32,
+                               serving=not train and dtype == torch.bfloat16, max_abs_err=err, ms=ms,
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
                                gflop=flops / 1e9))
 
@@ -1064,6 +1125,326 @@ def phase_search(dev):
     return stats, launches
 
 
+def vsr_launches():
+    from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle
+
+    return {"B1": conv5x5_same.launches, "B2": fused_conv_pixel_shuffle.launches}
+
+
+def reset_vsr_launches():
+    from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle
+
+    conv5x5_same.launches = 0
+    fused_conv_pixel_shuffle.launches = 0
+
+
+def vsr_argv(job_dir):
+    """The model and data flags of both VSR entry points."""
+    return ["--job_dir", job_dir, "--dataset", "synthetic_vsr", "--eval_datasets", "synthetic_vsr",
+            "--model_type", "basic", "--scale", str(VSR_SCALE), "--image_batch", str(VSR_T),
+            "--synthetic_frames", str(VSR_T), "--synthetic_clips", str(VSR_CLIPS), "--synthetic_size", str(VSR_HR)]
+
+
+def vsr_train_argv(job_dir):
+    return vsr_argv(job_dir) + ["--train_batch_size", str(VSR_BATCH), "--lr_patch_size", str(VSR_PATCH),
+                                "--num_patches", str(VSR_NUM_PATCHES), "--epochs", str(VSR_EPOCHS),
+                                "--learning_rate", str(VSR_LR)]
+
+
+def vsr_step_stats(model, dev):
+    """The steady VSR training step (make_vsr_step, the frozen-SpyNet Adam) on
+    one fixed batch at the launcher's shape: mean ms of 10 steps after 3
+    warm-up steps (CUDA events), B1 / B2 launches per step, the peak device
+    memory, and one profiled step's kernel time, launches and busy share
+    (torch.profiler, device-side events only)."""
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters
+    from mobilesuperresolution_tpu_torch.train.state import spynet_frozen_mask, vsr_multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_vsr_step
+
+    g = torch.Generator().manual_seed(7)
+    oh = VSR_SCALE * VSR_PATCH
+    lr = torch.rand((VSR_BATCH, VSR_T, VSR_PATCH, VSR_PATCH, 3), generator=g).to(dev)
+    hr = torch.rand((VSR_BATCH, VSR_T, oh, oh, 3), generator=g).to(dev)
+    named = jax_named_parameters(model)
+    opt = vsr_multistep_adam(named, VSR_LR, 100, 1, trainable_mask=spynet_frozen_mask(named))
+    model.train()
+    step = make_vsr_step(model, opt, (oh, oh))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_vsr_launches()
+    ms = cuda_ms(lambda: step((lr, hr)), iters=10, warmup=3)
+    per_step = {k: v / 13 for k, v in vsr_launches().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step((lr, hr))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(((e.key[:80], e.count, dev_us(e) / 1e3) for e in kernels), key=lambda r: -r[2])[:8]
+    return dict(ms=ms, launches_per_step=per_step, peak_gib=peak, profiled_device_ms=busy, busy_share=busy / ms,
+                kernel_launches=sum(e.count for e in kernels), top_kernels=top)
+
+
+def phase_vsr_train(dev, work):
+    """VSR training through its entry point (cli/train_vsr.py) at the
+    launcher's full width on synthetic_vsr: two epochs of 4 steps with a
+    whole-clip eval of 4 clips after each; finite losses, B1 30 and B2 once
+    per forward (training and eval), a weights npz with exactly the JAX
+    model's keys and shapes, SpyNet bit-untouched; then the steady step in
+    f32 and bf16 with its busy share and launches."""
+    from mobilesuperresolution_tpu_torch.cli import train_vsr
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_param_shapes, load_params_npz, random_jax_params
+
+    job = os.path.join(work, "vsr")
+    reset_vsr_launches()
+    t0 = time.perf_counter()
+    out = train_vsr.main(vsr_train_argv(job))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = vsr_launches()
+    steps = out["steps"]
+    log(f"  cli.train_vsr: {len(steps)} steps, losses {[round(s['loss'], 6) for s in steps]}, {out['eval_clips']} "
+        f"eval clips, eval PSNR {[round(e['synthetic_vsr']['PSNR'], 4) for e in out['eval']]}, {wall:.1f} s; "
+        f"launches {launches}")
+    if len(steps) != VSR_EPOCHS * VSR_STEPS_PER_EPOCH or not all(np.isfinite(s["loss"]) and s["skipped"] == 0
+                                                                  for s in steps):
+        raise AssertionError(f"train_vsr steps {[(s['loss'], s['skipped']) for s in steps]}")
+    forwards = out["train_forwards"] + out["eval_clips"]
+    if launches != {"B1": B1_PER_WINDOW * forwards, "B2": B2_PER_WINDOW * forwards}:
+        raise AssertionError(f"train_vsr launches {launches}, expected B1 30 and B2 1 per forward ({forwards})")
+    model = get_vsr_model("basic", scale=VSR_SCALE, device=dev)
+    want = jax_param_shapes(model)
+    npz = np.load(os.path.join(job, "weights", "models.npz"))
+    if {k: npz[k].shape for k in npz.files} != want:
+        raise AssertionError("train_vsr npz keys or shapes differ from the JAX layout")
+    init = random_jax_params(model, seed=0)
+    spy = [k for k in want if k.startswith("spynet/")]
+    moved = [k for k in want if k not in spy and not np.array_equal(npz[k], init[k])]
+    if not all(np.array_equal(npz[k], init[k]) for k in spy) or not moved:
+        raise AssertionError(f"SpyNet must stay bit-equal and the rest move: {len(moved)} trainable moved")
+    log(f"  SpyNet's {len(spy)} tensors bit-untouched, {len(moved)} of {len(want) - len(spy)} trainable moved")
+    stats = dict(steps=steps, eval=out["eval"], train_forwards=out["train_forwards"], eval_clips=out["eval_clips"],
+                 wall_s=wall, launches=launches)
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        m = get_vsr_model("basic", scale=VSR_SCALE, compute_dtype=dtype, device=dev)
+        load_params_npz(m, init)
+        st = vsr_step_stats(m, dev)
+        stats[f"step_{name}"] = st
+        log(f"  VSR train step {name}: {st['ms']:.3f} ms (batch {VSR_BATCH} x {VSR_T} frames, {VSR_PATCH}x{VSR_PATCH} "
+            f"-> {VSR_SCALE * VSR_PATCH}), B1/B2 per step {st['launches_per_step']}, device busy "
+            f"{st['profiled_device_ms']:.3f} ms ({st['busy_share']:.1%}) over {st['kernel_launches']} launches, peak "
+            f"{st['peak_gib']:.3f} GiB")
+        for k, c, t in st["top_kernels"]:
+            log(f"    {t:8.3f} ms {c:5d}x {k}")
+        if st["launches_per_step"] != {"B1": B1_PER_WINDOW, "B2": B2_PER_WINDOW}:
+            raise AssertionError(f"VSR step {name}: launches per step {st['launches_per_step']}")
+        del m
+    return stats, launches, job
+
+
+def adam_drift_tol(lrs, betas):
+    """How far two Adam runs whose gradients differ by rounding can part, per
+    element: a bias-corrected Adam update moves an element by at most
+    lr * (1 - b1) / sqrt(1 - b2) / sqrt(1 - b1^2 / b2) (Cauchy-Schwarz over
+    the moment sums), so two runs by at most twice that summed over the
+    steps."""
+    b1, b2 = betas
+    per_lr = (1 - b1) / np.sqrt(1 - b2) / np.sqrt(1 - b1 * b1 / b2)
+    return 2 * per_lr * float(sum(lrs))
+
+
+def npz_diff(a, b):
+    za, zb = np.load(a), np.load(b)
+    if set(za.files) != set(zb.files):
+        raise AssertionError("npz keys differ")
+    return max(float(np.abs(za[k] - zb[k]).max()) for k in za.files)
+
+
+def phase_vsr_resume(dev, work, ref_job):
+    """Resume round trips on the card: cli.train_vsr at full width stopped by
+    --max_steps_per_run mid-epoch and resumed with --resume, against
+    phase_vsr_train's uninterrupted run (grid_sample's backward sums with
+    atomics, so the runs may part by rounding: held to adam_drift_tol);
+    cli.pretrain at a small depth the same way (cuDNN deterministic, so
+    expected bit-equal, held to the same kind of bound); and cli.search at
+    a small depth stopped inside its width phase, whose resume completes
+    every phase."""
+    from mobilesuperresolution_tpu_torch.cli import pretrain, search, train_vsr
+    from mobilesuperresolution_tpu_torch.nas.artifact import read_block_index
+    from mobilesuperresolution_tpu_torch.train.state import multistep_lr
+
+    out = {}
+    job = os.path.join(work, "vsr_resume")
+    stop = VSR_STEPS_PER_EPOCH - 1
+    first = train_vsr.main(vsr_train_argv(job) + ["--max_steps_per_run", str(stop)])
+    second = train_vsr.main(vsr_train_argv(job) + ["--resume"])
+    if first.get("preempted") != {"epoch": 1, "batch": stop} or second.get("resumed") != {"epoch": 1, "batch": stop}:
+        raise AssertionError(f"train_vsr resume: preempted {first.get('preempted')}, resumed {second.get('resumed')}")
+    sched = multistep_lr(VSR_LR, VSR_STEPS_PER_EPOCH, VSR_EPOCHS, milestones=[VSR_EPOCHS // 2, VSR_EPOCHS * 8 // 10])
+    tol = adam_drift_tol([sched(i) for i in range(VSR_EPOCHS * VSR_STEPS_PER_EPOCH)], (0.9, 0.99))
+    err = npz_diff(os.path.join(job, "weights", "models.npz"), os.path.join(ref_job, "weights", "models.npz"))
+    log(f"  cli.train_vsr stopped at epoch 1 batch {stop}, resumed: {len(second['steps'])} more steps; final weights "
+        f"vs uninterrupted max |diff| {err:.3e} (tol {tol:.3e}), bit-equal {err == 0.0}")
+    if not err <= tol:
+        raise AssertionError(f"train_vsr resume parted from the uninterrupted run by {err} > {tol}")
+    out["train_vsr"] = dict(max_abs_diff=err, tol=tol, bit_equal=err == 0.0)
+
+    small = ["--dataset", "synthetic_isr", "--eval_datasets", "--num_blocks", "2", "--num_residual_units", "8",
+             "--scale", "2", "--train_batch_size", "8", "--lr_patch_size", "16", "--num_patches", "2"]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name, extra in (("ref", []), ("job", ["--max_steps_per_run", "3"]), ("job", ["--resume"])):
+            runs[name] = pretrain.main(["--job_dir", os.path.join(work, f"pt_{name}"), "--epochs", "2", *small,
+                                        *extra])
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    if runs["job"].get("resumed") != {"epoch": 2, "batch": 1}:
+        raise AssertionError(f"pretrain resume: {runs['job'].get('resumed')}")
+    tol = adam_drift_tol([multistep_lr(1e-3, 2, 2)(i) for i in range(4)], (0.9, 0.999))
+    err = npz_diff(*(os.path.join(work, f"pt_{n}", "weights", "models.npz") for n in ("job", "ref")))
+    log(f"  cli.pretrain (2 blocks, 8 units) stopped at epoch 2 batch 1, resumed: max |diff| {err:.3e} "
+        f"(tol {tol:.3e}), bit-equal {err == 0.0}")
+    if not err <= tol:
+        raise AssertionError(f"pretrain resume parted from the uninterrupted run by {err} > {tol}")
+    out["pretrain"] = dict(max_abs_diff=err, tol=tol, bit_equal=err == 0.0)
+
+    sjob = os.path.join(work, "search_resume")
+    common = ["--job_dir", sjob, *small, "--width_search", "--speed_target", "5", "--width_epochs", "2",
+              "--epochs", "0", "--kernel_epochs", "1", "--log_steps", "1"]
+    stopped = search.main(common + ["--max_steps_per_run", "3"])
+    resumed = search.main(common + ["--resume"])
+    phases = [(s["phase"], s["epoch"]) for s in resumed["steps"]]
+    idx, width = read_block_index(sjob)
+    log(f"  cli.search stopped {stopped.get('preempted')}, resumed {resumed.get('resumed')}: steps {phases}, final "
+        f"arch {len(idx)} blocks")
+    if (stopped.get("preempted") != {"phase": "width", "epoch": 2, "batch": 1}
+            or phases != [("width", 2), ("kernel", 3), ("kernel", 3)] or len(width) != len(idx)):
+        raise AssertionError(f"search resume: {stopped.get('preempted')}, {phases}")
+    out["search"] = dict(preempted=stopped["preempted"], resumed=resumed["resumed"], steps=phases)
+    return out
+
+
+def phase_vsr_eval(dev, job, trained_psnr):
+    """cli.test_vsr on phase_vsr_train's npz: whole clips (the PSNR of the
+    run's last eval, the same weights and clips), then bf16 windows of 2
+    frames with 2 of context (--chunk_frames, 5 windows per 10-frame clip),
+    plain and flow-cached: the two within 0.01 dB PSNR and 1e-4 SSIM."""
+    from mobilesuperresolution_tpu_torch.cli import test_vsr
+
+    npz = os.path.join(job, "weights", "models.npz")
+    argv = vsr_argv(os.path.join(job, "eval")) + ["--eval_model", npz]
+    out = {}
+    for name, extra in (("whole", []), ("chunked_bf16", ["--bf16", "--chunk_frames", "2", "--chunk_overlap", "2"]),
+                        ("flow_cached_bf16", ["--bf16", "--chunk_frames", "2", "--chunk_overlap", "2",
+                                              "--flow_cache"])):
+        reset_vsr_launches()
+        t0 = time.perf_counter()
+        res = test_vsr.main(argv + extra)["synthetic_vsr"]
+        torch.cuda.synchronize()
+        out[name] = dict(res, wall_s=time.perf_counter() - t0, launches=vsr_launches())
+        log(f"  cli.test_vsr {name}: PSNR {res['PSNR']:.4f} SSIM {res['SSIM']:.4f} ({out[name]['wall_s']:.1f} s, "
+            f"launches {out[name]['launches']})")
+        if not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"test_vsr {name}: non-finite metrics {res}")
+    if not abs(out["whole"]["PSNR"] - trained_psnr) <= 1e-3:
+        raise AssertionError(f"test_vsr on the trained npz {out['whole']['PSNR']} != the run's eval {trained_psnr}")
+    a, b = out["chunked_bf16"], out["flow_cached_bf16"]
+    if not (abs(a["PSNR"] - b["PSNR"]) <= 0.01 and abs(a["SSIM"] - b["SSIM"]) <= 1e-4):
+        raise AssertionError(f"flow-cached eval {b['PSNR']}, {b['SSIM']} vs plain windows {a['PSNR']}, {a['SSIM']}")
+    return out
+
+
+def phase_vsr_train_parity(dev):
+    """Three VSR training steps of a tiny float32 BasicVSR (nf 8, 1 block,
+    x4) on the card against the CPU: per-step losses within 1e-4, the first
+    step's gradients within 1e-4 of each one's largest, the weights after
+    the first update within 2 lr (Adam's first update is lr * sign(g), which
+    rounding can flip on a near-zero gradient) and SpyNet untouched; then
+    FusedConvPixelShuffleFn's forward and gradients on the card against
+    autograd through the plain version at the training step's tail and a
+    ragged shape, f32 and bf16."""
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
+        FusedConvPixelShuffleFn,
+        fused_conv_pixel_shuffle_plain,
+    )
+    from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
+    from mobilesuperresolution_tpu_torch.train.checkpoint import (
+        jax_named_parameters,
+        load_params_npz,
+        random_jax_params,
+    )
+    from mobilesuperresolution_tpu_torch.train.state import spynet_frozen_mask, vsr_multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_vsr_step
+
+    lr_rate = 1e-3
+    g = torch.Generator().manual_seed(11)
+    batches = [(torch.rand((1, 3, 32, 32, 3), generator=g), torch.rand((1, 3, 128, 128, 3), generator=g))
+               for _ in range(3)]
+    runs = []
+    for d in ("cpu", dev):
+        m = BasicVSR(num_feat=8, num_block=1, scale=4).to(d)
+        load_params_npz(m, random_jax_params(m, seed=6))
+        m.train()
+        named = jax_named_parameters(m)
+        step = make_vsr_step(m, vsr_multistep_adam(named, lr_rate, 3, 1, spynet_frozen_mask(named)), (128, 128))
+        losses = []
+        for i, (lr, hr) in enumerate(batches):
+            losses.append(float(step((lr.to(d), hr.to(d)))["loss"]))
+            if i == 0:
+                grads = {k: p.grad.cpu() for k, p in named.items() if p.grad is not None}
+                after = {k: p.detach().cpu().clone() for k, p in named.items()}
+        runs.append((losses, grads, after))
+    (l0, g0, w0), (l1, g1, w1) = runs
+    lerr = max(abs(a - b) for a, b in zip(l0, l1))
+    gerr = max(float((g1[k] - g0[k]).abs().max()) / max(float(g0[k].abs().max()), 1e-3) for k in g0)
+    werr = max(float((w1[k] - w0[k]).abs().max()) for k in w0)
+    spy_grads = [k for k in g0 if k.startswith("spynet/")] + [k for k in g1 if k.startswith("spynet/")]
+    log(f"  tiny VSR steps: losses card {l1}, CPU {l0}: max difference {lerr:.3e}; first-step gradients of "
+        f"{len(g0)} parameters within {gerr:.3e} of each largest; weights after one update within {werr:.3e} "
+        f"(tol {2 * lr_rate:.1e}); SpyNet gradients {len(spy_grads)}")
+    if not (lerr <= 1e-4 and gerr <= 1e-4 and werr <= 2 * lr_rate + 1e-6 and not spy_grads
+            and set(g0) == set(g1)):
+        raise AssertionError(f"tiny VSR steps: losses {lerr}, gradients {gerr}, weights {werr}, spynet {spy_grads}")
+    out = {"loss_err": lerr, "grad_err_rel": gerr, "weight_err": werr, "b2_grad": []}
+
+    gen = torch.Generator().manual_seed(12)
+    vp = VSR_PATCH
+    cases = [(VSR_BATCH * VSR_T, vp, vp, 48, 2, 4, ((1, 2), (1, 2)), (4 * vp + 1, 4 * vp + 1)),
+             (3, 37, 53, 16, 3, 2, ((1, 1), (1, 1)), None)]
+    for nb, hh, ww, cin, k, s, pad, crop in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            cc = 3 * s * s
+            x = ((torch.rand((nb, hh, ww, cin), generator=gen) * 2 - 1)).to(dev, dtype)
+            kern = ((torch.rand((k, k, cin, cc), generator=gen) * 2 - 1) / np.sqrt(k * k * cin)).to(dev)
+            b = (torch.rand((cc,), generator=gen) * 0.2 - 0.1).to(dev)
+            res = []
+            for fn in (lambda *a: FusedConvPixelShuffleFn.apply(*a, s, pad, crop),
+                       lambda *a: fused_conv_pixel_shuffle_plain(*a, s, pad, crop)):
+                leaves = [t.clone().requires_grad_(True) for t in (x, kern, b)]
+                y = fn(*leaves)
+                cot = torch.rand(y.shape, generator=torch.Generator().manual_seed(13)).to(dev, y.dtype) - 0.5
+                y.backward(cot)
+                res.append((y.detach(), [t.grad for t in leaves]))
+            (y, grads), (y_want, grads_want) = res
+            tol = bf16_tol if dtype == torch.bfloat16 else f32_tol
+            tag = f"FusedConvPixelShuffleFn {nb}x{hh}x{ww}x{cin} {k}x{k} s{s} {str(dtype)[6:]}"
+            errs = [check(f"{tag} forward", y, y_want, tol(y_want))]
+            for name, gg, gw in zip(("dx", "dkernel", "dbias"), grads, grads_want):
+                errs.append(check(f"{tag} {name}", gg, gw, tol(gw)))
+            out["b2_grad"].append(dict(case=tag, errs=errs))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1078,6 +1459,7 @@ def main():
     ).stdout.strip().splitlines()[0]
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}; card: {smi}")
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         from mobilesuperresolution_tpu_torch.kernels import _build
 
@@ -1115,11 +1497,22 @@ def main():
         report["tiny_nas_parity"] = phase_nas_parity(dev)
         log("NAS search at full width:")
         report["search"], search_main = phase_search(dev)
+        log("VSR training at full width:")
+        report["vsr_train"], vsr_main, vsr_job = phase_vsr_train(dev, work)
+        log("resume round trips:")
+        report["vsr_resume"] = phase_vsr_resume(dev, work, vsr_job)
+        log("VSR evaluation entry point:")
+        report["vsr_eval"] = phase_vsr_eval(dev, vsr_job, report["vsr_train"]["eval"][-1]["synthetic_vsr"]["PSNR"])
+        log("tiny VSR training steps, card vs CPU, and B2's gradients:")
+        report["vsr_train_parity"] = phase_vsr_train_parity(dev)
         report["launches_sisr_eval"] = sisr_main
-        launches = {**launches, **train_main, **search_main}
+        report["launches_serving"] = launches
+        launches = {**train_main, **search_main, **vsr_main}
     except Exception:
         traceback.print_exc()
         return 1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def entry(name, source, replaces, key):
         on_path = [r for r in rows[key] if r["main_path"]]

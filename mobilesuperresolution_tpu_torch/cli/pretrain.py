@@ -11,18 +11,19 @@ every parameter, shuffled drop-last batches made ahead in a thread, the
 non-finite guard of ``train.steps``. After every epoch it scores the eval
 sets and writes ``<job_dir>/weights/models.npz`` (the JAX package's layout),
 and it appends the epoch's loss and eval metrics to
-``<job_dir>/metrics.jsonl``. ``--eval_only`` evaluates the loaded weights
-instead. Runs on CUDA unless ``--device cpu`` is given; float32 convs run in
-full float32 (TF32 off, the caller's flags restored after); ``--bf16``
-computes in bfloat16.
+``<job_dir>/metrics.jsonl``; it checkpoints the full state after every
+epoch (``train.checkpoint.CheckpointManager``), mid-epoch on a SIGTERM or
+``--max_steps_per_run`` stop and every ``--checkpoint_every_steps`` steps,
+and ``--resume`` continues from the latest save exactly. ``--eval_only``
+evaluates the loaded weights instead. Runs on CUDA unless ``--device cpu``
+is given; float32 convs run in full float32 (TF32 off, the caller's flags
+restored after); ``--bf16`` computes in bfloat16.
 
-Not ported (argparse refuses them): ``--resume``, ``--max_steps_per_run``,
-``--checkpoint_every_steps``, ``--debug`` (ROADMAP.md, queue A3) and
-``--spatial_shards`` (A8).
+Not ported (argparse refuses it): ``--spatial_shards`` (ROADMAP.md, queue
+A8).
 """
 
 import logging
-import time
 
 import torch
 
@@ -32,13 +33,12 @@ from mobilesuperresolution_tpu_torch.cli.common_cli import (
     add_train_args,
     base_parser,
     eval_modules,
+    fit,
     parse_with_plugins,
     train_steps_per_epoch,
 )
 from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
-from mobilesuperresolution_tpu_torch.core.meters import AverageMeter
-from mobilesuperresolution_tpu_torch.core.metrics_writer import MetricsWriter
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.models import get_model
@@ -46,7 +46,6 @@ from mobilesuperresolution_tpu_torch.train.checkpoint import (
     jax_named_parameters,
     load_params_npz,
     random_jax_params,
-    save_params_npz,
 )
 from mobilesuperresolution_tpu_torch.train.evaluate import evaluate
 from mobilesuperresolution_tpu_torch.train.state import multistep_adam
@@ -83,43 +82,17 @@ def check_eval_tile(params):
 
 
 def train_sisr(params, model, device):
-    """Train ``model`` for ``params.epochs`` epochs with ``make_sisr_step``,
-    evaluating and saving after each. Returns a summary: per-step metrics
-    (``steps``), per-epoch eval results (``eval``), and the number of
-    training forwards and eval images."""
+    """Train ``model`` with ``make_sisr_step`` through ``common_cli.fit``:
+    Adam with the reference's schedule over every parameter, the eval sets
+    scored after every epoch. Returns ``fit``'s summary (``eval_images``
+    counts the eval images)."""
     train_ds = data_pkg.get_dataset_module(params.dataset).get_dataset(modes.TRAIN, params)
     steps_per_epoch = train_steps_per_epoch(len(train_ds), params.train_batch_size)
     opt = multistep_adam(jax_named_parameters(model), params.learning_rate, steps_per_epoch, params.epochs)
-    step = make_sisr_step(model, opt)
-    writer = MetricsWriter(params.job_dir)
     eval_mods = eval_modules(params)
     n_eval_images = sum(len(mod.get_dataset(modes.EVAL, params)) for _, mod in eval_mods)
-    summary = {"steps": [], "eval": [], "train_forwards": 0, "eval_images": 0}
-    for epoch in range(1, params.epochs + 1):
-        model.train()
-        meter, t0 = AverageMeter(), time.time()
-        batches = batch_iterator(train_ds, params.train_batch_size, shuffle=True, seed=params.seed + epoch,
-                                 drop_last=True, prefetch=2)
-        for bidx, (lr_np, hr_np) in enumerate(batches):
-            batch = (torch.from_numpy(lr_np).to(device), torch.from_numpy(hr_np).to(device))
-            metrics = {k: float(v) for k, v in step(batch).items()}
-            meter.update(metrics["loss"])
-            summary["train_forwards"] += 1
-            summary["steps"].append(dict(metrics, epoch=epoch, batch=bidx))
-        log.info(f"epoch {epoch}: loss={meter.avg:.4e} ({meter.count} steps, {time.time() - t0:.1f}s)")
-        writer.scalar("training_loss_smooth", meter.avg, epoch)
-        # the eval path runs on the weights prepare() derives: stale after
-        # every optimizer step until it runs again
-        model.eval()
-        model.prepare()
-        results = run_evaluation(params, model, eval_mods, device)
-        for name, vals in results.items():
-            writer.scalars(vals, epoch, prefix=f"{name}/")
-        summary["eval"].append({"epoch": epoch, **results})
-        summary["eval_images"] += n_eval_images
-        save_params_npz(params.job_dir, model)
-    log.info("Finish Training")
-    return summary
+    return fit(params, model, opt, make_sisr_step(model, opt), train_ds, device,
+               lambda epoch: (run_evaluation(params, model, eval_mods, device), n_eval_images))
 
 
 def main(argv=None):
@@ -141,7 +114,7 @@ def main(argv=None):
     device = resolve_device(params.device)
     model = get_model(params, device=device)
     load_params_npz(model, params.eval_model or random_jax_params(model, params.seed))
-    with no_tf32():
+    with no_tf32(), torch.autograd.set_detect_anomaly(params.debug):
         if params.eval_only:
             return run_evaluation(params, model.eval(), eval_modules(params), device)
         return train_sisr(params, model, device)

@@ -10,9 +10,9 @@ Rebuilds ``ResultNet`` from the last line of a search's ``block_index.txt``
 step, schedule, data, per-epoch evaluation, weights npz and metrics.jsonl;
 seeded random weights (``--seed``) or a JAX flat-npz checkpoint
 (``--eval_model``), which ``--eval_only`` evaluates instead. Runs on CUDA
-unless ``--device cpu`` is given. ``--quantize int8`` is not ported yet and
-raises (ROADMAP.md, queue A8); ``--resume`` and the preemption flags are not
-parsed (A3).
+unless ``--device cpu`` is given; checkpoints, ``--resume`` and the
+preemption flags as in cli/pretrain.py. ``--quantize int8`` is not ported
+yet and raises (ROADMAP.md, queue A8).
 """
 
 import logging
@@ -57,7 +57,7 @@ def main(argv=None):
     model = ResultNet.from_artifact(params.block_index, scale=params.scale, compute_dtype=dtype).to(device)
     log.info(f"searched architecture: {model.idx}")
     load_params_npz(model, params.eval_model or random_jax_params(model, params.seed))
-    with no_tf32():
+    with no_tf32(), torch.autograd.set_detect_anomaly(params.debug):
         if params.eval_only:
             return run_evaluation(params, model.eval(), eval_modules(params), device)
         return train_sisr(params, model, device)

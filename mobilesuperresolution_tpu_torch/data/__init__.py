@@ -3,9 +3,9 @@
 Each dataset module exposes ``update_argparser(parser)`` and
 ``get_dataset(mode, params)``; modules hosting several named datasets
 (eval sets, synthetic) expose ``bind(name)``. Only the SISR evaluation sets
-(DIV2K validation, Set5, Set14, BSDS100, Urban100, synthetic_isr) are
-registered so far, and DIV2K's training half; the VSR sets are queued in
-ROADMAP.md.
+(DIV2K validation, Set5, Set14, BSDS100, Urban100, synthetic_isr), DIV2K's
+training half, REDS and synthetic_vsr are registered so far; Vimeo, NEMO,
+reds_with_mv and yuv are queued in ROADMAP.md (A6).
 """
 
 import importlib
@@ -16,7 +16,9 @@ _DATASET_MODULES = {
     "set14": "mobilesuperresolution_tpu_torch.data.eval_sets",
     "bsds100": "mobilesuperresolution_tpu_torch.data.eval_sets",
     "urban100": "mobilesuperresolution_tpu_torch.data.eval_sets",
+    "reds": "mobilesuperresolution_tpu_torch.data.reds",
     "synthetic_isr": "mobilesuperresolution_tpu_torch.data.synthetic_module",
+    "synthetic_vsr": "mobilesuperresolution_tpu_torch.data.synthetic_module",
 }
 
 

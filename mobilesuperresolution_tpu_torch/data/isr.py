@@ -14,7 +14,8 @@ A dataset given a ``cache_dir`` decodes each file once into an ``ArrayCache``
 there and reads the decoded arrays after. Arrays are HWC uint8 until the
 final conversion to float32 [0, 1] (the reference's to_tensor). Output layout is NHWC. ``batch_iterator`` draws
 every TRAIN item from a random stream that depends only on (seed, index),
-so the batches are a function of its arguments alone.
+so the batches are a function of its arguments alone, and a resumed epoch
+(``start_batch``) replays the rest of its batches exactly.
 """
 
 import os
@@ -145,14 +146,16 @@ class ImageSRBicubicDataset(ImageSRDataset):
         return imresize_np(hr, scalar_scale=1.0 / s), hr
 
 
-def _batches(dataset, batch_size, shuffle, seed, drop_last):
+def _batches(dataset, batch_size, shuffle, seed, drop_last, start_batch=0):
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
-    for start in range(0, len(order), batch_size):
+    for bidx, start in enumerate(range(0, len(order), batch_size)):
         idx = order[start : start + batch_size]
         if drop_last and len(idx) < batch_size:
             return
+        if bidx < start_batch:
+            continue  # a resumed epoch: the consumed batches sample nothing
         # each item's random stream depends only on (seed, index)
         items = [dataset.item(int(i), np.random.default_rng([seed, int(i)])) for i in idx]
         if len(items[0]) == 3:  # EVAL: (name, lr, hr), one by one
@@ -162,13 +165,15 @@ def _batches(dataset, batch_size, shuffle, seed, drop_last):
             yield np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
 
 
-def batch_iterator(dataset, batch_size=1, shuffle=False, seed=0, drop_last=False, prefetch=0):
-    """TRAIN items stacked to (lr (B, h, w, C), hr (B, H, W, C)); EVAL items
-    as (name, lr (1, h, w, C), hr (1, H, W, C)), the reference's eval batch
-    of 1. ``prefetch`` > 0 makes the batches in a background thread, that
-    many ahead, so patch sampling and the bicubic overlap the device step; a
-    dataset error re-raises in the consumer."""
-    gen = _batches(dataset, batch_size, shuffle, seed, drop_last)
+def batch_iterator(dataset, batch_size=1, shuffle=False, seed=0, drop_last=False, prefetch=0, start_batch=0):
+    """TRAIN items stacked to (lr (B, h, w, C), hr (B, H, W, C)), or (B, T,
+    ...) for video; EVAL items as (name, lr (1, ...), hr (1, ...)), the
+    reference's eval batch of 1. ``prefetch`` > 0 makes the batches in a
+    background thread, that many ahead, so patch sampling and the bicubic
+    overlap the device step; a dataset error re-raises in the consumer.
+    ``start_batch`` skips the first batches of the order (a resumed epoch):
+    the rest are the same arrays as in the full stream."""
+    gen = _batches(dataset, batch_size, shuffle, seed, drop_last, start_batch)
     if prefetch <= 0:
         yield from gen
         return

@@ -1,11 +1,12 @@
-"""Procedural synthetic images and the synthetic SISR dataset (TRAIN and
-EVAL), made from a seed with numpy (own copy of the SISR half of
-mobilesuperresolution_tpu/data/synthetic.py; the video clips and
-SyntheticVSRDataset come with the VSR slices)."""
+"""Procedural synthetic images, clips and the synthetic SISR and VSR
+datasets (TRAIN and EVAL), made from a seed with numpy (own copy of
+mobilesuperresolution_tpu/data/synthetic.py)."""
 
 import numpy as np
 
+from mobilesuperresolution_tpu_torch.data.imresize import imresize_np
 from mobilesuperresolution_tpu_torch.data.isr import ImageSRBicubicDataset
+from mobilesuperresolution_tpu_torch.data.vsr import VideoSRDataset
 
 
 def synthetic_image(seed, hw=(128, 128), textured=True):
@@ -68,6 +69,15 @@ def synthetic_natural_image(seed, hw=(128, 128)):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def synthetic_video(seed, t=4, hw=(96, 96), step=2, natural=False):
+    """Structured uint8 (T, H, W, C) clip: a crop window translating
+    diagonally by ``step`` px per frame over one synthetic image
+    (``synthetic_natural_image`` when ``natural``)."""
+    gen = synthetic_natural_image if natural else synthetic_image
+    big = gen(seed, (hw[0] + step * t, hw[1] + step * t))
+    return np.stack([big[step * i : step * i + hw[0], step * i : step * i + hw[1]] for i in range(t)])
+
+
 class SyntheticISRDataset(ImageSRBicubicDataset):
     """``num_images`` ``synthetic_image`` HR images, seeds 0, 1, ...,
     textured unless ``params.synthetic_textured`` is False."""
@@ -79,3 +89,23 @@ class SyntheticISRDataset(ImageSRBicubicDataset):
 
     def _load(self, files, index):
         return self._images[index]
+
+
+class SyntheticVSRDataset(VideoSRDataset):
+    """``num_clips`` clips of ``frames`` HR frames (``hw``), a crop moving 2
+    px per frame over ``synthetic_image(100 + clip)``, LR by the
+    MATLAB-exact bicubic; one window per clip."""
+
+    def __init__(self, mode, params, num_clips=2, frames=6, hw=(96, 96)):
+        t = frames
+        self._lr_clips, self._hr_clips = [], []
+        for c in range(num_clips):
+            big = synthetic_image(100 + c, (hw[0] + 4 * t, hw[1] + 4 * t))
+            hrs = [big[2 * i : 2 * i + hw[0], 2 * i : 2 * i + hw[1]] for i in range(t)]
+            self._hr_clips.append(hrs)
+            self._lr_clips.append([imresize_np(f, scalar_scale=1.0 / params.scale) for f in hrs])
+        windows = [[(f"clip{c}/frame{i}", None) for i in range(t)] for c in range(num_clips)]
+        super().__init__(mode, params, windows, windows)
+
+    def _load_item(self, index):
+        return self._lr_clips[index], self._hr_clips[index]

@@ -1,20 +1,40 @@
-"""Registry adapter for the synthetic SISR dataset (tests, smoke runs), as
-mobilesuperresolution_tpu/data/synthetic_module.py binds ``synthetic_isr``."""
+"""Registry adapters for the synthetic datasets (tests, smoke runs), as
+mobilesuperresolution_tpu/data/synthetic_module.py binds ``synthetic_isr``
+and ``synthetic_vsr``. The VSR one's size flags are the port's own; their
+defaults make the JAX package's dataset (2 clips of 6 frames of 96x96)."""
 
 from types import SimpleNamespace
 
 from mobilesuperresolution_tpu_torch.data import isr as _isr
-from mobilesuperresolution_tpu_torch.data.synthetic import SyntheticISRDataset
+from mobilesuperresolution_tpu_torch.data import vsr as _vsr
+from mobilesuperresolution_tpu_torch.data.synthetic import SyntheticISRDataset, SyntheticVSRDataset
 
 
-def _update_argparser(parser):
+def _update_isr_argparser(parser):
     _isr.update_argparser(parser)
     parser.add_argument("--synthetic_textured", type=lambda v: v.lower() != "false", default=True,
                         help="False = noise-free synthetic images (fully learnable).")
     parser.set_defaults(num_patches=4, train_batch_size=8)
 
 
+def _update_vsr_argparser(parser):
+    _vsr.update_argparser(parser)
+    parser.add_argument("--synthetic_clips", type=int, default=2)
+    parser.add_argument("--synthetic_frames", type=int, default=6)
+    parser.add_argument("--synthetic_size", type=int, default=96, help="HR frame height and width.")
+    # the patch must fit inside the 24x24 LR frames with the sampler's 2-px margin
+    parser.set_defaults(num_patches=2, train_batch_size=2, lr_patch_size=16)
+
+
+def _vsr_dataset(mode, params):
+    size = getattr(params, "synthetic_size", 96)
+    return SyntheticVSRDataset(mode, params, num_clips=getattr(params, "synthetic_clips", 2),
+                               frames=getattr(params, "synthetic_frames", 6), hw=(size, size))
+
+
 def bind(name):
-    if name != "synthetic_isr":
-        raise KeyError(f"the port has no synthetic dataset {name!r} yet (ROADMAP.md)")
-    return SimpleNamespace(name=name, update_argparser=_update_argparser, get_dataset=SyntheticISRDataset)
+    if name == "synthetic_isr":
+        return SimpleNamespace(name=name, update_argparser=_update_isr_argparser, get_dataset=SyntheticISRDataset)
+    if name == "synthetic_vsr":
+        return SimpleNamespace(name=name, update_argparser=_update_vsr_argparser, get_dataset=_vsr_dataset)
+    raise KeyError(f"the port has no synthetic dataset {name!r}")

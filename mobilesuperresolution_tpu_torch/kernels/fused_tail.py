@@ -18,8 +18,9 @@ cores in both dtypes (3xTF32 for float32, bf16 for bfloat16), reading its
 weights packed once by ``pack_weights``. That routing by dtype between hand
 kernels is a design choice, not a fallback. On CPU tensors each wrapper
 runs its plain version; on CUDA tensors it launches a kernel or raises.
-``FusedTailSkipFn`` gives B4 a gradient for training: the kernel forward,
-the plain version recomputed backward.
+``FusedConvPixelShuffleFn`` and ``FusedTailSkipFn`` give B2 and B4 a
+gradient for training: the kernel forward, the plain version recomputed
+backward (the JAX package has no backward kernel for either).
 """
 
 import ctypes
@@ -129,6 +130,29 @@ def fused_conv_pixel_shuffle(x, kernel, bias, scale, padding=((1, 1), (1, 1)), c
 
 
 fused_conv_pixel_shuffle.launches = 0
+
+
+class FusedConvPixelShuffleFn(torch.autograd.Function):
+    """``fused_conv_pixel_shuffle`` with a gradient, for training on weights
+    that change every step: ``apply(x, kernel, bias, scale, padding,
+    crop)``; forward = one kernel launch (the plain version on the CPU);
+    backward = the plain version recomputed under autograd, differentiated
+    for every input that needs a gradient (in x.dtype, as the plain version
+    computes: its casts of kernel and bias carry their gradients back to
+    their own dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, scale, padding, crop):
+        ctx.save_for_backward(x, kernel, bias)
+        ctx.geometry = (scale, padding, crop)
+        return fused_conv_pixel_shuffle(x, kernel, bias, scale, padding, crop)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        def plain(x, kernel, bias):
+            return fused_conv_pixel_shuffle_plain(x, kernel, bias, *ctx.geometry)
+
+        return plain_backward(plain, ctx, grad_y) + (None, None, None)
 
 
 def fused_conv_pixel_shuffle_skip_plain(x, kernel, bias, scale, x_skip, kernel_skip):

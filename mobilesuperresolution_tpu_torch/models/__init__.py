@@ -65,22 +65,24 @@ def get_model(params, device=None):
     return model.eval()
 
 
-def get_vsr_model(model_type="basic", scale=4, compute_dtype=torch.float32, device=None, flow_downscale=1):
+def get_vsr_model(model_type="basic", scale=4, compute_dtype=torch.float32, device=None, flow_downscale=1,
+                  remat=False):
     """Build a VSR model at the reference's canonical size on ``device``
-    (default CUDA; raises without it unless ``device="cpu"``). Parameters
-    start at zero: load weights with ``train.checkpoint.load_params_npz``
-    (a JAX checkpoint, or ``random_jax_params`` for seeded random ones).
-    ``flow_downscale`` d runs SpyNet on 1/d-res frames and upsamples the
-    flow (1 = the reference's flows)."""
+    (default CUDA; raises without it unless ``device="cpu"``), in eval mode.
+    Parameters start at zero: load weights with
+    ``train.checkpoint.load_params_npz`` (a JAX checkpoint, or
+    ``random_jax_params`` for seeded random ones). ``flow_downscale`` d runs
+    SpyNet on 1/d-res frames and upsamples the flow (1 = the reference's
+    flows); ``remat`` recomputes each propagation step in the backward."""
     if flow_downscale < 1:
         raise ValueError(f"flow_downscale must be >= 1, got {flow_downscale}")
     if model_type != "basic":
         raise NotImplementedError(
-            f"VSR model {model_type!r} is not ported yet (ROADMAP.md, queue A); "
+            f"VSR model {model_type!r} is not ported yet (ROADMAP.md, queue A6); "
             "only 'basic' is"
         )
     dev = resolve_device(device)
     model = BasicVSR(num_feat=24, num_block=8, scale=scale, compute_dtype=compute_dtype,
-                     flow_downscale=flow_downscale)
+                     flow_downscale=flow_downscale, remat=remat)
     model.to(dev).prepare()
     return model.eval()

@@ -13,11 +13,23 @@ mobilesuperresolution_tpu/models/basicvsr.py).
   B2 → bilinear resize → + bilinear base) runs batched over B·T.
 
 ``conv_last`` maps 2·nf → 3 channels, as in the JAX package.
+
+In eval mode every layer computes on the weights ``prepare()`` derived. In
+train mode (the VSR trainer) the trunks, ``fusion`` and ``conv_last`` derive
+theirs from the live parameters on every call (B2 through its autograd
+Function), and SpyNet, which the trainer freezes, computes the flows on its
+prepared weights without a gradient (the JAX package's ``stop_flow_grad``,
+exact for a frozen SpyNet). ``remat`` recomputes each propagation step in
+the backward (``torch.utils.checkpoint``) instead of keeping its
+activations: the same gradients in O(1) activation memory in clip length.
 """
+
+import functools
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mobilesuperresolution_tpu_torch.models.spynet import (
     SpyNet,
@@ -39,7 +51,9 @@ class _DualTrunk(nn.Module):
     """Both directions' trunks (conv → lrelu → num_block residual blocks) on
     the channel-stacked input [backward | forward]. Parameters
     ``{backward,forward}_{conv0,block<i>_conv1,block<i>_conv2}_{kernel,bias}``
-    (HWIO 3x3), as in the JAX checkpoint."""
+    (HWIO 3x3), as in the JAX checkpoint. In train mode each conv's
+    block-diagonal weight is built from the live kernels on every call; its
+    off-diagonal blocks are constant zeros, so no gradient reaches them."""
 
     def __init__(self, in_ch, num_feat, num_block):
         super().__init__()
@@ -52,22 +66,24 @@ class _DualTrunk(nn.Module):
                 self.register_parameter(f"{d}_{name}_bias", nn.Parameter(torch.zeros(num_feat)))
         self.prepare()
 
+    def _dual(self, name, dtype):
+        """The block-diagonal OIHW weight [[backward, 0], [0, forward]] and the
+        stacked bias of one dual conv, in ``dtype``."""
+        kb, kf = (getattr(self, f"{d}_{name}_kernel").permute(3, 2, 0, 1) for d in ("backward", "forward"))
+        z = kb.new_zeros(kb.shape)
+        w = torch.cat([torch.cat([kb, z], 1), torch.cat([z, kf], 1)], 0)
+        b = torch.cat([getattr(self, f"{d}_{name}_bias") for d in ("backward", "forward")])
+        return w.to(dtype).contiguous(), b.to(dtype)
+
     def prepare(self, dtype=None):
-        """Derive each dual conv's block-diagonal OIHW weight
-        [[backward, 0], [0, forward]] in ``dtype`` (default: the last one
-        used)."""
+        """Derive every dual conv's weights in ``dtype`` (default: the last
+        one used), as copies of the parameters."""
         dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
-        self._w = {}
-        for name in self._names:
-            kb, kf = (getattr(self, f"{d}_{name}_kernel").detach().permute(3, 2, 0, 1) for d in ("backward", "forward"))
-            bs = [getattr(self, f"{d}_{name}_bias").detach() for d in ("backward", "forward")]
-            co, ci = kb.shape[:2]
-            w = kb.new_zeros((2 * co, 2 * ci, 3, 3))
-            w[:co, :ci], w[co:, ci:] = kb, kf
-            self._w[name] = (w.to(dtype).contiguous(), torch.cat(bs).to(dtype))
+        with torch.no_grad():
+            self._w = {name: tuple(t.detach().clone() for t in self._dual(name, dtype)) for name in self._names}
 
     def _conv(self, y, name):
-        w, b = self._w[name]
+        w, b = self._dual(name, y.dtype) if self.training else self._w[name]
         return conv2d_maybe_quantized(y, w, b)
 
     def forward(self, y):
@@ -141,12 +157,13 @@ class BasicVSRBase(nn.Module):
     uses, and must run again after the parameters or their device change
     (``train.checkpoint.load_params_npz`` calls it)."""
 
-    def __init__(self, num_feat, num_block, scale=4, compute_dtype=torch.float32, flow_downscale=1):
+    def __init__(self, num_feat, num_block, scale=4, compute_dtype=torch.float32, flow_downscale=1, remat=False):
         super().__init__()
         self.num_feat = num_feat
         self.num_block = num_block
         self.scale = scale
         self.compute_dtype = compute_dtype
+        self.remat = remat
         # SpyNet runs on 1/flow_downscale-res frames and its flow is
         # upsampled (1 = the reference's flows)
         self.flow_downscale = flow_downscale
@@ -164,7 +181,9 @@ class BasicVSRBase(nn.Module):
         if flows is not None:
             ff, fb = flows
             return ff.to(x.dtype), fb.to(x.dtype)
-        return compute_flows(self.spynet, x, self.flow_downscale)
+        # in training SpyNet is frozen: no gradient reaches it
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.training):
+            return compute_flows(self.spynet, x, self.flow_downscale)
 
     def _propagate(self, x, flows_forward, flows_backward):
         """Step j >= 1 of the backward leg processes frame T-1-j with
@@ -174,8 +193,11 @@ class BasicVSRBase(nn.Module):
         frames, flows = stack_directions(x, flows_forward, flows_backward)
         feat = x.new_zeros((2 * b, h, w, self.num_feat))
         outs = []
+        step = self.propagation
+        if self.remat and self.training and torch.is_grad_enabled():
+            step = functools.partial(torch.utils.checkpoint.checkpoint, self.propagation, use_reentrant=False)
         for i in range(t):
-            feat = self.propagation(feat, frames[i], flows[i])
+            feat = step(feat, frames[i], flows[i])
             outs.append(feat)
         out = torch.stack(outs)
         return out[:, :b].flip(0).movedim(0, 1), out[:, b:].movedim(0, 1)
@@ -186,8 +208,9 @@ class BasicVSR(BasicVSRBase):
     ConvTranspose(5, stride=scale) → bilinear resize to (H, W) → + bilinear
     base."""
 
-    def __init__(self, num_feat=24, num_block=8, scale=4, compute_dtype=torch.float32, flow_downscale=1):
-        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale)
+    def __init__(self, num_feat=24, num_block=8, scale=4, compute_dtype=torch.float32, flow_downscale=1,
+                 remat=False):
+        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale, remat)
         self.fusion = PlainConv(2 * num_feat, 2 * num_feat, 1)
         self.conv_last = SubpixelConvTranspose(2 * num_feat, 3, kernel_size=5, stride=scale)
         self.prepare()
@@ -207,7 +230,8 @@ class BasicVSR(BasicVSRBase):
         ff, fb = self._flows(x, flows)
         out_b, out_f = self._propagate(x, ff, fb)
         feats = torch.cat([out_b, out_f], dim=-1).reshape(b * t, h, w, 2 * self.num_feat)
-        out = lrelu(self.fusion(feats))
-        out = self.conv_last(out, out_hw=(height, width), align_corners=False)
+        fusion, conv_last = (self.fusion.forward_live, self.conv_last.forward_live) if self.training else (
+            self.fusion, self.conv_last)
+        out = conv_last(lrelu(fusion(feats)), out_hw=(height, width), align_corners=False)
         out = out + resize_bilinear(x.reshape(b * t, h, w, c), (height, width))
         return out.reshape(b, t, height, width, c).to(in_dtype)

@@ -4,14 +4,18 @@ Counterpart of mobilesuperresolution_tpu/ops/layers.py. Parameters keep the
 JAX layouts (HWIO ``kernel``, ``bias``; ``v``, ``g``, ``b`` of a
 weight-normed conv) so checkpoints load by key renaming;
 ``prepare(dtype)`` derives the compute-layout weights once after the
-parameters change (train/checkpoint.py calls it).
+parameters change (train/checkpoint.py calls it); ``PlainConv`` and
+``SubpixelConvTranspose`` keep them as copies, so an optimizer step does not
+reach them before the next ``prepare``. Each layer's ``forward_live``
+derives them from the live parameters on every call instead,
+differentiably (training).
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle
+from mobilesuperresolution_tpu_torch.kernels.fused_tail import FusedConvPixelShuffleFn, fused_conv_pixel_shuffle
 from mobilesuperresolution_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -96,14 +100,22 @@ class PlainConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.prepare()
 
+    def _weights(self, dtype):
+        return self.kernel.permute(3, 2, 0, 1).contiguous().to(dtype), self.bias.to(dtype)
+
     def prepare(self, dtype=None):
         """Derive the OIHW weight in ``dtype`` (default: the last one used)."""
         dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
-        self._w = self.kernel.detach().permute(3, 2, 0, 1).contiguous().to(dtype)
-        self._b = self.bias.detach().to(dtype)
+        with torch.no_grad():
+            self._w, self._b = (t.detach().clone() for t in self._weights(dtype))
 
     def forward(self, x):
         return conv2d_nhwc(x, self._w, self._b, padding=self.kernel.shape[0] // 2)
+
+    def forward_live(self, x):
+        """The conv on the current parameters, in x.dtype, with gradients to
+        kernel and bias."""
+        return conv2d_nhwc(x, *self._weights(x.dtype), padding=self.kernel.shape[0] // 2)
 
 
 def subpixel_transpose_kernel(w, stride):
@@ -135,7 +147,9 @@ class SubpixelConvTranspose(nn.Module):
     output (kernel B2, kernels/fused_tail.py). ``out_hw`` adds a bilinear
     resize; the bias is added inside the kernel, before the resize, which
     equals adding it after up to rounding because every row of a bilinear
-    resize matrix sums to 1."""
+    resize matrix sums to 1. ``forward_live`` derives the phase kernel from
+    the live parameters on every call and runs B2 through its autograd
+    Function (``FusedConvPixelShuffleFn``)."""
 
     def __init__(self, in_features, features, kernel_size=5, stride=4):
         super().__init__()
@@ -145,24 +159,32 @@ class SubpixelConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.prepare()
 
+    def _weights(self, dtype):
+        s = self.stride
+        w = subpixel_transpose_kernel(self.kernel, s).to(dtype).contiguous()
+        return w, self.bias.repeat_interleave(s * s).to(dtype)
+
     def prepare(self, dtype=None):
         """Derive the phase kernel and the per-phase bias in ``dtype``
         (default: the last one used)."""
         dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
-        s = self.stride
-        self._w = subpixel_transpose_kernel(self.kernel.detach(), s).to(dtype).contiguous()
-        self._b = self.bias.detach().repeat_interleave(s * s).to(dtype)
+        with torch.no_grad():
+            self._w, self._b = (t.detach().clone() for t in self._weights(dtype))
 
     def forward(self, x, out_hw=None, align_corners=False):
+        return self._tail(fused_conv_pixel_shuffle, x, self._w, self._b, out_hw, align_corners)
+
+    def forward_live(self, x, out_hw=None, align_corners=False):
+        """The layer on the current parameters, in x.dtype, with gradients to
+        kernel and bias."""
+        return self._tail(FusedConvPixelShuffleFn.apply, x, *self._weights(x.dtype), out_hw, align_corners)
+
+    def _tail(self, tail, x, w, b, out_hw, align_corners):
         K, s = self.kernel.shape[0], self.stride
         M = -(-K // s)
-        h, w = x.shape[-3], x.shape[-2]
+        h, wd = x.shape[-3], x.shape[-2]
         ex = max(K - s, 0)
-        y = fused_conv_pixel_shuffle(
-            x, self._w, self._b, s,
-            padding=((M - 1, M), (M - 1, M)),
-            crop=(h * s + ex, w * s + ex),
-        )
+        y = tail(x, w, b, s, ((M - 1, M), (M - 1, M)), (h * s + ex, wd * s + ex))
         if out_hw is not None:
             y = resize_bilinear(y, out_hw, align_corners)
         return y

@@ -15,9 +15,17 @@ NAS supernet's bare gates ``mask_w`` and
 parameter names and layouts (HWIO kernels, the raw ConvTranspose kernel,
 weight norm's ``v``/``g``/``b``), so a key maps to a parameter by its module
 path; the only rename is flax's inner ``Conv_0`` scope of a ``PlainConv``.
+
+``CheckpointManager`` keeps the full training state for ``--resume``, in
+the port's own format (one ``torch.save`` file per epoch under
+``<job>/ckpt/``); it neither reads nor writes the JAX package's orbax
+checkpoints. ``<job>/weights/models.npz`` (``save_params_npz``) stays the
+artifact both packages read.
 """
 
+import json
 import os
+import re
 
 import numpy as np
 import torch
@@ -131,3 +139,119 @@ def random_jax_params(model, seed=0):
             arr = rng.uniform(-bound, bound, shape)
         out[key] = arr.astype(np.float32)
     return out
+
+
+def _replace_atomically(write, final):
+    """Write ``final`` through ``write(tmp)`` and a rename, so a kill
+    mid-write leaves the previous file whole."""
+    tmp = f"{final}.tmp.{os.getpid()}"
+    write(tmp)
+    os.replace(tmp, final)
+
+
+class CheckpointManager:
+    """Full training state per epoch in ``<job_dir>/ckpt/<epoch>.pt``: the
+    model's parameters, the optimizer's Adam moments and counts
+    (``MultiStepAdam.state_dict``), ``step`` (training steps taken),
+    ``epoch`` and an optional ``extra`` dict (``batches_done`` of a
+    mid-epoch save). Keeps the ``max_to_keep`` latest epochs; saves are
+    atomic. ``run_meta.json`` pins the process count (always 1 here), and
+    ``restore`` refuses a checkpoint written by another count, as the JAX
+    package's manager does."""
+
+    process_count = 1
+
+    def __init__(self, job_dir, max_to_keep=3):
+        self.job_dir = job_dir
+        self.path = os.path.abspath(os.path.join(job_dir, "ckpt"))
+        os.makedirs(self.path, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self._meta_path = os.path.join(self.path, "run_meta.json")
+        self._meta_written = False
+        self.last_extra = None
+
+    def _file(self, epoch):
+        return os.path.join(self.path, f"{int(epoch)}.pt")
+
+    def all_epochs(self):
+        return sorted(int(m.group(1)) for f in os.listdir(self.path) if (m := re.fullmatch(r"(\d+)\.pt", f)))
+
+    def latest_epoch(self):
+        epochs = self.all_epochs()
+        return epochs[-1] if epochs else None
+
+    def _write_run_meta(self):
+        """The first save of a manager overwrites the sidecar, so a fresh run
+        in an old job dir does not inherit a stale count."""
+        if self._meta_written:
+            return
+
+        def write(tmp):
+            with open(tmp, "w") as f:
+                json.dump({"process_count": self.process_count}, f)
+
+        _replace_atomically(write, self._meta_path)
+        self._meta_written = True
+
+    def _check_run_meta(self):
+        try:
+            with open(self._meta_path) as f:
+                saved = json.load(f).get("process_count")
+        except (OSError, ValueError):
+            return
+        if saved is not None and saved != self.process_count:
+            raise ValueError(
+                f"checkpoint was written by a {saved}-process job but this run has {self.process_count} "
+                "processes: the batch partition and the learning rate depend on the process count, so "
+                f"resuming would change the training trajectory. Relaunch with the original count, or delete "
+                f"{self._meta_path} to accept the change."
+            )
+
+    def save(self, epoch, model, optimizer, extra=None, force=False):
+        """Save the state at ``epoch``. ``force=True`` overwrites a save of
+        the same epoch (the end-of-epoch save after a mid-epoch one); without
+        it an existing save raises."""
+        final = self._file(epoch)
+        if os.path.exists(final) and not force:
+            raise FileExistsError(f"a checkpoint of epoch {epoch} exists: {final}")
+        payload = {
+            "params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "optimizer": optimizer.state_dict(),
+            "step": int(optimizer.steps),
+            "epoch": int(epoch),
+        }
+        if extra:
+            payload["extra"] = dict(extra)
+        self._write_run_meta()
+        _replace_atomically(lambda tmp: torch.save(payload, tmp), final)
+        for old in self.all_epochs()[: -self.max_to_keep]:
+            os.remove(self._file(old))
+
+    def _load(self, epoch):
+        return torch.load(self._file(epoch), map_location="cpu", weights_only=True)
+
+    def peek_extra(self, epoch):
+        """The ``extra`` dict of a saved epoch, or None, without a model or
+        an optimizer (the search's resume reads its batch position before
+        the phase's optimizer exists)."""
+        if epoch is None or epoch not in self.all_epochs():
+            return None
+        return self._load(epoch).get("extra")
+
+    def restore(self, model, optimizer, epoch=None):
+        """Load the save of ``epoch`` (default the latest) into ``model`` (its
+        parameters, then ``prepare()``) and ``optimizer``; returns the saved
+        epoch, or 0 when there is nothing to restore. ``last_extra`` holds
+        the save's ``extra`` dict (None without one)."""
+        target = self.latest_epoch() if epoch is None else epoch
+        self.last_extra = None
+        if target is None:
+            return 0
+        self._check_run_meta()
+        payload = self._load(target)
+        model.load_state_dict(payload["params"])
+        model.prepare()
+        optimizer.load_state_dict(payload["optimizer"])
+        optimizer.steps = payload["step"]
+        self.last_extra = payload.get("extra")
+        return payload["epoch"]

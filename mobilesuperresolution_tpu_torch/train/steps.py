@@ -1,7 +1,7 @@
-"""Train steps (counterpart of mobilesuperresolution_tpu/train/steps.py; so
-far the SISR step and the NAS search step).
+"""Train steps (counterpart of mobilesuperresolution_tpu/train/steps.py): the
+SISR step, the NAS search step and the VSR step.
 
-Failure guard (the JAX package's ``_guarded_update``), in both: a batch whose
+Failure guard (the JAX package's ``_guarded_update``), in all three: a batch whose
 loss or any gradient (of every parameter, trainable in this phase or not) is
 not finite skips the update; parameters, Adam moments and the LR count stay
 put, and ``metrics["skipped"]`` is 1 (a CPU scalar: the guard has read the
@@ -10,7 +10,7 @@ the device."""
 
 import torch
 
-from mobilesuperresolution_tpu_torch.train.losses import l1_loss
+from mobilesuperresolution_tpu_torch.train.losses import charbonnier_loss, l1_loss
 
 
 def _all_finite(loss, grads):
@@ -20,11 +20,13 @@ def _all_finite(loss, grads):
 
 
 def _guarded_update(loss, params, optimizer):
-    """Apply the optimizer step if the loss and every gradient are finite;
-    returns the ``skipped`` metric."""
+    """Apply the optimizer step if the loss and every gradient are finite,
+    and count the step either way (``optimizer.steps``, the JAX
+    TrainState's ``step``); returns the ``skipped`` metric."""
     finite = bool(_all_finite(loss.detach(), [p.grad for p in params if p.grad is not None]))
     if finite:
         optimizer.step()
+    optimizer.steps += 1
     return torch.tensor(0.0 if finite else 1.0)
 
 
@@ -68,5 +70,26 @@ def make_search_step(model, optimizer, speed_loss, weight_sr_l1=1.0, weight_spee
             "loss": loss.detach(), "l1": l1.detach(), "speed_loss": sp.detach(), "speed": speed_accu.detach(),
             "skipped": skipped,
         }
+
+    return step
+
+
+def make_vsr_step(model, optimizer, out_hw):
+    """VSR step: Charbonnier loss on the model's (B, T, out_h, out_w, C)
+    output (the reference's train_video_superresolution.py:76-97). Returns
+    ``step(batch) -> {loss, skipped}``, ``batch`` = (lr (B, T, h, w, C), hr
+    (B, T, out_h, out_w, C)) on the model's device; the model runs in train
+    mode (live weights, SpyNet's flows without a gradient)."""
+    params = list(model.parameters())
+    oh, ow = out_hw
+
+    def step(batch):
+        lr_clip, hr_clip = batch
+        for p in params:
+            p.grad = None
+        loss = charbonnier_loss(model(lr_clip, oh, ow), hr_clip)
+        loss.backward()
+        skipped = _guarded_update(loss, params, optimizer)
+        return {"loss": loss.detach(), "skipped": skipped}
 
     return step

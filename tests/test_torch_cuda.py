@@ -12,6 +12,7 @@ import torch
 from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain, pack_weights
 from mobilesuperresolution_tpu_torch.kernels.fused_convsep import FusedConvSepFn, fused_convsep, fused_convsep_plain
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
+    FusedConvPixelShuffleFn,
     FusedTailSkipFn,
     fused_conv_pixel_shuffle,
     fused_conv_pixel_shuffle_plain,
@@ -436,3 +437,93 @@ def test_tiny_training_steps_match_cpu(cuda, kind):
     for k in g0:
         top = float(g0[k].abs().max())
         assert float((g1[k] - g0[k]).abs().max()) <= 1e-4 * max(top, 1e-3), k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["vsr_train_tail", "ragged"])
+def test_conv_pixel_shuffle_fn_gradients_on_card(cuda, dtype, case):
+    """FusedConvPixelShuffleFn (B2 forward) on the card: one launch per
+    forward, forward and gradients against autograd through the plain
+    version, at the VSR training step's tail (2 clips x 10 frames of 64x64,
+    2x2 over 48 channels, s 4, cropped to 257x257) and a ragged 3x3 s2 map."""
+    if case == "vsr_train_tail":
+        n, h, w, cin, k, s, pad, crop = 20, 64, 64, 48, 2, 4, ((1, 2), (1, 2)), (257, 257)
+    else:
+        n, h, w, cin, k, s, pad, crop = 3, 37, 53, 16, 3, 2, ((1, 1), (1, 1)), (73, 105)
+    cc = 3 * s * s
+    g = torch.Generator().manual_seed(n)
+    inputs = [((torch.rand((n, h, w, cin), generator=g) * 2 - 1)).to(cuda, dtype),
+              ((torch.rand((k, k, cin, cc), generator=g) * 2 - 1) / (k * cin ** 0.5)).to(cuda),
+              (torch.rand(cc, generator=g) * 0.2 - 0.1).to(cuda)]
+    before = fused_conv_pixel_shuffle.launches
+    _fn_against_plain(lambda *a: FusedConvPixelShuffleFn.apply(*a, s, pad, crop),
+                      lambda *a: fused_conv_pixel_shuffle_plain(*a, s, pad, crop), inputs, dtype)
+    assert fused_conv_pixel_shuffle.launches == before + 1
+
+
+def test_tiny_vsr_training_steps_match_cpu(cuda):
+    """Three VSR training steps of a tiny float32 BasicVSR (nf 8, 1 block,
+    x4; B1 and B2 on the card) against the CPU: per-step losses within 1e-4,
+    the first step's gradients within 1e-4 of each one's largest, no
+    gradient for the frozen SpyNet, one B2 launch per step."""
+    from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
+    from mobilesuperresolution_tpu_torch.train.checkpoint import (
+        jax_named_parameters,
+        load_params_npz,
+        random_jax_params,
+    )
+    from mobilesuperresolution_tpu_torch.train.state import spynet_frozen_mask, vsr_multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_vsr_step
+
+    g = torch.Generator().manual_seed(11)
+    batches = [(torch.rand((1, 3, 32, 32, 3), generator=g), torch.rand((1, 3, 128, 128, 3), generator=g))
+               for _ in range(3)]
+    runs = []
+    for dev in ("cpu", cuda):
+        m = BasicVSR(num_feat=8, num_block=1, scale=4).to(dev)
+        load_params_npz(m, random_jax_params(m, seed=6))
+        m.train()
+        named = jax_named_parameters(m)
+        step = make_vsr_step(m, vsr_multistep_adam(named, 1e-3, 3, 1, spynet_frozen_mask(named)), (128, 128))
+        before = fused_conv_pixel_shuffle.launches
+        losses = []
+        for i, (lr, hr) in enumerate(batches):
+            losses.append(float(step((lr.to(dev), hr.to(dev)))["loss"]))
+            if i == 0:
+                grads = {k: p.grad.cpu() for k, p in named.items() if p.grad is not None}
+        if dev != "cpu":
+            assert fused_conv_pixel_shuffle.launches == before + 3
+        runs.append((losses, grads))
+    (l0, g0), (l1, g1) = runs
+    assert set(g0) == set(g1) and not any(k.startswith("spynet/") for k in g0)
+    for i in range(3):
+        assert abs(l1[i] - l0[i]) <= 1e-4 * max(1.0, abs(l0[i])), (i, l1[i], l0[i])
+    for k in g0:
+        assert float((g1[k] - g0[k]).abs().max()) <= 1e-4 * max(float(g0[k].abs().max()), 1e-3), k
+
+
+def test_pretrain_resume_on_card(cuda, tmp_path):
+    """cli.pretrain on the card (2 blocks, 8 units; B3 and B4 through their
+    Functions) stopped by --max_steps_per_run mid-epoch and resumed with
+    --resume ends on the uninterrupted run's weights: bit-equal with cuDNN
+    deterministic (the kernels are)."""
+    import numpy as np
+
+    from mobilesuperresolution_tpu_torch.cli import pretrain
+
+    def run(job, *extra):
+        return pretrain.main(["--job_dir", str(job), "--dataset", "synthetic_isr", "--eval_datasets",
+                              "--num_blocks", "2", "--num_residual_units", "8", "--epochs", "2",
+                              "--train_batch_size", "8", "--lr_patch_size", "16", "--num_patches", "2", *extra])
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        run(tmp_path / "ref")
+        assert run(tmp_path / "job", "--max_steps_per_run", "3")["preempted"] == {"epoch": 2, "batch": 1}
+        assert run(tmp_path / "job", "--resume")["resumed"] == {"epoch": 2, "batch": 1}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    za, zb = (np.load(str(tmp_path / d / "weights" / "models.npz")) for d in ("ref", "job"))
+    for k in za.files:
+        np.testing.assert_array_equal(za[k], zb[k], err_msg=k)

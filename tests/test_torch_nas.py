@@ -3,7 +3,8 @@ loss, kernel B5's plain version and its autograd Function, the supernet,
 one search step's gradients, a short lockstep of the search against the JAX
 step, the LR schedule, the TRAIN data stream and the search entry point.
 float32 on the CPU, the same numpy inputs and weights on both sides (the
-JAX init carried over by the port's checkpoint bridge).
+bridge's seeded weights, whose keys and shapes are checked against the JAX
+init's; no JAX init is compiled).
 
 Tolerances: exact where the arithmetic is the same integer or comparison
 logic (gates, counts, data items, the architecture); 1e-6 relative for
@@ -79,11 +80,11 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _flat(params):
+def _flat(params, leaf=np.asarray):
     """The JAX package's flat-npz layout (train/checkpoint.py::save_params_npz)."""
     return {
-        "/".join(str(getattr(p, "key", p)) for p in path): np.asarray(leaf)
-        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]
+        "/".join(str(getattr(p, "key", p)) for p in path): leaf(v)
+        for path, v in jax.tree_util.tree_flatten_with_path(params)[0]
     }
 
 
@@ -269,8 +270,10 @@ def test_fused_convsep_gradients_match_jax(rng, k):
 
 
 def _jax_supernet(nb, r, width_search=True, differentiable_speed=False):
-    """A JAX NASModel and its init from key 0 (cached per configuration: the
-    init compiles once; JAX arrays are immutable)."""
+    """A JAX NASModel and params for it (cached per configuration; JAX arrays
+    are immutable): the bridge's seeded weights from the JAX initializers'
+    families (``random_jax_params``), after checking that their keys and
+    shapes are the JAX init's (``jax.eval_shape``: traced, not compiled)."""
     return _jax_init(nb, r, width_search, differentiable_speed)
 
 
@@ -278,8 +281,11 @@ def _jax_supernet(nb, r, width_search=True, differentiable_speed=False):
 def _jax_init(nb, r, width_search, differentiable_speed):
     jm = JNASModel(num_blocks=nb, num_residual_units=r, scale=2, width_search=width_search,
                    differentiable_speed=differentiable_speed)
-    params = jax.jit(jm.init)(jax.random.key(0), jnp.zeros((1, 8, 8, 3)))["params"]
-    return jm, params
+    shapes = _flat(jax.eval_shape(jm.init, jax.random.key(0), jnp.zeros((1, 8, 8, 3)))["params"],
+                   leaf=lambda a: tuple(a.shape))
+    flat = random_jax_params(NASModel(num_blocks=nb, num_residual_units=r, scale=2), seed=0)
+    assert {k: v.shape for k, v in flat.items()} == shapes
+    return jm, _unflat(flat)
 
 
 def _port_supernet(flat, nb, r, **kw):
@@ -296,8 +302,9 @@ def _port_supernet(flat, nb, r, **kw):
 def test_nas_model_matches_jax(rng, r, width_search, differentiable, table):
     """sr and speed_accu within 1e-5 through the bridge, with one block
     skipped (alpha1 > alpha2: beta2 = 0, computed all the same); the
-    bridge's key set and shapes equal the JAX init's flattened params; the
-    architecture readers agree."""
+    bridge's key set and shapes equal the JAX init's flattened params
+    (``_jax_supernet``) and the port model's; the architecture readers
+    agree."""
     kw = dict(width_search=width_search, differentiable_speed=differentiable)
     jm, params = _jax_supernet(2, r, **kw)
     flat = _flat(params)
@@ -582,7 +589,8 @@ def test_search_cli_on_cpu(tmp_path, monkeypatch):
     with torch.no_grad():
         np.testing.assert_allclose(m(_t(x))[0].numpy(), np.asarray(jm.apply({"params": jp}, jnp.asarray(x))[0]),
                                    atol=1e-5)
-    for flag in (["--resume"], ["--eval_tile", "64"], ["--speed_predictor", "auto"], ["--build_speed_table"]):
+    for flag in (["--distributed"], ["--pretrained"], ["--eval_tile", "64"], ["--speed_predictor", "auto"],
+                 ["--build_speed_table"]):
         with pytest.raises(SystemExit):
             search.main(argv[:2] + ["--device", "cpu"] + flag)
     with pytest.raises(SystemExit, match="npy"):

@@ -68,7 +68,7 @@ def _stream(stream, clip):
 
 def test_streaming_matches_chunked_and_jax(pair, rng):
     j_apply, t_apply, _ = pair
-    t, chunk, overlap = 11, 3, 2
+    t, chunk, overlap = 7, 2, 1  # 4 windows of 4 frames, the last one short
     clip = rng.random((1, t, H, W, 3)).astype(np.float32)
     want = chunked_vsr_apply(t_apply, torch.from_numpy(clip), OH, OW, chunk, overlap).numpy()
     got = _stream(StreamingVSR(t_apply, OH, OW, chunk=chunk, overlap=overlap, device="cpu"), clip)

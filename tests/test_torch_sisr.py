@@ -1,8 +1,9 @@
 """Port parity for the SISR slice: WNConv, the plain versions of kernels B3
 (fused WDSR-B block) and B4 (WDSR tail with its 5x5 skip), BasicModel at
 x2 and x4, ResultNet, the shipped wdsr_b_x2 / result_net_x2 weights through
-the port's evaluate, and the eval CLI. float32 on the CPU, weights carried
-over from the JAX ``model.init`` by the port's checkpoint bridge.
+the port's evaluate, and the eval CLI. float32 on the CPU, the same weights
+on both sides: the bridge's seeded ones, whose keys and shapes are checked
+against the JAX ``model.init``'s (no JAX init is compiled).
 
 Tolerances: 1e-5 absolute for single layers (the same float32 arithmetic
 summed in another order, at most a few hundred terms); 1e-5 of the output
@@ -57,8 +58,22 @@ def _flat(params, leaf_fn=np.asarray):
     }
 
 
-def _init(module, x):
-    return jax.jit(module.init)(jax.random.key(0), jnp.asarray(x))["params"]
+def _init(module, twin, x):
+    """Params for the JAX ``module``: the bridge's seeded weights of its port
+    ``twin`` (the JAX initializers' families), after checking their keys and
+    shapes against ``module.init``'s (``jax.eval_shape``: traced, not
+    compiled)."""
+    flat = random_jax_params(twin, seed=0)
+    shapes = _flat(jax.eval_shape(module.init, jax.random.key(0), jnp.asarray(x))["params"], lambda a: tuple(a.shape))
+    assert {k: v.shape for k, v in flat.items()} == shapes
+    out = {}
+    for key, v in flat.items():
+        *scope, leaf = key.split("/")
+        d = out
+        for sc in scope:
+            d = d.setdefault(sc, {})
+        d[leaf] = jnp.asarray(v)
+    return out
 
 
 @pytest.mark.parametrize("k", [1, 3, 5])
@@ -66,11 +81,11 @@ def _init(module, x):
 def test_wnconv_matches_jax(rng, k, g_init):
     x = rng.standard_normal((2, 9, 7, 6)).astype(np.float32)
     jm = jl.WNConv(5, k, g_init=g_init)
-    p = _init(jm, x)
+    tm = tl.WNConv(6, 5, k, g_init=g_init)
+    p = _init(jm, tm, x)
     # a non-trivial g and bias, so the weight norm and the bias both count
     p = {"v": p["v"], "g": p["g"] * 1.5 + 0.1, "b": jnp.asarray(rng.standard_normal(5), jnp.float32)}
     want = np.asarray(jm.apply({"params": p}, jnp.asarray(x)))
-    tm = tl.WNConv(6, 5, k, g_init=g_init)
     load_params_npz(tm, _flat(p))
     with torch.no_grad():
         np.testing.assert_allclose(tm(_t(x)).numpy(), want, atol=ATOL)
@@ -106,10 +121,10 @@ def test_basic_block_matches_jax(rng):
     1e-5 of the output range (~20 here)."""
     x = rng.standard_normal((1, 7, 5, 24)).astype(np.float32)
     jm = JBasicBlock(24, 3, 0.25)
-    p = _init(jm, x)
+    tm = tw.BasicBlock(24, 3, 0.25)
+    p = _init(jm, tm, x)
     p = jax.tree_util.tree_map(lambda a: a + 0.05, p)  # non-zero biases
     want = np.asarray(jm.apply({"params": p}, jnp.asarray(x)))
-    tm = tw.BasicBlock(24, 3, 0.25)
     load_params_npz(tm, _flat(p))
     assert [tuple(w.shape) for w in tm._weights] == [(24, 144), (144,), (144, 20), (20,), (3, 3, 20, 24), (24,)]
     with torch.no_grad():
@@ -226,13 +241,13 @@ def test_pretrain_eval_only_on_cpu(tmp_path):
 
 
 def test_pretrain_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """Training runs (tests/test_torch_train.py); the checkpoint, preemption
-    and sharding flags are not parsed, the supernet does not pretrain, and
-    --eval_tile other than 0 and int8 raise."""
+    """Training and resuming run (tests/test_torch_train.py,
+    tests/test_torch_resume.py); the sharding and multi-process flags are
+    not parsed, the supernet does not pretrain, and --eval_tile other than 0
+    and int8 raise."""
     base = ["--job_dir", str(tmp_path), "--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr",
             "--num_blocks", "1"]
-    for flag in (["--resume"], ["--max_steps_per_run", "2"], ["--checkpoint_every_steps", "2"], ["--debug"],
-                 ["--spatial_shards", "2"]):
+    for flag in (["--spatial_shards", "2"], ["--distributed"]):
         with pytest.raises(SystemExit):
             pretrain.main(base + ["--device", "cpu"] + flag)
     with pytest.raises(ValueError, match="BASIC_MODEL only"):

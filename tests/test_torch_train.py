@@ -1,4 +1,4 @@
-"""Port parity for SISR training: the autograd Functions of kernels B3 and B4,
+"""Port parity for SISR training: the autograd Functions of kernels B2, B3 and B4,
 the SISR step in lockstep with the JAX package's make_sisr_step +
 multistep_adam (BasicModel and ResultNet), and the two training entry points
 (cli/pretrain.py, cli/retrain_searched.py). float32 on the CPU; both sides get
@@ -27,7 +27,12 @@ from mobilesuperresolution_tpu.train.state import TrainState
 from mobilesuperresolution_tpu.train.state import multistep_adam as j_multistep_adam
 from mobilesuperresolution_tpu.train.steps import make_sisr_step as j_make_sisr_step
 from mobilesuperresolution_tpu_torch.cli import pretrain, retrain_searched
-from mobilesuperresolution_tpu_torch.kernels.fused_tail import FusedTailSkipFn, fused_conv_pixel_shuffle_skip_plain
+from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
+    FusedConvPixelShuffleFn,
+    FusedTailSkipFn,
+    fused_conv_pixel_shuffle_plain,
+    fused_conv_pixel_shuffle_skip_plain,
+)
 from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import FusedWdsrBlockFn, fused_wdsr_block_plain
 from mobilesuperresolution_tpu_torch.models import BasicModel, ResultNet
 from mobilesuperresolution_tpu_torch.nas.artifact import read_block_index
@@ -83,11 +88,20 @@ def _grads(fn, inputs, need):
     return y.detach(), [t.grad for t in leaves]
 
 
-@pytest.mark.parametrize("which", ["b3", "b4"])
+@pytest.mark.parametrize("which", ["b2", "b3", "b4"])
 def test_autograd_functions_match_plain_gradients(rng, which):
     """Each Function's forward and gradients equal autograd through its plain
-    version; an input that needs no gradient gets none."""
-    if which == "b3":
+    version; an input that needs no gradient gets none. B2 at BasicVSR's
+    tail form (2x2, pad ((1, 2), (1, 2)), s 4, cropped)."""
+    if which == "b2":
+        c, s = 8, 4
+        cc = 3 * s * s
+        inputs = [rng.standard_normal((2, 5, 6, c)), rng.standard_normal((2, 2, c, cc)) / np.sqrt(4 * c),
+                  rng.standard_normal(cc) * 0.1]
+        geometry = (s, ((1, 2), (1, 2)), (21, 25))
+        fn = lambda *a: FusedConvPixelShuffleFn.apply(*a, *geometry)  # noqa: E731
+        plain = lambda *a: fused_conv_pixel_shuffle_plain(*a, *geometry)  # noqa: E731
+    elif which == "b3":
         c, e, m = 8, 48, 6
         inputs = [rng.standard_normal((2, 7, 9, c)), rng.standard_normal((c, e)) / np.sqrt(c),
                   rng.standard_normal(e) * 0.1, rng.standard_normal((e, m)) / np.sqrt(e),
