@@ -18,7 +18,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    host time per call; B1 at the flow cache's group (8 pair samples) and B3
    and B4 at the training step's batch (16 x 48x48) too; B1 over the VSR
    training step's six SpyNet levels (36 samples, f32: 30 launches) and B2
-   at its tail (20 x 64x64, f32 and bf16), this slice's path;
+   at its tail (20 x 64x64, f32 and bf16); B2 at 'single''s tail (2x2 over
+   32 channels) and 'multi''s decode (3x3 over 18), f32 and bf16 at the
+   training shape, and the decode at the serving window in bf16;
 4. a tiny float32 BasicVSR on the card against the same model on the CPU;
 5. full-width serving: BasicVSR x4 (nf 24, 8 blocks, bf16) with seeded random
    weights through the JAX-checkpoint bridge, streamed by StreamingVSR
@@ -80,11 +82,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    PSNR), and bf16 windows plain and flow-cached, which agree;
 14. three tiny VSR training steps on the card against the CPU, and
    FusedConvPixelShuffleFn's forward and gradients against autograd through
-   the plain version at the training tail and a ragged shape, f32 and bf16.
+   the plain version at the training tail and a ragged shape, f32 and bf16;
+15. a tiny float32 'single' and 'multi' on the card against the CPU: the
+   forward (B2 once, 'multi' B1 30 times) and two training steps;
+16. cli/train_vsr.py for 'single' (32 channels, 8 blocks) and 'multi' (the
+   search artifact's last line: 18 channels, one k7 block) at their
+   launchers' width (x4, batch 2 x 10 frames, 64x64, lr 1e-4, f32) on the
+   basic run's data, one epoch of 4 steps and a whole-clip eval: finite
+   losses, B1 / B2 per forward ('single' 0 / 1, 'multi' 30 / 1), the JAX
+   layout, 'multi''s flownet untouched; the steady step in f32 and bf16 with
+   its busy share; cli/test_vsr.py on each npz;
+17. cli/test_vsr_by_patch.py at launchers/video_test_patch.sh's settings
+   (basic x4 on phase 11's npz, 64x64 patches, overlap 4/0, image_batch 10)
+   on one synthetic 10-frame clip at REDS's 720x1280: the 4x100 array,
+   finite, B1 30 and B2 1 per patch batch; the forward ms per patch batch
+   (1 and 10 patches) and the patches per second end to end;
+18. cli/serve.py streaming 'multi' (bf16, chunk 4, overlap 3) over 16
+   426x240 frames: 16 1704x960 frames, B1 30 and B2 1 per window.
 
 Prints the kernel table as one JSON line (launches from this slice's paths,
-each count set to 0 before its path: B1 and B2 from the VSR training run,
-B3 and B4 from the pretraining run,
+each count set to 0 before its path: B1 and B2 from the basic VSR training
+run plus phases 16-18, B3 and B4 from the pretraining run,
 B5 from the search), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 Needs CUDA; imports nothing of JAX.
@@ -139,6 +157,18 @@ B5_PER_FORWARD = 3 * NAS_BLOCKS
 VSR_T, VSR_BATCH, VSR_PATCH, VSR_SCALE, VSR_LR = 10, 2, 64, 4, 1e-4
 VSR_CLIPS, VSR_HR, VSR_NUM_PATCHES, VSR_EPOCHS = 4, 512, 2, 2
 VSR_STEPS_PER_EPOCH = VSR_CLIPS * VSR_NUM_PATCHES // VSR_BATCH
+# the VSR zoo at full width, trained as the basic model above for one epoch:
+# 'single' (launchers/video_train_single.sh: 32 channels, 8 blocks, k 3) and
+# 'multi' (launchers/video_train_multi.sh: the search artifact's last line,
+# 18 channels, one k7 block); B1 and B2 launches per forward
+ZOO_ARTIFACT = os.path.join(ROOT, "artifacts", "search_depth_tpu", "block_index.txt")
+ZOO_PER_FORWARD = {"single": {"B1": 0, "B2": 1}, "multi": {"B1": B1_PER_WINDOW, "B2": 1}}
+# patch eval at launchers/video_test_patch.sh: basic x4, 64x64 patches,
+# overlap 4/0, image_batch 10, one patch per forward (the CLI's default), on
+# one synthetic 10-frame clip at REDS's frame size (720x1280 HR, 180x320 LR:
+# 2 rows x 5 columns of patches)
+PATCH_HR, PATCH, PATCH_OVERLAP = (720, 1280), 64, (4, 0)
+N_PATCHES = 2 * 5
 
 
 def log(*a):
@@ -375,7 +405,17 @@ def phase_kernels(gen, dev):
         (VSR_BATCH * VSR_T, vp, vp, 48, 2, 4, ((1, 2), (1, 2)), (4 * vp + 1, 4 * vp + 1), torch.float32),
         (VSR_BATCH * VSR_T, vp, vp, 48, 2, 4, ((1, 2), (1, 2)), (4 * vp + 1, 4 * vp + 1), torch.bfloat16),
     ]
-    for nb, hh, ww, cin, k, s, pad, crop, dtype in tail_cases:
+    # the VSR zoo's tails at their training shape (2 clips x 10 frames of
+    # 64x64): 'single''s 5x5 stride-4 transpose as a 2x2 conv over 32
+    # channels, 'multi''s decode (3x3 SAME, 18 channels: a bf16 pixel of 36
+    # bytes); and 'multi''s decode at the serving window's shape in bf16
+    tail_cases = [(None, *c) for c in tail_cases]
+    tail_cases += [("single", VSR_BATCH * VSR_T, vp, vp, 32, 2, 4, ((1, 2), (1, 2)), (4 * vp + 1, 4 * vp + 1), dt)
+                   for dt in (torch.float32, torch.bfloat16)]
+    tail_cases += [("multi", VSR_BATCH * VSR_T, vp, vp, 18, 3, 4, ((1, 1), (1, 1)), None, dt)
+                   for dt in (torch.float32, torch.bfloat16)]
+    tail_cases += [("multi", T_WIN, H_LR, W_LR, 18, 3, 4, ((1, 1), (1, 1)), None, torch.bfloat16)]
+    for zoo, nb, hh, ww, cin, k, s, pad, crop, dtype in tail_cases:
         cc = 3 * s * s
         x = rand((nb, hh, ww, cin), dtype)
         kern = rand((k, k, cin, cc), dtype, 1.0 / np.sqrt(k * k * cin))
@@ -397,9 +437,10 @@ def phase_kernels(gen, dev):
         flops = 2.0 * nb * hc * wc * k * k * cin * cc
         bms, by = bound(flops, nbytes(x, kern, b, got), dtype)
         log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
-        train = nb == VSR_BATCH * VSR_T
+        train = zoo is None and nb == VSR_BATCH * VSR_T
         rows["B2"].append(dict(case=tag, main_path=train and dtype == torch.float32,
-                               serving=not train and dtype == torch.bfloat16, max_abs_err=err, ms=ms,
+                               serving=zoo is None and not train and dtype == torch.bfloat16, zoo=zoo,
+                               max_abs_err=err, ms=ms,
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
                                gflop=flops / 1e9))
 
@@ -1140,17 +1181,22 @@ def reset_vsr_launches():
     fused_conv_pixel_shuffle.launches = 0
 
 
-def vsr_argv(job_dir):
+def model_argv(kind):
+    """The VSR entry points' model flags of one model type."""
+    return ["--model_type", kind] + (["--model_path", ZOO_ARTIFACT] if kind == "multi" else [])
+
+
+def vsr_argv(job_dir, kind="basic"):
     """The model and data flags of both VSR entry points."""
     return ["--job_dir", job_dir, "--dataset", "synthetic_vsr", "--eval_datasets", "synthetic_vsr",
-            "--model_type", "basic", "--scale", str(VSR_SCALE), "--image_batch", str(VSR_T),
+            *model_argv(kind), "--scale", str(VSR_SCALE), "--image_batch", str(VSR_T),
             "--synthetic_frames", str(VSR_T), "--synthetic_clips", str(VSR_CLIPS), "--synthetic_size", str(VSR_HR)]
 
 
-def vsr_train_argv(job_dir):
-    return vsr_argv(job_dir) + ["--train_batch_size", str(VSR_BATCH), "--lr_patch_size", str(VSR_PATCH),
-                                "--num_patches", str(VSR_NUM_PATCHES), "--epochs", str(VSR_EPOCHS),
-                                "--learning_rate", str(VSR_LR)]
+def vsr_train_argv(job_dir, kind="basic"):
+    return vsr_argv(job_dir, kind) + ["--train_batch_size", str(VSR_BATCH), "--lr_patch_size", str(VSR_PATCH),
+                                      "--num_patches", str(VSR_NUM_PATCHES), "--epochs", str(VSR_EPOCHS),
+                                      "--learning_rate", str(VSR_LR)]
 
 
 def vsr_step_stats(model, dev):
@@ -1177,9 +1223,18 @@ def vsr_step_stats(model, dev):
     ms = cuda_ms(lambda: step((lr, hr)), iters=10, warmup=3)
     per_step = {k: v / 13 for k, v in vsr_launches().items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, launches, top = profile_once(lambda: step((lr, hr)))
+    return dict(ms=ms, launches_per_step=per_step, peak_gib=peak, profiled_device_ms=busy, busy_share=busy / ms,
+                kernel_launches=launches, top_kernels=top)
+
+
+def profile_once(fn):
+    """One call of ``fn`` under torch.profiler: (device ms summed over the
+    CUDA events, kernel launches, the 8 largest kernels as (name, count,
+    ms))."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        step((lr, hr))
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -1188,8 +1243,7 @@ def vsr_step_stats(model, dev):
 
     busy = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(((e.key[:80], e.count, dev_us(e) / 1e3) for e in kernels), key=lambda r: -r[2])[:8]
-    return dict(ms=ms, launches_per_step=per_step, peak_gib=peak, profiled_device_ms=busy, busy_share=busy / ms,
-                kernel_launches=sum(e.count for e in kernels), top_kernels=top)
+    return busy, sum(e.count for e in kernels), top
 
 
 def phase_vsr_train(dev, work):
@@ -1445,6 +1499,237 @@ def phase_vsr_train_parity(dev):
     return out
 
 
+def phase_zoo_parity(dev):
+    """A tiny float32 'single' (8 channels, 2 blocks) and 'multi' (the
+    artifact [[8, 8, 3], [8, 6, 5]]), x4 on 3 frames of 64x64, on the card
+    against the CPU: the eval forward within 1e-4 of the largest output
+    (B2 once per forward, 'multi' also B1 30 times), then two training steps
+    with losses within 1e-4 and the first step's gradients within 1e-4 of
+    each one's largest, the frozen flownet without a gradient."""
+    from mobilesuperresolution_tpu_torch.models.naive_multi import NaiveMultiModel
+    from mobilesuperresolution_tpu_torch.models.single_image import SingleImageModel
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters, load_params_npz, random_jax_params
+    from mobilesuperresolution_tpu_torch.train.state import spynet_frozen_mask, vsr_multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_vsr_step
+
+    out = {}
+    for kind in ("single", "multi"):
+        def make():
+            if kind == "single":
+                return SingleImageModel(scale=4, channel=8, blocks=2, kernel=3)
+            return NaiveMultiModel(4, ((8, 8, 3), (8, 6, 5)))
+
+        flat = random_jax_params(make(), seed=3)
+        g = torch.Generator().manual_seed(12)
+        x = torch.rand((1, 3, 64, 64, 3), generator=g)
+        batches = [(torch.rand((1, 3, 64, 64, 3), generator=g), torch.rand((1, 3, 256, 256, 3), generator=g))
+                   for _ in range(2)]
+        runs = []
+        for d in ("cpu", dev):
+            m = load_params_npz(make().to(d), flat).eval()
+            reset_vsr_launches()
+            with torch.inference_mode():
+                y = m(x.to(d), 256, 256).cpu()
+            launches = vsr_launches()
+            m.train()
+            named = jax_named_parameters(m)
+            step = make_vsr_step(m, vsr_multistep_adam(named, 1e-3, 2, 1, spynet_frozen_mask(named)), (256, 256))
+            losses = []
+            for i, (lr, hr) in enumerate(batches):
+                losses.append(float(step((lr.to(d), hr.to(d)))["loss"]))
+                if i == 0:
+                    grads = {k: p.grad.cpu() for k, p in named.items() if p.grad is not None}
+            runs.append((y, launches, losses, grads))
+        (y0, _, l0, g0), (y1, launches, l1, g1) = runs
+        yerr = float((y1 - y0).abs().max()) / float(y0.abs().max())
+        lerr = max(abs(a - b) for a, b in zip(l0, l1))
+        gerr = max(float((g1[k] - g0[k]).abs().max()) / max(float(g0[k].abs().max()), 1e-3) for k in g0)
+        frozen = [k for k in list(g0) + list(g1) if k.startswith("flownet/")]
+        log(f"  tiny {kind}: forward within {yerr:.3e} of the largest output, launches {launches}; losses card "
+            f"{l1}, CPU {l0} (max difference {lerr:.3e}); first-step gradients of {len(g0)} parameters within "
+            f"{gerr:.3e} of each largest")
+        if not (yerr <= 1e-4 and lerr <= 1e-4 and gerr <= 1e-4 and not frozen and set(g0) == set(g1)
+                and launches == ZOO_PER_FORWARD[kind]):
+            raise AssertionError(f"tiny {kind} card vs CPU: forward {yerr}, losses {lerr}, gradients {gerr}, "
+                                 f"flownet {frozen}, launches {launches}")
+        out[kind] = dict(forward_err_rel=yerr, loss_err=lerr, grad_err_rel=gerr, launches=launches)
+    return out
+
+
+def phase_zoo_train(dev, work):
+    """cli.train_vsr for 'single' and 'multi' at full width on synthetic_vsr
+    (as phase_vsr_train, one epoch of 4 steps and a whole-clip eval of 4
+    clips): finite losses, B1 / B2 per forward as ZOO_PER_FORWARD, a weights
+    npz with exactly the JAX model's keys and shapes, 'multi''s flownet
+    bit-untouched; the steady step in f32 and bf16 with its busy share; then
+    cli.test_vsr on each npz, whole clips (the run's last eval PSNR).
+    Returns (stats, summed launches, {kind: npz path})."""
+    from mobilesuperresolution_tpu_torch.cli import test_vsr, train_vsr
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_param_shapes, load_params_npz, random_jax_params
+
+    stats, total, npzs = {}, {"B1": 0, "B2": 0}, {}
+    for kind in ("single", "multi"):
+        job = os.path.join(work, f"vsr_{kind}")
+        reset_vsr_launches()
+        t0 = time.perf_counter()
+        out = train_vsr.main(vsr_train_argv(job, kind) + ["--epochs", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = vsr_launches()
+        steps = out["steps"]
+        forwards = out["train_forwards"] + out["eval_clips"]
+        log(f"  cli.train_vsr {kind}: {len(steps)} steps, losses {[round(s['loss'], 6) for s in steps]}, "
+            f"{out['eval_clips']} eval clips, eval PSNR {out['eval'][-1]['synthetic_vsr']['PSNR']:.4f}, {wall:.1f} s; "
+            f"launches {launches} over {forwards} forwards")
+        if len(steps) != VSR_STEPS_PER_EPOCH or not all(np.isfinite(s["loss"]) and s["skipped"] == 0 for s in steps):
+            raise AssertionError(f"train_vsr {kind} steps {[(s['loss'], s['skipped']) for s in steps]}")
+        if launches != {k: v * forwards for k, v in ZOO_PER_FORWARD[kind].items()}:
+            raise AssertionError(f"train_vsr {kind} launches {launches}, expected {ZOO_PER_FORWARD[kind]} per forward")
+        model = get_vsr_model(kind, scale=VSR_SCALE, device=dev, block_index_path=ZOO_ARTIFACT)
+        want = jax_param_shapes(model)
+        npzs[kind] = os.path.join(job, "weights", "models.npz")
+        npz = np.load(npzs[kind])
+        if {k: npz[k].shape for k in npz.files} != want:
+            raise AssertionError(f"train_vsr {kind} npz keys or shapes differ from the JAX layout")
+        init = random_jax_params(model, seed=0)
+        frozen = [k for k in want if k.startswith("flownet/")]
+        moved = [k for k in want if k not in frozen and not np.array_equal(npz[k], init[k])]
+        if not all(np.array_equal(npz[k], init[k]) for k in frozen) or not moved:
+            raise AssertionError(f"{kind}: flownet must stay bit-equal and the rest move: {len(moved)} moved")
+        st = dict(steps=steps, eval=out["eval"], train_forwards=out["train_forwards"], eval_clips=out["eval_clips"],
+                  wall_s=wall, launches=launches, moved=len(moved), trainable=len(want) - len(frozen))
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            m = get_vsr_model(kind, scale=VSR_SCALE, compute_dtype=dtype, device=dev, block_index_path=ZOO_ARTIFACT)
+            load_params_npz(m, init)
+            ss = vsr_step_stats(m, dev)
+            st[f"step_{name}"] = ss
+            log(f"  {kind} train step {name}: {ss['ms']:.3f} ms, B1/B2 per step {ss['launches_per_step']}, device "
+                f"busy {ss['profiled_device_ms']:.3f} ms ({ss['busy_share']:.1%}) over {ss['kernel_launches']} "
+                f"launches, peak {ss['peak_gib']:.3f} GiB")
+            for k, c, t in ss["top_kernels"][:4]:
+                log(f"    {t:8.3f} ms {c:5d}x {k}")
+            if ss["launches_per_step"] != ZOO_PER_FORWARD[kind]:
+                raise AssertionError(f"{kind} step {name}: launches per step {ss['launches_per_step']}")
+            del m
+        reset_vsr_launches()
+        ev = test_vsr.main(vsr_argv(os.path.join(job, "eval"), kind) + ["--eval_model", npzs[kind]])["synthetic_vsr"]
+        st["test_vsr"] = dict(ev, launches=vsr_launches())
+        trained = out["eval"][-1]["synthetic_vsr"]["PSNR"]
+        log(f"  cli.test_vsr {kind} on the npz: PSNR {ev['PSNR']:.4f} (run's last eval {trained:.4f}), launches "
+            f"{st['test_vsr']['launches']}")
+        if not abs(ev["PSNR"] - trained) <= 1e-3 or not all(np.isfinite(v) for v in ev.values()):
+            raise AssertionError(f"test_vsr {kind}: {ev} against the run's eval PSNR {trained}")
+        stats[kind] = st
+        for k in total:
+            total[k] += launches[k]
+    return stats, total, npzs
+
+
+def phase_patch_eval(dev, work, npz):
+    """cli.test_vsr_by_patch at launchers/video_test_patch.sh's settings on
+    phase_vsr_train's basic npz: the .npy's shape (4 rows x 10 patches x 10
+    frames) and finiteness, B1 30 and B2 1 per patch batch; then the forward
+    ms per patch batch (1 patch, the CLI's default, and all 10 in one) and
+    evaluate_by_patch's patches per second end to end (statistics
+    included). Returns (stats, launches)."""
+    from mobilesuperresolution_tpu_torch.cli import test_vsr_by_patch
+    from mobilesuperresolution_tpu_torch.core import modes
+    from mobilesuperresolution_tpu_torch.data import get_dataset_module
+    from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz
+
+    job = os.path.join(work, "patch")
+    size = f"{PATCH_HR[0]}x{PATCH_HR[1]}"
+    argv = ["--job_dir", job, "--dataset", "synthetic_vsr", "--eval_datasets", "synthetic_vsr", "--model_type",
+            "basic", "--scale", str(VSR_SCALE), "--image_batch", str(VSR_T), "--patch_h", str(PATCH), "--patch_w",
+            str(PATCH), "--overlap_h", str(PATCH_OVERLAP[0]), "--overlap_w", str(PATCH_OVERLAP[1]),
+            "--synthetic_frames", str(VSR_T), "--synthetic_clips", "1", "--synthetic_size", size, "--eval_model", npz]
+    reset_vsr_launches()
+    t0 = time.perf_counter()
+    res = test_vsr_by_patch.main(argv)["synthetic_vsr"]
+    wall = time.perf_counter() - t0
+    launches = vsr_launches()
+    arr = np.load(os.path.join(job, "run", f"basic_{PATCH}_{PATCH}_2.npy"))
+    log(f"  cli.test_vsr_by_patch: array {arr.shape}, PSNR {arr[2].mean():.4f} bilinear {arr[3].mean():.4f}, "
+        f"{wall:.2f} s, launches {launches}")
+    if arr.shape != (4, N_PATCHES * VSR_T) or not np.isfinite(arr).all() or not np.array_equal(arr, res):
+        raise AssertionError(f"patch eval array {arr.shape}, finite {np.isfinite(arr).all()}")
+    if launches != {"B1": B1_PER_WINDOW * N_PATCHES, "B2": B2_PER_WINDOW * N_PATCHES}:
+        raise AssertionError(f"patch eval launches {launches} for {N_PATCHES} patch batches")
+
+    params = argparse.Namespace(scale=VSR_SCALE, synthetic_size=size, synthetic_clips=1, synthetic_frames=VSR_T,
+                                seed=0)
+    batches = list(batch_iterator(get_dataset_module("synthetic_vsr").get_dataset(modes.EVAL, params)))
+    model = get_vsr_model("basic", scale=VSR_SCALE, device=dev)
+    load_params_npz(model, npz)
+    lr = torch.from_numpy(batches[0][1]).to(dev)
+
+    def fwd(x, oh, ow):
+        with torch.inference_mode():
+            return model(x, oh, ow)
+
+    out = dict(array_shape=list(arr.shape), psnr=float(arr[2].mean()), bilinear_psnr=float(arr[3].mean()),
+               cli_wall_s=wall, launches=launches, per_patch_batch={"B1": B1_PER_WINDOW, "B2": B2_PER_WINDOW})
+    positions = test_vsr_by_patch.patch_positions(lr.shape[2], lr.shape[3], (PATCH, PATCH), PATCH_OVERLAP)
+    with torch.inference_mode():
+        for pb in (1, N_PATCHES):
+            x = torch.cat([lr[:, :, sh : sh + PATCH, sw : sw + PATCH] for sh, sw in positions[:pb]]).contiguous()
+            ms = cuda_ms(lambda: fwd(x, VSR_SCALE * PATCH, VSR_SCALE * PATCH), iters=10, warmup=2)
+            busy, kernels, top = profile_once(lambda: fwd(x, VSR_SCALE * PATCH, VSR_SCALE * PATCH))
+            t0 = time.perf_counter()
+            test_vsr_by_patch.evaluate_by_patch(fwd, iter(batches), VSR_SCALE, (PATCH, PATCH), PATCH_OVERLAP, pb,
+                                                device=dev)
+            torch.cuda.synchronize()
+            e2e = time.perf_counter() - t0
+            out[f"patch_batch_{pb}"] = dict(forward_ms=ms, patches_per_s=N_PATCHES / e2e, wall_s=e2e,
+                                            profiled_device_ms=busy, busy_share=busy / ms, kernel_launches=kernels,
+                                            top_kernels=top)
+            log(f"  patch batch {pb}: forward {ms:.3f} ms ({pb} x {VSR_T} frames of {PATCH}x{PATCH}), device busy "
+                f"{busy:.3f} ms ({busy / ms:.1%}) over {kernels} launches; evaluate_by_patch {N_PATCHES / e2e:.2f} "
+                f"patches/s end to end ({e2e:.3f} s, statistics included)")
+            for k, c, t in top[:4]:
+                log(f"    {t:8.3f} ms {c:5d}x {k}")
+    return out, launches
+
+
+def phase_zoo_serve(dev, work, npz):
+    """A short cli.serve stream of 'multi' (the trained npz, bf16, chunk 4,
+    overlap 3) over 16 synthetic 426x240 frames: 16 frames out at
+    1704x960, B1 30 and B2 1 per window (4 windows and the warm-up one).
+    Returns (stats, launches)."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from mobilesuperresolution_tpu_torch.cli import serve
+
+    d = os.path.join(work, "serve_frames")
+    os.makedirs(d)
+    for i, fr in enumerate(synthetic_stream(N_STREAM_FRAMES, H_LR, W_LR, seed=2)):
+        Image.fromarray((fr * 255).round().astype(np.uint8)).save(os.path.join(d, f"{i:04d}.png"))
+    job = os.path.join(work, "serve_multi")
+    argv = ["--job_dir", job, "--input_dir", d, *model_argv("multi"), "--eval_model", npz, "--bf16",
+            "--chunk_frames", str(CHUNK), "--chunk_overlap", str(OVERLAP)]
+    reset_vsr_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats = serve.main(argv)
+    launches = vsr_launches()
+    windows = len(range(0, N_STREAM_FRAMES, CHUNK)) + 1  # and the warm-up window
+    names = sorted(os.listdir(os.path.join(job, "serve")))
+    shape = np.asarray(Image.open(os.path.join(job, "serve", names[0]))).shape
+    log(f"  cli.serve multi: {stats['frames']} frames of {shape}, {stats['fps_end_to_end']} frames/s end to end "
+        f"(PNG writes included), launches {launches}")
+    if stats["frames"] != N_STREAM_FRAMES or len(names) != N_STREAM_FRAMES or shape != (4 * H_LR, 4 * W_LR, 3):
+        raise AssertionError(f"serve multi: {stats}, {len(names)} files of {shape}")
+    if launches != {"B1": B1_PER_WINDOW * windows, "B2": B2_PER_WINDOW * windows}:
+        raise AssertionError(f"serve multi launches {launches} for {windows} windows")
+    return dict(stats, launches=launches, windows=windows), launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1505,9 +1790,22 @@ def main():
         report["vsr_eval"] = phase_vsr_eval(dev, vsr_job, report["vsr_train"]["eval"][-1]["synthetic_vsr"]["PSNR"])
         log("tiny VSR training steps, card vs CPU, and B2's gradients:")
         report["vsr_train_parity"] = phase_vsr_train_parity(dev)
+        log("tiny 'single' and 'multi', card vs CPU:")
+        report["zoo_parity"] = phase_zoo_parity(dev)
+        log("'single' and 'multi' training at full width:")
+        report["zoo_train"], zoo_main, zoo_npz = phase_zoo_train(dev, work)
+        log("patch-tiled VSR eval at full width:")
+        report["patch_eval"], patch_main = phase_patch_eval(dev, work, os.path.join(vsr_job, "weights", "models.npz"))
+        log("'multi' serving:")
+        report["zoo_serve"], serve_main = phase_zoo_serve(dev, work, zoo_npz["multi"])
         report["launches_sisr_eval"] = sisr_main
         report["launches_serving"] = launches
-        launches = {**train_main, **search_main, **vsr_main}
+        # B1 and B2: the basic VSR training run and this slice's paths, each
+        # count set to 0 before its path
+        vsr_paths = {k: vsr_main[k] + zoo_main[k] + patch_main[k] + serve_main[k] for k in vsr_main}
+        report["launches_vsr_paths"] = dict(basic_train=vsr_main, zoo_train=zoo_main, patch_eval=patch_main,
+                                            multi_serve=serve_main)
+        launches = {**train_main, **search_main, **vsr_paths}
     except Exception:
         traceback.print_exc()
         return 1

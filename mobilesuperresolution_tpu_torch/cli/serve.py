@@ -9,8 +9,10 @@ and prints one JSON line of end-to-end throughput/latency stats (end to end:
 host decode, host-to-device, device-to-host and PNG encode included).
 Several comma-separated input directories serve as lockstep streams batched
 into one window. ``--flow_cache`` computes each SpyNet pair flow once and
-reuses it across overlapping windows (``serve.FlowCachedStreamingVSR``);
-``--flow_downscale d`` runs SpyNet on 1/d-res frames.
+reuses it across overlapping windows (``serve.FlowCachedStreamingVSR``,
+BasicVSR only); ``--flow_downscale d`` runs SpyNet on 1/d-res frames.
+``--model_type`` serves mobile BasicVSR ('basic'), the per-frame 'single' or
+the searched 'multi' (``--model_path`` its block_index.txt).
 
     python -m mobilesuperresolution_tpu_torch.cli.serve --job_dir runs/serve \\
         --input_dir frames/ --bf16 --chunk_frames 4 --chunk_overlap 3 --flow_cache
@@ -43,7 +45,8 @@ def build_parser():
                    "window (outputs land in stream<i>/ subdirectories).")
     p.add_argument("--output_dir", type=str, default=None,
                    help="Where SR PNGs go (default: job_dir/serve).")
-    p.add_argument("--model_type", default="basic", choices=["basic"])
+    p.add_argument("--model_type", default="basic", choices=["basic", "single", "multi"])
+    p.add_argument("--model_path", type=str, default=None, help="block_index.txt for the 'multi' model.")
     p.add_argument("--scale", type=int, default=4)
     p.add_argument("--eval_model", type=str, default=None,
                    help="JAX params .npz to serve (default: seeded random weights).")
@@ -78,7 +81,7 @@ def main(argv=None):
     chunk = params.chunk_frames or 4
     dtype = torch.bfloat16 if params.bf16 else torch.float32
     model = get_vsr_model(params.model_type, scale=params.scale, compute_dtype=dtype, device=device,
-                          flow_downscale=params.flow_downscale)
+                          flow_downscale=params.flow_downscale, block_index_path=params.model_path)
     load_params_npz(model, params.eval_model or random_jax_params(model, params.seed))
 
     in_dirs = [d for d in params.input_dir.split(",") if d]

@@ -5,23 +5,24 @@ the reference's train_video_superresolution.py), one device.
         --dataset reds --model_type basic --scale 4 --image_batch 10 --epochs 30 \\
         --train_batch_size 2 --lr_patch_size 64 --learning_rate 1e-4
 
-Trains mobile BasicVSR (``get_vsr_model("basic")``) from seeded random
-weights (``--seed``), a SpyNet npz (``--spynet_weights``) and optionally a
-whole-model npz (``--eval_model``): Charbonnier loss, Adam betas (0.9, 0.99)
-with milestones [E/2, 8E/10] over every parameter but SpyNet's, which stays
-frozen (its flows carry no gradient), the non-finite guard of
-``train.steps``, checkpoints and ``--resume`` as in cli/pretrain.py. After
-every epoch it scores ``--eval_datasets`` (whole clips, or windows of
-``--chunk_frames`` through ``parallel/temporal.py``, or with
-``--flow_cache`` through ``serve/flow_cache.py``) and writes
+Trains a VSR model (``get_vsr_model``: ``--model_type`` basic, single, or
+multi with ``--model_path`` its search's block_index.txt) from seeded random
+weights (``--seed``), a SpyNet npz (``--spynet_weights``, for the SpyNet
+models) and optionally a whole-model npz (``--eval_model``): Charbonnier
+loss, Adam betas (0.9, 0.99) with milestones [E/2, 8E/10] over every
+parameter but SpyNet's, which stays frozen (its flows carry no gradient),
+the non-finite guard of ``train.steps``, checkpoints and ``--resume`` as in
+cli/pretrain.py. After every epoch it scores ``--eval_datasets`` (whole
+clips, or windows of ``--chunk_frames`` through ``parallel/temporal.py``,
+or with ``--flow_cache`` through ``serve/flow_cache.py``) and writes
 ``<job_dir>/weights/models.npz`` in the JAX package's layout.
 ``--eval_only`` evaluates instead. Runs on CUDA unless ``--device cpu`` is
 given; float32 in full float32 (TF32 off), ``--bf16`` in bfloat16.
 
 Not ported yet, and refused with the queue item of ROADMAP.md that brings
-them: model types other than ``basic`` (A6), a ``.pth`` SpyNet (A7),
-``--spatial_shards`` > 1, ``--chunk_data_parallel`` and ``--quantize int8``
-(A8).
+them: model types ``basic_mv``, ``multi_v1`` and ``basic_origin`` (A6), a
+``.pth`` SpyNet (A7), ``--spatial_shards`` > 1, ``--chunk_data_parallel``
+and ``--quantize int8`` (A8).
 """
 
 import logging
@@ -57,7 +58,7 @@ log = logging.getLogger("msr_torch.train_vsr")
 def add_vsr_args(parser):
     parser.add_argument("--model_type", default="basic",
                         choices=["single", "multi", "multi_v1", "basic", "basic_mv", "basic_origin"],
-                        help="Only 'basic' is ported (the rest: ROADMAP.md, queue A6).")
+                        help="'basic', 'single' and 'multi' are ported (the rest: ROADMAP.md, queue A6).")
     parser.add_argument("--model_path", type=str, default=None, help="block_index.txt for the 'multi' model.")
     parser.add_argument("--spynet_weights", type=str, default=None,
                         help="Pretrained SpyNet params, an .npz keyed like the JAX package's spynet scope.")
@@ -69,7 +70,7 @@ def add_vsr_args(parser):
                         help="Windows over several devices (not ported yet: raises).")
     parser.add_argument("--flow_cache", action="store_true",
                         help="With --chunk_frames: compute each SpyNet pair flow once and reuse it across "
-                        "overlapping windows (serve/flow_cache.py).")
+                        "overlapping windows (serve/flow_cache.py; 'basic' only).")
     parser.add_argument("--spatial_shards", type=int, default=1,
                         help="Shard frame height over devices (not ported yet: > 1 raises).")
     parser.add_argument("--spatial_max_disp", type=int, default=8)
@@ -99,13 +100,19 @@ def check_vsr_args(params):
 def build_vsr_model(params, device, spynet_weights=None):
     """The VSR model of ``params`` on ``device``, in eval mode, with seeded
     random weights (``params.seed``), then ``spynet_weights`` (an npz of the
-    spynet scope) and ``params.eval_model`` (a whole-model npz) if given."""
+    flow network's scope, ``spynet`` or ``flownet``) and ``params.eval_model``
+    (a whole-model npz) if given."""
     model = get_vsr_model(params.model_type, scale=params.scale,
                           compute_dtype=torch.bfloat16 if params.bf16 else torch.float32, device=device,
-                          flow_downscale=params.flow_downscale, remat=getattr(params, "remat", False))
+                          flow_downscale=params.flow_downscale, remat=getattr(params, "remat", False),
+                          block_index_path=params.model_path)
     load_params_npz(model, random_jax_params(model, params.seed))
     if spynet_weights:
-        load_params_npz(model.spynet, spynet_weights)
+        flow_net = model.spynet if hasattr(model, "spynet") else getattr(model, "flownet", None)
+        if flow_net is None:
+            raise ValueError(f"--spynet_weights given but model_type {params.model_type!r} has no flow network "
+                             "('single' is frame-parallel)")
+        load_params_npz(flow_net, spynet_weights)
     if params.eval_model:
         load_params_npz(model, params.eval_model)
     return model

@@ -2,10 +2,11 @@
 
 Each dataset module exposes ``update_argparser(parser)`` and
 ``get_dataset(mode, params)``; modules hosting several named datasets
-(eval sets, synthetic) expose ``bind(name)``. Only the SISR evaluation sets
-(DIV2K validation, Set5, Set14, BSDS100, Urban100, synthetic_isr), DIV2K's
-training half, REDS and synthetic_vsr are registered so far; Vimeo, NEMO,
-reds_with_mv and yuv are queued in ROADMAP.md (A6).
+(eval sets, synthetic) expose ``bind(name)``. Registered: the SISR
+evaluation sets (DIV2K validation, Set5, Set14, BSDS100, Urban100,
+synthetic_isr), DIV2K's training half, and the video sets REDS, Vimeo-90k,
+NEMO (raw frames from the YUV420 converter, data/yuv.py) and synthetic_vsr;
+reds_with_mv is queued in ROADMAP.md (A6).
 """
 
 import importlib
@@ -17,6 +18,8 @@ _DATASET_MODULES = {
     "bsds100": "mobilesuperresolution_tpu_torch.data.eval_sets",
     "urban100": "mobilesuperresolution_tpu_torch.data.eval_sets",
     "reds": "mobilesuperresolution_tpu_torch.data.reds",
+    "vimeo": "mobilesuperresolution_tpu_torch.data.vimeo",
+    "nemo": "mobilesuperresolution_tpu_torch.data.nemo",
     "synthetic_isr": "mobilesuperresolution_tpu_torch.data.synthetic_module",
     "synthetic_vsr": "mobilesuperresolution_tpu_torch.data.synthetic_module",
 }

@@ -1,7 +1,8 @@
 """Registry adapters for the synthetic datasets (tests, smoke runs), as
 mobilesuperresolution_tpu/data/synthetic_module.py binds ``synthetic_isr``
 and ``synthetic_vsr``. The VSR one's size flags are the port's own; their
-defaults make the JAX package's dataset (2 clips of 6 frames of 96x96)."""
+defaults make the JAX package's dataset (2 clips of 6 frames of 96x96), and
+``--synthetic_size`` also takes HxW frames."""
 
 from types import SimpleNamespace
 
@@ -21,15 +22,22 @@ def _update_vsr_argparser(parser):
     _vsr.update_argparser(parser)
     parser.add_argument("--synthetic_clips", type=int, default=2)
     parser.add_argument("--synthetic_frames", type=int, default=6)
-    parser.add_argument("--synthetic_size", type=int, default=96, help="HR frame height and width.")
+    parser.add_argument("--synthetic_size", type=str, default="96",
+                        help="HR frame size: one number (square) or HxW, e.g. 720x1280 (REDS's).")
     # the patch must fit inside the 24x24 LR frames with the sampler's 2-px margin
     parser.set_defaults(num_patches=2, train_batch_size=2, lr_patch_size=16)
 
 
+def _frame_size(text):
+    """'96' → (96, 96); '720x1280' → (720, 1280)."""
+    h, _, w = str(text).partition("x")
+    return int(h), int(w or h)
+
+
 def _vsr_dataset(mode, params):
-    size = getattr(params, "synthetic_size", 96)
+    hw = _frame_size(getattr(params, "synthetic_size", "96"))
     return SyntheticVSRDataset(mode, params, num_clips=getattr(params, "synthetic_clips", 2),
-                               frames=getattr(params, "synthetic_frames", 6), hw=(size, size))
+                               frames=getattr(params, "synthetic_frames", 6), hw=hw)
 
 
 def bind(name):

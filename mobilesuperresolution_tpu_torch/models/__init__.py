@@ -1,22 +1,25 @@
 """Model registry (counterpart of mobilesuperresolution_tpu/models/__init__.py).
 
-Ported so far: mobile BasicVSR ('basic') for VSR, and for SISR the WDSR-B
-``BASIC_MODEL``, the NAS supernet ``NAS_MODEL`` and the searched
-``ResultNet``; the rest of the VSR zoo is queued in ROADMAP.md.
+Ported so far: mobile BasicVSR ('basic'), the per-frame 'single' and the
+searched 'multi' for VSR, and for SISR the WDSR-B ``BASIC_MODEL``, the NAS
+supernet ``NAS_MODEL`` and the searched ``ResultNet``; the rest of the VSR
+zoo is queued in ROADMAP.md.
 """
 
 import torch
 
 from mobilesuperresolution_tpu_torch.core.device import resolve_device
 from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
+from mobilesuperresolution_tpu_torch.models.naive_multi import NaiveMultiModel
 from mobilesuperresolution_tpu_torch.models.result_net import ResultNet
+from mobilesuperresolution_tpu_torch.models.single_image import SingleImageModel
 from mobilesuperresolution_tpu_torch.models.spynet import SpyNet
 from mobilesuperresolution_tpu_torch.models.wdsr_basic import BasicModel
 from mobilesuperresolution_tpu_torch.models.wdsr_nas import NASModel
 from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 
-__all__ = ["BasicModel", "BasicVSR", "NASModel", "ResultNet", "SpyNet", "get_model", "get_vsr_model",
-           "update_argparser"]
+__all__ = ["BasicModel", "BasicVSR", "NASModel", "NaiveMultiModel", "ResultNet", "SingleImageModel", "SpyNet",
+           "get_model", "get_vsr_model", "update_argparser"]
 
 
 def update_argparser(parser):
@@ -66,23 +69,42 @@ def get_model(params, device=None):
 
 
 def get_vsr_model(model_type="basic", scale=4, compute_dtype=torch.float32, device=None, flow_downscale=1,
-                  remat=False):
+                  remat=False, block_index_path=None):
     """Build a VSR model at the reference's canonical size on ``device``
-    (default CUDA; raises without it unless ``device="cpu"``), in eval mode.
-    Parameters start at zero: load weights with
-    ``train.checkpoint.load_params_npz`` (a JAX checkpoint, or
+    (default CUDA; raises without it unless ``device="cpu"``), in eval mode:
+    'basic' (mobile BasicVSR, nf 24, 8 blocks), 'single' (32 channels, 8
+    blocks, k 3) or 'multi' (the searched model of ``block_index_path``, a
+    search's ``block_index.txt``). Parameters start at zero: load weights
+    with ``train.checkpoint.load_params_npz`` (a JAX checkpoint, or
     ``random_jax_params`` for seeded random ones). ``flow_downscale`` d runs
     SpyNet on 1/d-res frames and upsamples the flow (1 = the reference's
-    flows); ``remat`` recomputes each propagation step in the backward."""
+    flows; 'basic' and 'multi'); ``remat`` recomputes each propagation step
+    in the backward ('basic': the frame-parallel types have no scan). The
+    other types raise, naming their queue item."""
     if flow_downscale < 1:
         raise ValueError(f"flow_downscale must be >= 1, got {flow_downscale}")
-    if model_type != "basic":
+    if flow_downscale != 1 and model_type not in ("basic", "basic_origin", "multi"):
+        raise ValueError(f"flow_downscale is only implemented for 'basic'/'basic_origin'/'multi', not "
+                         f"{model_type!r}: 'single' and 'basic_mv' run no SpyNet at inference")
+    if remat and model_type not in ("basic", "basic_mv", "basic_origin"):
+        raise ValueError(f"remat applies to the recurrent BasicVSR family, not {model_type!r}: "
+                         "'single' and 'multi' are frame-parallel (no temporal scan to recompute)")
+    if model_type == "basic":
+        model = BasicVSR(num_feat=24, num_block=8, scale=scale, compute_dtype=compute_dtype,
+                         flow_downscale=flow_downscale, remat=remat)
+    elif model_type == "single":
+        model = SingleImageModel(scale=scale, channel=32, blocks=8, kernel=3, compute_dtype=compute_dtype)
+    elif model_type == "multi":
+        if block_index_path is None:
+            raise ValueError("'multi' needs block_index_path (search artifact)")
+        model = NaiveMultiModel.from_artifact(block_index_path, scale=scale, compute_dtype=compute_dtype,
+                                              flow_downscale=flow_downscale)
+    elif model_type in ("multi_v1", "basic_mv", "basic_origin"):
         raise NotImplementedError(
-            f"VSR model {model_type!r} is not ported yet (ROADMAP.md, queue A6); "
-            "only 'basic' is"
+            f"VSR model {model_type!r} is not ported yet (ROADMAP.md, queue A6); 'basic', 'single' and "
+            "'multi' are"
         )
-    dev = resolve_device(device)
-    model = BasicVSR(num_feat=24, num_block=8, scale=scale, compute_dtype=compute_dtype,
-                     flow_downscale=flow_downscale, remat=remat)
-    model.to(dev).prepare()
+    else:
+        raise KeyError(f"unknown VSR model_type {model_type!r}")
+    model.to(resolve_device(device)).prepare()
     return model.eval()

@@ -43,18 +43,20 @@ class SpyNetBasicModule(nn.Module):
         self.prepare()
 
     def prepare(self, dtype=None):
-        """Derive the s2d 5x5 weights (HWIO and packed for kernel B1), and the
-        direct OIHW ones, in ``dtype`` (default: the last one used)."""
+        """Derive the s2d 5x5 weights (HWIO, and on the card packed for
+        kernel B1), and the direct OIHW ones, in ``dtype`` (default: the last
+        one used)."""
         dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
         self._s2d, self._direct = [], []
         for i in range(len(_SPYNET_CHANNELS)):
             k = getattr(self, f"conv{i}_kernel").detach()
             b = getattr(self, f"conv{i}_bias").detach()
             w2 = s2d_transform_weights(k).to(dtype).contiguous()
-            wp = pack_weights(w2) if w2.shape[3] % 64 == 0 else None
+            # packed for kernel B1 on the card; the CPU's plain version does not read it
+            wp = pack_weights(w2) if w2.is_cuda and w2.shape[3] % 64 == 0 else None
             # the bias rounded to dtype, kept in f32 as kernel B1 adds it (no cast per call)
             self._s2d.append((w2, b.repeat_interleave(4).to(dtype).float(), wp))
-            self._direct.append((k.permute(3, 2, 0, 1).to(dtype).contiguous(), b.to(dtype)))
+            self._direct.append((k.permute(3, 2, 0, 1).to(dtype).contiguous(), b.to(dtype).clone()))
 
     def forward(self, x):
         last = len(_SPYNET_CHANNELS) - 1

@@ -54,8 +54,8 @@ class BasicBlock(nn.Module):
         card also packed once for the kernel (``pack_weights``)."""
         for c in (self.WNConv_0, self.WNConv_1, self.WNConv_2):
             c.prepare(dtype)
-        with torch.no_grad():
-            self._weights = tuple(t.contiguous() for t in self.live_weights())
+        with torch.no_grad():  # copies: a float32 bias's .to(float32) is the parameter
+            self._weights = tuple(t.contiguous().clone() for t in self.live_weights())
         w1 = self._weights[0]
         on_card = w1.is_cuda and w1.shape[0] <= WIDTHS[-1]
         self._packed = pack_weights(*self._weights, self.WNConv_0._dtype) if on_card else None

@@ -4,9 +4,9 @@ Counterpart of mobilesuperresolution_tpu/ops/layers.py. Parameters keep the
 JAX layouts (HWIO ``kernel``, ``bias``; ``v``, ``g``, ``b`` of a
 weight-normed conv) so checkpoints load by key renaming;
 ``prepare(dtype)`` derives the compute-layout weights once after the
-parameters change (train/checkpoint.py calls it); ``PlainConv`` and
-``SubpixelConvTranspose`` keep them as copies, so an optimizer step does not
-reach them before the next ``prepare``. Each layer's ``forward_live``
+parameters change (train/checkpoint.py calls it) and keeps them as copies
+(a float32 ``.to(float32)`` is the parameter itself), so an in-place update
+of the parameters does not reach them before the next ``prepare``. Each layer's ``forward_live``
 derives them from the live parameters on every call instead,
 differentiably (training).
 """
@@ -78,7 +78,7 @@ class WNConv(nn.Module):
         with torch.no_grad():
             self.kernel = self.effective_kernel().to(dtype)
         self._w = self.kernel.permute(3, 2, 0, 1).contiguous()
-        self._b = self.b.detach().to(dtype)
+        self._b = self.b.detach().to(dtype).clone()
 
     def forward(self, x):
         return conv2d_nhwc(x, self._w, self._b, padding=self.v.shape[0] // 2, groups=self.groups)

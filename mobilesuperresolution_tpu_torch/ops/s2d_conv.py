@@ -44,12 +44,25 @@ def _scatter_tensor(k=7, f=2):
     return m
 
 
+@functools.lru_cache(maxsize=8)
+def _tap_index(k=7, f=2):
+    """I[a,b,r,s,p,q] = u·k + v of the one original tap that ``_scatter_tensor``
+    maps to (a,b,r,s,p,q), or k·k where it maps none (a zero tap)."""
+    m = _scatter_tensor(k, f)
+    idx = np.full(m.shape[:6], k * k, np.int64)
+    *at, u, v = np.nonzero(m)
+    idx[tuple(at)] = u * k + v
+    return idx
+
+
 def s2d_transform_weights(wk, factor=2):
-    """wk: (k, k, Cin, Cout) HWIO → (k', k', f²·Cin, f²·Cout) HWIO."""
+    """wk: (k, k, Cin, Cout) HWIO → (k', k', f²·Cin, f²·Cout) HWIO: each
+    transformed tap copies its original tap (``_scatter_tensor`` holds one
+    1 per transformed tap at most), gathered rather than contracted."""
     k = wk.shape[0]
     cin, cout = wk.shape[2], wk.shape[3]
     f = factor
-    m = torch.as_tensor(_scatter_tensor(k, f), dtype=wk.dtype, device=wk.device)
-    w2 = torch.einsum("abrspquv,uvcd->abcrsdpq", m, wk)
+    taps = torch.cat([wk.reshape(k * k, cin, cout), wk.new_zeros((1, cin, cout))])
+    w2 = taps[torch.as_tensor(_tap_index(k, f), device=wk.device)]  # a b r s p q c d
     kn = transformed_kernel_size(k, f)
-    return w2.reshape(kn, kn, f * f * cin, f * f * cout)
+    return w2.permute(0, 1, 6, 2, 3, 7, 4, 5).reshape(kn, kn, f * f * cin, f * f * cout)

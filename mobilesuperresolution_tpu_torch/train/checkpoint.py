@@ -11,7 +11,10 @@ head, ``BasicBlock_{i}/WNConv_{0,1,2}``, ``WNConv_1`` tail, ``WNConv_2``
 skip; ResultNet's ``head``, ``block_{i}/WNConv_0``, ``tail``, ``skip``; the
 NAS supernet's bare gates ``mask_w`` and
 ``block_{i}/split_w|alpha|alpha1|alpha2`` beside
-``block_{i}/branch_{k}/WNConv_{0,1}/{v,g,b}``). The port keeps the same
+``block_{i}/branch_{k}/WNConv_{0,1}/{v,g,b}``; the VSR 'single' model's
+``encoder``, ``block_{i}/WNConv_{0,1}``, ``body_tail``, ``shuf`` and
+'multi''s ``flownet/level_{i}/...``, ``encode``,
+``block_{i}/PlainConv_{0,1}/Conv_0/{kernel,bias}``, ``decode``). The port keeps the same
 parameter names and layouts (HWIO kernels, the raw ConvTranspose kernel,
 weight norm's ``v``/``g``/``b``), so a key maps to a parameter by its module
 path; the only rename is flax's inner ``Conv_0`` scope of a ``PlainConv``.

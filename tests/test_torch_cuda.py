@@ -439,17 +439,30 @@ def test_tiny_training_steps_match_cpu(cuda, kind):
         assert float((g1[k] - g0[k]).abs().max()) <= 1e-4 * max(top, 1e-3), k
 
 
+# B2 at the VSR zoo's shapes: 'single''s sub-pixel tail (the 5x5 stride-4
+# transpose as a 2x2 conv over 32 channels to 48, cropped) and 'multi''s
+# decode (3x3 SAME, 18 channels to 48: an 18-channel bf16 pixel is 36 bytes,
+# not a whole number of 16-byte chunks), on ragged maps
+ZOO_TAILS = {
+    "single_tail": (3, 13, 21, 32, 2, 4, ((1, 2), (1, 2)), (4 * 13 + 1, 4 * 21 + 1)),
+    "multi_decode": (3, 13, 21, 18, 3, 4, ((1, 1), (1, 1)), None),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", ["vsr_train_tail", "ragged"])
+@pytest.mark.parametrize("case", ["vsr_train_tail", "ragged", "single_tail", "multi_decode"])
 def test_conv_pixel_shuffle_fn_gradients_on_card(cuda, dtype, case):
     """FusedConvPixelShuffleFn (B2 forward) on the card: one launch per
     forward, forward and gradients against autograd through the plain
     version, at the VSR training step's tail (2 clips x 10 frames of 64x64,
-    2x2 over 48 channels, s 4, cropped to 257x257) and a ragged 3x3 s2 map."""
+    2x2 over 48 channels, s 4, cropped to 257x257), a ragged 3x3 s2 map, and
+    the 'single' and 'multi' tails (``ZOO_TAILS``)."""
     if case == "vsr_train_tail":
         n, h, w, cin, k, s, pad, crop = 20, 64, 64, 48, 2, 4, ((1, 2), (1, 2)), (257, 257)
-    else:
+    elif case == "ragged":
         n, h, w, cin, k, s, pad, crop = 3, 37, 53, 16, 3, 2, ((1, 1), (1, 1)), (73, 105)
+    else:
+        n, h, w, cin, k, s, pad, crop = ZOO_TAILS[case]
     cc = 3 * s * s
     g = torch.Generator().manual_seed(n)
     inputs = [((torch.rand((n, h, w, cin), generator=g) * 2 - 1)).to(cuda, dtype),
@@ -527,3 +540,60 @@ def test_pretrain_resume_on_card(cuda, tmp_path):
     za, zb = (np.load(str(tmp_path / d / "weights" / "models.npz")) for d in ("ref", "job"))
     for k in za.files:
         np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["single", "multi"])
+def test_tiny_zoo_models_match_cpu(cuda, kind):
+    """A tiny float32 'single' (8 channels, 2 blocks) and 'multi' (the
+    artifact [[8, 8, 3], [8, 6, 5]]), x4 on 3 frames of 64x64, on the card
+    against the CPU: the eval forward within 1e-4 of the largest output,
+    with B2 once per forward and for 'multi' B1 30 times (SpyNet's six even
+    levels); then three training steps with per-step losses within 1e-4, the
+    first step's gradients within 1e-4 of each one's largest and no
+    gradient for the frozen flownet."""
+    from mobilesuperresolution_tpu_torch.models.naive_multi import NaiveMultiModel
+    from mobilesuperresolution_tpu_torch.models.single_image import SingleImageModel
+    from mobilesuperresolution_tpu_torch.train.checkpoint import (
+        jax_named_parameters,
+        load_params_npz,
+        random_jax_params,
+    )
+    from mobilesuperresolution_tpu_torch.train.state import spynet_frozen_mask, vsr_multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_vsr_step
+
+    def make():
+        if kind == "single":
+            return SingleImageModel(scale=4, channel=8, blocks=2, kernel=3)
+        return NaiveMultiModel(4, ((8, 8, 3), (8, 6, 5)))
+
+    flat = random_jax_params(make(), seed=3)
+    g = torch.Generator().manual_seed(12)
+    x = torch.rand((1, 3, 64, 64, 3), generator=g)
+    batches = [(torch.rand((1, 3, 64, 64, 3), generator=g), torch.rand((1, 3, 256, 256, 3), generator=g))
+               for _ in range(3)]
+    outs, runs = [], []
+    for dev in ("cpu", cuda):
+        m = load_params_npz(make().to(dev), flat).eval()
+        b1, b2 = conv5x5_same.launches, fused_conv_pixel_shuffle.launches
+        with torch.inference_mode():
+            outs.append(m(x.to(dev), 256, 256).cpu())
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (conv5x5_same.launches - b1, fused_conv_pixel_shuffle.launches - b2) == (
+                30 if kind == "multi" else 0, 1)
+        m.train()
+        named = jax_named_parameters(m)
+        step = make_vsr_step(m, vsr_multistep_adam(named, 1e-3, 3, 1, spynet_frozen_mask(named)), (256, 256))
+        losses = []
+        for i, (lr, hr) in enumerate(batches):
+            losses.append(float(step((lr.to(dev), hr.to(dev)))["loss"]))
+            if i == 0:
+                grads = {k: p.grad.cpu() for k, p in named.items() if p.grad is not None}
+        runs.append((losses, grads))
+    assert float((outs[1] - outs[0]).abs().max()) <= 1e-4 * float(outs[0].abs().max())
+    (l0, g0), (l1, g1) = runs
+    assert set(g0) == set(g1) and not any(k.startswith("flownet/") for k in g0)
+    for i in range(3):
+        assert abs(l1[i] - l0[i]) <= 1e-4 * max(1.0, abs(l0[i])), (i, l1[i], l0[i])
+    for k in g0:
+        assert float((g1[k] - g0[k]).abs().max()) <= 1e-4 * max(float(g0[k].abs().max()), 1e-3), k

@@ -239,14 +239,17 @@ def test_port_imports_no_jax():
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
-    # the NAS search slice's modules, the flow cache's, SISR training's, and
-    # checkpointing's and VSR training's are among those checked
+    # the NAS search slice's modules, the flow cache's, SISR training's,
+    # checkpointing's and VSR training's, and the VSR zoo's, patch eval's and
+    # the video datasets' are among those checked
     rel = {os.path.relpath(f, REPO) for f in files}
     for mod in ("ops/ste", "kernels/fused_convsep", "nas/speed_estimator", "nas/speed_loss", "nas/search",
                 "nas/artifact", "models/wdsr_nas", "train/state", "train/steps", "core/utils", "cli/search",
                 "serve/flow_cache", "kernels/_autograd", "core/meters", "core/metrics_writer", "data/io_cache",
                 "cli/pretrain", "cli/retrain_searched", "train/checkpoint", "train/preemption", "data/vsr",
-                "data/reds", "data/synthetic", "cli/train_vsr", "cli/test_vsr", "cli/common_cli"):
+                "data/reds", "data/synthetic", "cli/train_vsr", "cli/test_vsr", "cli/common_cli",
+                "cli/test_vsr_by_patch", "analysis/patch_stats", "models/single_image", "models/naive_multi",
+                "data/vimeo", "data/nemo", "data/yuv", "data/frame_utils"):
         assert os.path.join("mobilesuperresolution_tpu_torch", mod + ".py") in rel, mod
     for script in ("torch_search_profile.py", "torch_bench.py"):
         assert os.path.join("scripts", script) in rel

@@ -44,6 +44,8 @@ from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.data.synthetic import SyntheticVSRDataset
 from mobilesuperresolution_tpu_torch.models import get_vsr_model
 from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
+from mobilesuperresolution_tpu_torch.models.spynet import SpyNet
+from mobilesuperresolution_tpu_torch.models.wdsr_basic import BasicModel
 from mobilesuperresolution_tpu_torch.train.checkpoint import (
     jax_named_parameters,
     jax_param_shapes,
@@ -212,11 +214,38 @@ def test_vsr_lockstep_matches_jax():
         assert not np.array_equal(got, flat[k]), k
 
 
+def _prepared_tensors(model):
+    """Every tensor a module of ``model`` holds outside its parameters and
+    buffers (prepare()'s derived weights), in tuples, lists and dicts too."""
+    out = []
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif isinstance(v, (tuple, list)):
+            for u in v:
+                walk(u)
+        elif isinstance(v, dict):
+            for u in v.values():
+                walk(u)
+
+    for mod in model.modules():
+        for name, v in vars(mod).items():
+            if name not in ("_parameters", "_buffers", "_modules"):
+                walk(v)
+    return out
+
+
 def test_remat_and_live_weights():
     """--remat gives the plain gradients bit for bit; the train-mode forward
     runs on live weights (it changes after an optimizer step, and no
     parameter's gradient is missing but SpyNet's); eval after prepare()
-    equals the train-mode forward on the same weights."""
+    equals the train-mode forward on the same weights. For BasicVSR, a
+    WDSR-B BasicModel and a SpyNet: no prepared tensor shares storage with a
+    parameter, so after an in-place update of every parameter the eval
+    forward is the old one until prepare() runs, and then the live one's
+    (for SpyNet, which has no live path: a fresh SpyNet's on the new
+    weights)."""
     x = _t(np.random.default_rng(2).random((1, T, HW, HW, 3), np.float32))
     hr = _t(np.random.default_rng(3).random((1, T, S * HW, S * HW, 3), np.float32))
     grads = []
@@ -245,6 +274,28 @@ def test_remat_and_live_weights():
     assert not torch.equal(before, after_train)
     assert torch.equal(stale_eval, before)  # prepare() not run yet: the pre-step weights
     assert torch.equal(fresh_eval, after_train)
+
+    frames = _t(np.random.default_rng(5).random((2, 32, 32, 3), np.float32))
+    for m, fwd in ((BasicModel(num_blocks=2, num_residual_units=8, scale=2), lambda m: m(frames)),
+                   (SpyNet(), lambda m: m(frames[:1], frames[1:]))):
+        load_params_npz(m, random_jax_params(m, seed=7))
+        m.eval()
+        params = {p.untyped_storage().data_ptr() for p in m.parameters()}
+        assert not [t.shape for t in _prepared_tensors(m) if t.untyped_storage().data_ptr() in params]
+        with torch.no_grad():
+            before = fwd(m)
+            for p in m.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+            stale = fwd(m)
+            if isinstance(m, SpyNet):
+                live = fwd(load_params_npz(SpyNet(), {k: p.numpy() for k, p in jax_named_parameters(m).items()}))
+            else:
+                live = fwd(m.train())
+                m.eval()
+            m.prepare()
+            fresh = fwd(m)
+        assert torch.equal(stale, before), type(m).__name__
+        assert not torch.equal(fresh, before) and torch.equal(fresh, live), type(m).__name__
 
 
 def _jax_eval(job, npz, flat_shapes, monkeypatch):
