@@ -20,7 +20,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    training step's six SpyNet levels (36 samples, f32: 30 launches) and B2
    at its tail (20 x 64x64, f32 and bf16); B2 at 'single''s tail (2x2 over
    32 channels) and 'multi''s decode (3x3 over 18), f32 and bf16 at the
-   training shape, and the decode at the serving window in bf16;
+   training shape, and the decode at the serving window in bf16; B2 past
+   64 conv channels at 'basic_origin''s upconvs (3x3, s 2, 64 -> 256, the
+   leaky ReLU fused) at the serving window (bf16, 240x426 and 480x852) and
+   the training step (f32, 20 x 64x64 and 128x128), with the library call
+   (cuDNN conv, pixel_shuffle, leaky_relu); B4 at 'multi_v1''s tail (20 x
+   64x64, body 18, s 4), f32 and bf16;
 4. a tiny float32 BasicVSR on the card against the same model on the CPU;
 5. full-width serving: BasicVSR x4 (nf 24, 8 blocks, bf16) with seeded random
    weights through the JAX-checkpoint bridge, streamed by StreamingVSR
@@ -83,8 +88,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 14. three tiny VSR training steps on the card against the CPU, and
    FusedConvPixelShuffleFn's forward and gradients against autograd through
    the plain version at the training tail and a ragged shape, f32 and bf16;
-15. a tiny float32 'single' and 'multi' on the card against the CPU: the
-   forward (B2 once, 'multi' B1 30 times) and two training steps;
+15. a tiny float32 'single', 'multi', 'basic_mv', 'multi_v1' and
+   'basic_origin' on the card against the CPU: the forward (B1 / B2 / B4 per
+   forward as ZOO_PER_FORWARD) and two training steps;
 16. cli/train_vsr.py for 'single' (32 channels, 8 blocks) and 'multi' (the
    search artifact's last line: 18 channels, one k7 block) at their
    launchers' width (x4, batch 2 x 10 frames, 64x64, lr 1e-4, f32) on the
@@ -98,12 +104,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    finite, B1 30 and B2 1 per patch batch; the forward ms per patch batch
    (1 and 10 patches) and the patches per second end to end;
 18. cli/serve.py streaming 'multi' (bf16, chunk 4, overlap 3) over 16
-   426x240 frames: 16 1704x960 frames, B1 30 and B2 1 per window.
+   426x240 frames: 16 1704x960 frames, B1 30 and B2 1 per window;
+19. a REDS-with-MV tree written from a seed (4 clips of 10 512x512 frames
+   whose LR frames translate by MV_SHIFT, motion.npy holding that shift):
+   data/reds_with_mv.py's items carry it, and warping frame t-1 by it gives
+   frame t;
+20. cli/train_vsr.py as phase 16 for 'basic_mv' (nf 20, 8 blocks, on that
+   tree: launchers/video_train_multi_with_mv.sh's width), 'multi_v1' (the
+   artifact: launchers/video_train_naive.sh) and 'basic_origin' (nf 64, 30
+   blocks, at launchers/video_train_basic.sh's data shape), one epoch of 4
+   steps and an eval each: B1 / B2 / B4 per forward ('basic_mv' 0 / 1 / 0,
+   'multi_v1' 30 / 0 / 1, 'basic_origin' 30 / 2 / 0), the steady steps,
+   cli.test_vsr on each npz;
+21. 'basic_origin' served in bf16 by StreamingVSR (10 426x240 frames, 3
+   windows of 10) plain and flow-cached: 1080x1920 frames, B1 30 and B2 2
+   per window, the cached stream within bf16_tol of the plain one, the
+   window's ms.
 
 Prints the kernel table as one JSON line (launches from this slice's paths,
 each count set to 0 before its path: B1 and B2 from the basic VSR training
-run plus phases 16-18, B3 and B4 from the pretraining run,
-B5 from the search), the nvidia-smi line, and last
+run plus phases 16-18, 20 and 21, B3 from the pretraining run, B4 from it
+and phase 20's 'multi_v1' runs, B5 from the search), the nvidia-smi line,
+and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 Needs CUDA; imports nothing of JAX.
 """
@@ -162,7 +184,21 @@ VSR_STEPS_PER_EPOCH = VSR_CLIPS * VSR_NUM_PATCHES // VSR_BATCH
 # 'multi' (launchers/video_train_multi.sh: the search artifact's last line,
 # 18 channels, one k7 block); B1 and B2 launches per forward
 ZOO_ARTIFACT = os.path.join(ROOT, "artifacts", "search_depth_tpu", "block_index.txt")
-ZOO_PER_FORWARD = {"single": {"B1": 0, "B2": 1}, "multi": {"B1": B1_PER_WINDOW, "B2": 1}}
+# the rest of the zoo at the same shape: 'basic_mv' (launchers/
+# video_train_multi_with_mv.sh: nf 20, 8 blocks, on a REDS-with-MV tree),
+# 'multi_v1' (launchers/video_train_naive.sh on the artifact: 18 channels,
+# one k7 block; its tail is B4's function) and 'basic_origin' (the faithful
+# BasicVSR at launchers/video_train_basic.sh's data shape: nf 64, 30 blocks,
+# two B2 upconvs to 256 conv channels); B1, B2 and B4 launches per forward
+ZOO_PER_FORWARD = {"single": {"B1": 0, "B2": 1, "B4": 0}, "multi": {"B1": B1_PER_WINDOW, "B2": 1, "B4": 0},
+                   "basic_mv": {"B1": 0, "B2": 1, "B4": 0}, "multi_v1": {"B1": B1_PER_WINDOW, "B2": 0, "B4": 1},
+                   "basic_origin": {"B1": B1_PER_WINDOW, "B2": 2, "B4": 0}}
+# basic_origin's upconvs (3x3 SAME, s 2, 64 -> 256 conv channels, the leaky
+# ReLU fused): at a 426x240 window and at its 2x map
+UPCONV_CIN, UPCONV_CC = 64, 256
+# the REDS-with-MV tree's motion: the LR frames translate by (dx, dy) pixels
+# a frame, so every motion vector is that shift
+MV_SHIFT = (2, 1)
 # patch eval at launchers/video_test_patch.sh: basic x4, 64x64 patches,
 # overlap 4/0, image_batch 10, one patch per forward (the CLI's default), on
 # one synthetic 10-frame clip at REDS's frame size (720x1280 HR, 180x320 LR:
@@ -444,6 +480,37 @@ def phase_kernels(gen, dev):
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
                                gflop=flops / 1e9))
 
+    # B2 past 64 conv channels: basic_origin's upconvs (3x3 SAME, s 2, 64 ->
+    # 256 conv channels, the leaky ReLU fused) at the serving window's shapes
+    # in bf16 (upconv1 on the 240x426 map, upconv2 on its 2x map) and at the
+    # training step's (2 clips x 10 frames of 64x64, and 128x128) in f32; the
+    # library call is cuDNN's conv, pixel_shuffle and leaky_relu
+    up_cases = [(T_WIN, H_LR * f, W_LR * f, torch.bfloat16, f"upconv{f}") for f in (1, 2)]
+    up_cases += [(VSR_BATCH * VSR_T, vp * f, vp * f, torch.float32, f"upconv{f}") for f in (1, 2)]
+    for nb, hh, ww, dtype, name in up_cases:
+        cin, cc = UPCONV_CIN, UPCONV_CC
+        pad = ((1, 1), (1, 1))
+        x = rand((nb, hh, ww, cin), dtype)
+        kern = rand((3, 3, cin, cc), dtype, 1.0 / np.sqrt(9 * cin))
+        b = rand((cc,), dtype, 0.1)
+        got = fused_conv_pixel_shuffle(x, kern, b, 2, pad, None, True)
+        want = fused_conv_pixel_shuffle_plain(x, kern, b, 2, pad, None, True)
+        torch.cuda.synchronize()
+        tag = f"B2 basic_origin {name} {nb}x{hh}x{ww}x{cin} 3x3 s2 {cc} + lrelu -> {tuple(got.shape)} {str(dtype)[6:]}"
+        err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
+        del want
+        xn, kn = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        ms = cuda_ms(lambda: fused_conv_pixel_shuffle(x, kern, b, 2, pad, None, True), iters=10)
+        plain_ms = cuda_ms(lambda: fused_conv_pixel_shuffle_plain(x, kern, b, 2, pad, None, True), iters=10)
+        lib_ms = cuda_ms(lambda: F.leaky_relu(F.pixel_shuffle(F.conv2d(xn, kn, b, padding=1), 2), 0.1), iters=10)
+        flops = 2.0 * nb * hh * ww * 9 * cin * cc
+        bms, by = bound(flops, nbytes(x, kern, b, got), dtype)
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+        rows["B2"].append(dict(case=tag, main_path=False, serving=dtype == torch.bfloat16, zoo="basic_origin",
+                               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                               bound_by=by, gflop=flops / 1e9))
+        del x, got
+
     # B3: one WDSR-B block at the full-width x2 LR map (678x1020, 24 units:
     # E 144, M 20, k 3) in f32 (the eval CLI's default, the main path) and
     # bf16, with the weights packed once as BasicBlock.prepare packs them; a
@@ -491,7 +558,8 @@ def phase_kernels(gen, dev):
     # B4: the WDSR tail at full width, body 24 -> 12 (3x3) + skip 3 -> 12
     # (5x5), s 2, f32 (the main path) and bf16, with the weights packed once
     # as BasicModel.prepare packs them; then s 3 and 4 (27, 48 conv channels)
-    # and ResultNet's body widths 18, 21, 32, f32 and bf16
+    # and ResultNet's body widths 18, 21, 32, f32 and bf16; and multi_v1's
+    # tail at its training shape (2 clips x 10 frames of 64x64, body 18, s 4)
     from mobilesuperresolution_tpu_torch.kernels.fused_tail import _skip_plan
     from mobilesuperresolution_tpu_torch.kernels.fused_tail import pack_weights as pack_b4
 
@@ -500,6 +568,8 @@ def phase_kernels(gen, dev):
     # the training step's batch of LR patches (cli/pretrain.py)
     b4_cases += [(TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, SR_UNITS, SR_SCALE, dt) for dt in (torch.float32,
                                                                                           torch.bfloat16)]
+    b4_cases += [(VSR_BATCH * VSR_T, VSR_PATCH, VSR_PATCH, 18, VSR_SCALE, dt) for dt in (torch.float32,
+                                                                                       torch.bfloat16)]
     for nb, hh, ww, c, s, dtype in b4_cases:
         cc = 3 * s * s
         x = rand((nb, hh, ww, c), dtype)
@@ -525,6 +595,7 @@ def phase_kernels(gen, dev):
         log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis}); "
             f"K issued body {k_issued[0]} / skip {k_issued[1]} / N {k_issued[2]}, useful {k_useful}")
         rows["B4"].append(dict(case=tag, main_path=(nb, c, s, dtype) == (1, SR_UNITS, SR_SCALE, torch.float32),
+                               zoo="multi_v1" if nb == VSR_BATCH * VSR_T else None,
                                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                                bound_by=by, bound_basis=basis, gflop=flops / 1e9, k_issued=k_issued,
                                k_useful=k_useful))
@@ -1167,42 +1238,87 @@ def phase_search(dev):
 
 
 def vsr_launches():
+    """The VSR models' kernel counts: B1, B2 and B4 ('multi_v1''s tail)."""
     from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same
-    from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
+        fused_conv_pixel_shuffle,
+        fused_conv_pixel_shuffle_skip,
+    )
 
-    return {"B1": conv5x5_same.launches, "B2": fused_conv_pixel_shuffle.launches}
+    return {"B1": conv5x5_same.launches, "B2": fused_conv_pixel_shuffle.launches,
+            "B4": fused_conv_pixel_shuffle_skip.launches}
 
 
 def reset_vsr_launches():
     from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same
-    from mobilesuperresolution_tpu_torch.kernels.fused_tail import fused_conv_pixel_shuffle
+    from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
+        fused_conv_pixel_shuffle,
+        fused_conv_pixel_shuffle_skip,
+    )
 
     conv5x5_same.launches = 0
     fused_conv_pixel_shuffle.launches = 0
+    fused_conv_pixel_shuffle_skip.launches = 0
 
 
 def model_argv(kind):
     """The VSR entry points' model flags of one model type."""
-    return ["--model_type", kind] + (["--model_path", ZOO_ARTIFACT] if kind == "multi" else [])
+    return ["--model_type", kind] + (["--model_path", ZOO_ARTIFACT] if kind in ("multi", "multi_v1") else [])
 
 
-def vsr_argv(job_dir, kind="basic"):
-    """The model and data flags of both VSR entry points."""
-    return ["--job_dir", job_dir, "--dataset", "synthetic_vsr", "--eval_datasets", "synthetic_vsr",
-            *model_argv(kind), "--scale", str(VSR_SCALE), "--image_batch", str(VSR_T),
-            "--synthetic_frames", str(VSR_T), "--synthetic_clips", str(VSR_CLIPS), "--synthetic_size", str(VSR_HR)]
+def vsr_argv(job_dir, kind="basic", mv_root=None):
+    """The model and data flags of both VSR entry points: synthetic_vsr, or
+    for 'basic_mv' the REDS-with-MV tree under ``mv_root``."""
+    if kind == "basic_mv":
+        data = ["--dataset", "reds_with_mv", "--eval_datasets", "reds_with_mv", "--data_dir", mv_root,
+                "--cache_dir", "", "--val_image_batch", str(VSR_T)]
+    else:
+        data = ["--dataset", "synthetic_vsr", "--eval_datasets", "synthetic_vsr", "--synthetic_frames", str(VSR_T),
+                "--synthetic_clips", str(VSR_CLIPS), "--synthetic_size", str(VSR_HR)]
+    return ["--job_dir", job_dir, *data, *model_argv(kind), "--scale", str(VSR_SCALE), "--image_batch", str(VSR_T)]
 
 
-def vsr_train_argv(job_dir, kind="basic"):
-    return vsr_argv(job_dir, kind) + ["--train_batch_size", str(VSR_BATCH), "--lr_patch_size", str(VSR_PATCH),
+def write_reds_mv_tree(root, seed=5):
+    """A REDS-with-MV tree as data/reds_with_mv.py reads it, for 'basic_mv':
+    train and val splits of VSR_CLIPS clips of VSR_T frames, VSR_HR square
+    HR PNGs whose x4 LR frames (every 4th pixel) translate by MV_SHIFT
+    pixels a frame, and each LR clip's hex-me16-ref1/motion.npy holding that
+    shift as every pixel's vector (frame 0's zero, never read as a flow)."""
+    from PIL import Image
+
+    g = torch.Generator().manual_seed(seed)
+    hr, dx, dy = VSR_HR, MV_SHIFT[0] * VSR_SCALE, MV_SHIFT[1] * VSR_SCALE
+    lr = hr // VSR_SCALE
+    for split in ("train", "val"):
+        for c in range(VSR_CLIPS):
+            tex = torch.rand((1, 3, hr // 16 + 8, hr // 16 + 8), generator=g)
+            tex = F.interpolate(tex, size=(hr + dy * VSR_T, hr + dx * VSR_T), mode="bilinear", align_corners=False)
+            tex = (tex[0].permute(1, 2, 0).numpy() * 255).round().astype(np.uint8)
+            hr_dir = os.path.join(root, "REDS", split, f"{split}_sharp", f"{c:03d}")
+            lr_dir = os.path.join(root, "REDS", split, f"{split}_sharp_bicubic", f"X{VSR_SCALE}", f"{c:03d}")
+            os.makedirs(hr_dir)
+            os.makedirs(os.path.join(lr_dir, "hex-me16-ref1"))
+            for t in range(VSR_T):
+                frame = tex[t * dy : t * dy + hr, t * dx : t * dx + hr]
+                Image.fromarray(frame).save(os.path.join(hr_dir, f"{t:08d}.png"), compress_level=1)
+                Image.fromarray(np.ascontiguousarray(frame[::VSR_SCALE, ::VSR_SCALE])).save(
+                    os.path.join(lr_dir, f"{t:08d}.png"), compress_level=1)
+            mv = np.broadcast_to(np.asarray(MV_SHIFT, np.float32), (VSR_T, lr, lr, 2)).copy()
+            mv[0] = 0.0
+            np.save(os.path.join(lr_dir, "hex-me16-ref1", "motion.npy"), mv)
+
+
+def vsr_train_argv(job_dir, kind="basic", mv_root=None):
+    return vsr_argv(job_dir, kind, mv_root) + ["--train_batch_size", str(VSR_BATCH), "--lr_patch_size", str(VSR_PATCH),
                                       "--num_patches", str(VSR_NUM_PATCHES), "--epochs", str(VSR_EPOCHS),
                                       "--learning_rate", str(VSR_LR)]
 
 
-def vsr_step_stats(model, dev):
+def vsr_step_stats(model, dev, mv=False, iters=10):
     """The steady VSR training step (make_vsr_step, the frozen-SpyNet Adam) on
-    one fixed batch at the launcher's shape: mean ms of 10 steps after 3
-    warm-up steps (CUDA events), B1 / B2 launches per step, the peak device
+    one fixed batch at the launcher's shape (``mv``: with MV_SHIFT motion
+    vectors after the RGB channels): mean ms of ``iters`` steps after 3
+    warm-up steps (CUDA events), B1 / B2 / B4 launches per step, the peak device
     memory, and one profiled step's kernel time, launches and busy share
     (torch.profiler, device-side events only)."""
     from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters
@@ -1211,7 +1327,10 @@ def vsr_step_stats(model, dev):
 
     g = torch.Generator().manual_seed(7)
     oh = VSR_SCALE * VSR_PATCH
-    lr = torch.rand((VSR_BATCH, VSR_T, VSR_PATCH, VSR_PATCH, 3), generator=g).to(dev)
+    lr = torch.rand((VSR_BATCH, VSR_T, VSR_PATCH, VSR_PATCH, 3), generator=g)
+    if mv:
+        lr = torch.cat([lr, torch.tensor(MV_SHIFT, dtype=lr.dtype).expand(*lr.shape[:-1], 2)], dim=-1)
+    lr = lr.to(dev)
     hr = torch.rand((VSR_BATCH, VSR_T, oh, oh, 3), generator=g).to(dev)
     named = jax_named_parameters(model)
     opt = vsr_multistep_adam(named, VSR_LR, 100, 1, trainable_mask=spynet_frozen_mask(named))
@@ -1220,8 +1339,8 @@ def vsr_step_stats(model, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_vsr_launches()
-    ms = cuda_ms(lambda: step((lr, hr)), iters=10, warmup=3)
-    per_step = {k: v / 13 for k, v in vsr_launches().items()}
+    ms = cuda_ms(lambda: step((lr, hr)), iters=iters, warmup=3)
+    per_step = {k: v / (iters + 3) for k, v in vsr_launches().items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     busy, launches, top = profile_once(lambda: step((lr, hr)))
     return dict(ms=ms, launches_per_step=per_step, peak_gib=peak, profiled_device_ms=busy, busy_share=busy / ms,
@@ -1231,8 +1350,10 @@ def vsr_step_stats(model, dev):
 def profile_once(fn):
     """One call of ``fn`` under torch.profiler: (device ms summed over the
     CUDA events, kernel launches, the 8 largest kernels as (name, count,
-    ms))."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ms)). Device activity only: with the host's too, one basic_origin step
+    (~21,000 launches) took 15-16 s to profile against 5-6 (H100), for the
+    same device time."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
@@ -1272,7 +1393,7 @@ def phase_vsr_train(dev, work):
                                                                   for s in steps):
         raise AssertionError(f"train_vsr steps {[(s['loss'], s['skipped']) for s in steps]}")
     forwards = out["train_forwards"] + out["eval_clips"]
-    if launches != {"B1": B1_PER_WINDOW * forwards, "B2": B2_PER_WINDOW * forwards}:
+    if launches != {"B1": B1_PER_WINDOW * forwards, "B2": B2_PER_WINDOW * forwards, "B4": 0}:
         raise AssertionError(f"train_vsr launches {launches}, expected B1 30 and B2 1 per forward ({forwards})")
     model = get_vsr_model("basic", scale=VSR_SCALE, device=dev)
     want = jax_param_shapes(model)
@@ -1298,7 +1419,7 @@ def phase_vsr_train(dev, work):
             f"{st['peak_gib']:.3f} GiB")
         for k, c, t in st["top_kernels"]:
             log(f"    {t:8.3f} ms {c:5d}x {k}")
-        if st["launches_per_step"] != {"B1": B1_PER_WINDOW, "B2": B2_PER_WINDOW}:
+        if st["launches_per_step"] != {"B1": B1_PER_WINDOW, "B2": B2_PER_WINDOW, "B4": 0}:
             raise AssertionError(f"VSR step {name}: launches per step {st['launches_per_step']}")
         del m
     return stats, launches, job
@@ -1500,30 +1621,42 @@ def phase_vsr_train_parity(dev):
 
 
 def phase_zoo_parity(dev):
-    """A tiny float32 'single' (8 channels, 2 blocks) and 'multi' (the
-    artifact [[8, 8, 3], [8, 6, 5]]), x4 on 3 frames of 64x64, on the card
-    against the CPU: the eval forward within 1e-4 of the largest output
-    (B2 once per forward, 'multi' also B1 30 times), then two training steps
-    with losses within 1e-4 and the first step's gradients within 1e-4 of
-    each one's largest, the frozen flownet without a gradient."""
+    """A tiny float32 'single' (8 channels, 2 blocks), 'multi' and 'multi_v1'
+    (the artifact [[8, 8, 3], [8, 6, 5]]), 'basic_mv' and 'basic_origin' (nf
+    8, 1 block; basic_origin's upconv2 at 256 conv channels), x4 on 3
+    frames of 64x64 (basic_mv with motion vectors of a few pixels), on the
+    card against the CPU: the eval forward within 1e-4 of the largest output
+    with B1 / B2 / B4 launched per forward as ZOO_PER_FORWARD says, then two
+    training steps with losses within 1e-4 and the first step's gradients
+    within 1e-4 of each one's largest, the frozen flow network without a
+    gradient."""
+    from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSROrigin
+    from mobilesuperresolution_tpu_torch.models.mvvsr import MotionVectorVSR
     from mobilesuperresolution_tpu_torch.models.naive_multi import NaiveMultiModel
+    from mobilesuperresolution_tpu_torch.models.naive_multi_v1 import NaiveMultiModelV1
     from mobilesuperresolution_tpu_torch.models.single_image import SingleImageModel
     from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters, load_params_npz, random_jax_params
     from mobilesuperresolution_tpu_torch.train.state import spynet_frozen_mask, vsr_multistep_adam
     from mobilesuperresolution_tpu_torch.train.steps import make_vsr_step
 
+    makers = {"single": lambda: SingleImageModel(scale=4, channel=8, blocks=2, kernel=3),
+              "multi": lambda: NaiveMultiModel(4, ((8, 8, 3), (8, 6, 5))),
+              "basic_mv": lambda: MotionVectorVSR(num_feat=8, num_block=1, scale=4),
+              "multi_v1": lambda: NaiveMultiModelV1(4, ((8, 8, 3), (8, 6, 5))),
+              "basic_origin": lambda: BasicVSROrigin(num_feat=8, num_block=1, scale=4)}
     out = {}
-    for kind in ("single", "multi"):
-        def make():
-            if kind == "single":
-                return SingleImageModel(scale=4, channel=8, blocks=2, kernel=3)
-            return NaiveMultiModel(4, ((8, 8, 3), (8, 6, 5)))
+    for kind, make in makers.items():
+        g = torch.Generator().manual_seed(12)
+
+        def clip(shape):
+            x = torch.rand(shape, generator=g)
+            if kind != "basic_mv":
+                return x
+            return torch.cat([x, torch.randn(shape, generator=g)[..., :2] * 1.5], dim=-1)
 
         flat = random_jax_params(make(), seed=3)
-        g = torch.Generator().manual_seed(12)
-        x = torch.rand((1, 3, 64, 64, 3), generator=g)
-        batches = [(torch.rand((1, 3, 64, 64, 3), generator=g), torch.rand((1, 3, 256, 256, 3), generator=g))
-                   for _ in range(2)]
+        x = clip((1, 3, 64, 64, 3))
+        batches = [(clip((1, 3, 64, 64, 3)), torch.rand((1, 3, 256, 256, 3), generator=g)) for _ in range(2)]
         runs = []
         for d in ("cpu", dev):
             m = load_params_npz(make().to(d), flat).eval()
@@ -1544,7 +1677,7 @@ def phase_zoo_parity(dev):
         yerr = float((y1 - y0).abs().max()) / float(y0.abs().max())
         lerr = max(abs(a - b) for a, b in zip(l0, l1))
         gerr = max(float((g1[k] - g0[k]).abs().max()) / max(float(g0[k].abs().max()), 1e-3) for k in g0)
-        frozen = [k for k in list(g0) + list(g1) if k.startswith("flownet/")]
+        frozen = [k for k in list(g0) + list(g1) if k.startswith(("flownet/", "spynet/"))]
         log(f"  tiny {kind}: forward within {yerr:.3e} of the largest output, launches {launches}; losses card "
             f"{l1}, CPU {l0} (max difference {lerr:.3e}); first-step gradients of {len(g0)} parameters within "
             f"{gerr:.3e} of each largest")
@@ -1556,32 +1689,36 @@ def phase_zoo_parity(dev):
     return out
 
 
-def phase_zoo_train(dev, work):
-    """cli.train_vsr for 'single' and 'multi' at full width on synthetic_vsr
-    (as phase_vsr_train, one epoch of 4 steps and a whole-clip eval of 4
-    clips): finite losses, B1 / B2 per forward as ZOO_PER_FORWARD, a weights
-    npz with exactly the JAX model's keys and shapes, 'multi''s flownet
-    bit-untouched; the steady step in f32 and bf16 with its busy share; then
-    cli.test_vsr on each npz, whole clips (the run's last eval PSNR).
-    Returns (stats, summed launches, {kind: npz path})."""
+def phase_zoo_train(dev, work, kinds, mv_root=None):
+    """cli.train_vsr for each zoo type of ``kinds`` at full width (as
+    phase_vsr_train, one epoch of 4 steps and a whole-clip eval of 4 clips;
+    synthetic_vsr, or for 'basic_mv' the REDS-with-MV tree under
+    ``mv_root``): finite losses, B1 / B2 / B4 per forward as
+    ZOO_PER_FORWARD, a weights npz with exactly the JAX model's keys and
+    shapes, the flow network bit-untouched; the steady step in f32 and bf16
+    with its busy share; then cli.test_vsr on each npz, whole clips (the
+    run's last eval PSNR). Returns (stats, summed launches, {kind: npz
+    path})."""
     from mobilesuperresolution_tpu_torch.cli import test_vsr, train_vsr
     from mobilesuperresolution_tpu_torch.models import get_vsr_model
     from mobilesuperresolution_tpu_torch.train.checkpoint import jax_param_shapes, load_params_npz, random_jax_params
 
-    stats, total, npzs = {}, {"B1": 0, "B2": 0}, {}
-    for kind in ("single", "multi"):
+    stats, total, npzs = {}, {"B1": 0, "B2": 0, "B4": 0}, {}
+    for kind in kinds:
         job = os.path.join(work, f"vsr_{kind}")
+        set_name = "reds_with_mv" if kind == "basic_mv" else "synthetic_vsr"
         reset_vsr_launches()
         t0 = time.perf_counter()
-        out = train_vsr.main(vsr_train_argv(job, kind) + ["--epochs", "1"])
+        out = train_vsr.main(vsr_train_argv(job, kind, mv_root) + ["--epochs", "1"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = vsr_launches()
         steps = out["steps"]
         forwards = out["train_forwards"] + out["eval_clips"]
         log(f"  cli.train_vsr {kind}: {len(steps)} steps, losses {[round(s['loss'], 6) for s in steps]}, "
-            f"{out['eval_clips']} eval clips, eval PSNR {out['eval'][-1]['synthetic_vsr']['PSNR']:.4f}, {wall:.1f} s; "
-            f"launches {launches} over {forwards} forwards")
+            f"{out['eval_clips']} eval clips, eval PSNR {out['eval'][-1][set_name]['PSNR']:.4f} (bilinear "
+            f"{out['eval'][-1][set_name]['bilinear_PSNR']:.4f}), {wall:.1f} s; launches {launches} over {forwards} "
+            f"forwards")
         if len(steps) != VSR_STEPS_PER_EPOCH or not all(np.isfinite(s["loss"]) and s["skipped"] == 0 for s in steps):
             raise AssertionError(f"train_vsr {kind} steps {[(s['loss'], s['skipped']) for s in steps]}")
         if launches != {k: v * forwards for k, v in ZOO_PER_FORWARD[kind].items()}:
@@ -1593,16 +1730,17 @@ def phase_zoo_train(dev, work):
         if {k: npz[k].shape for k in npz.files} != want:
             raise AssertionError(f"train_vsr {kind} npz keys or shapes differ from the JAX layout")
         init = random_jax_params(model, seed=0)
-        frozen = [k for k in want if k.startswith("flownet/")]
+        frozen = [k for k in want if k.startswith(("flownet/", "spynet/"))]
         moved = [k for k in want if k not in frozen and not np.array_equal(npz[k], init[k])]
         if not all(np.array_equal(npz[k], init[k]) for k in frozen) or not moved:
-            raise AssertionError(f"{kind}: flownet must stay bit-equal and the rest move: {len(moved)} moved")
+            raise AssertionError(f"{kind}: the flow network must stay bit-equal and the rest move: {len(moved)} moved")
         st = dict(steps=steps, eval=out["eval"], train_forwards=out["train_forwards"], eval_clips=out["eval_clips"],
                   wall_s=wall, launches=launches, moved=len(moved), trainable=len(want) - len(frozen))
         for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             m = get_vsr_model(kind, scale=VSR_SCALE, compute_dtype=dtype, device=dev, block_index_path=ZOO_ARTIFACT)
             load_params_npz(m, init)
-            ss = vsr_step_stats(m, dev)
+            # basic_origin's steps take ~0.5 s: 5 timed steps hold its mean
+            ss = vsr_step_stats(m, dev, mv=kind == "basic_mv", iters=5 if kind == "basic_origin" else 10)
             st[f"step_{name}"] = ss
             log(f"  {kind} train step {name}: {ss['ms']:.3f} ms, B1/B2 per step {ss['launches_per_step']}, device "
                 f"busy {ss['profiled_device_ms']:.3f} ms ({ss['busy_share']:.1%}) over {ss['kernel_launches']} "
@@ -1613,9 +1751,9 @@ def phase_zoo_train(dev, work):
                 raise AssertionError(f"{kind} step {name}: launches per step {ss['launches_per_step']}")
             del m
         reset_vsr_launches()
-        ev = test_vsr.main(vsr_argv(os.path.join(job, "eval"), kind) + ["--eval_model", npzs[kind]])["synthetic_vsr"]
+        ev = test_vsr.main(vsr_argv(os.path.join(job, "eval"), kind, mv_root) + ["--eval_model", npzs[kind]])[set_name]
         st["test_vsr"] = dict(ev, launches=vsr_launches())
-        trained = out["eval"][-1]["synthetic_vsr"]["PSNR"]
+        trained = out["eval"][-1][set_name]["PSNR"]
         log(f"  cli.test_vsr {kind} on the npz: PSNR {ev['PSNR']:.4f} (run's last eval {trained:.4f}), launches "
             f"{st['test_vsr']['launches']}")
         if not abs(ev["PSNR"] - trained) <= 1e-3 or not all(np.isfinite(v) for v in ev.values()):
@@ -1656,7 +1794,7 @@ def phase_patch_eval(dev, work, npz):
         f"{wall:.2f} s, launches {launches}")
     if arr.shape != (4, N_PATCHES * VSR_T) or not np.isfinite(arr).all() or not np.array_equal(arr, res):
         raise AssertionError(f"patch eval array {arr.shape}, finite {np.isfinite(arr).all()}")
-    if launches != {"B1": B1_PER_WINDOW * N_PATCHES, "B2": B2_PER_WINDOW * N_PATCHES}:
+    if launches != {"B1": B1_PER_WINDOW * N_PATCHES, "B2": B2_PER_WINDOW * N_PATCHES, "B4": 0}:
         raise AssertionError(f"patch eval launches {launches} for {N_PATCHES} patch batches")
 
     params = argparse.Namespace(scale=VSR_SCALE, synthetic_size=size, synthetic_clips=1, synthetic_frames=VSR_T,
@@ -1725,9 +1863,107 @@ def phase_zoo_serve(dev, work, npz):
         f"(PNG writes included), launches {launches}")
     if stats["frames"] != N_STREAM_FRAMES or len(names) != N_STREAM_FRAMES or shape != (4 * H_LR, 4 * W_LR, 3):
         raise AssertionError(f"serve multi: {stats}, {len(names)} files of {shape}")
-    if launches != {"B1": B1_PER_WINDOW * windows, "B2": B2_PER_WINDOW * windows}:
+    if launches != {"B1": B1_PER_WINDOW * windows, "B2": B2_PER_WINDOW * windows, "B4": 0}:
         raise AssertionError(f"serve multi launches {launches} for {windows} windows")
     return dict(stats, launches=launches, windows=windows), launches
+
+
+def phase_mv_data(work):
+    """The REDS-with-MV tree (write_reds_mv_tree) through data/reds_with_mv.py:
+    an eval clip's items carry MV_SHIFT as every vector of frames 1.., and
+    warping frame t-1 by them (ops/warp.py, the propagation's warp) gives
+    frame t away from the borders: the vectors are the model's forward
+    flows. Returns (the tree's root, stats)."""
+    from mobilesuperresolution_tpu_torch.core import modes
+    from mobilesuperresolution_tpu_torch.data import reds_with_mv
+    from mobilesuperresolution_tpu_torch.ops.warp import flow_warp
+
+    root = os.path.join(work, "reds_mv")
+    t0 = time.perf_counter()
+    write_reds_mv_tree(root)
+    wall = time.perf_counter() - t0
+    params = argparse.Namespace(scale=VSR_SCALE, data_dir=root, image_batch=VSR_T, val_image_batch=VSR_T, seed=0)
+    ds = reds_with_mv.get_dataset(modes.EVAL, params)
+    _, lr, hr = ds[0]
+    x = torch.from_numpy(lr)
+    m = 4 * max(MV_SHIFT)
+    warp_err = float((flow_warp(x[:-1, ..., :3], x[1:, ..., 3:], padding_mode="zeros") - x[1:, ..., :3])
+                     [:, m:-m, m:-m].abs().max())
+    mv_ok = bool((x[1:, ..., 3:] == torch.tensor(MV_SHIFT, dtype=x.dtype)).all())
+    log(f"  REDS-with-MV tree: {len(ds)} eval clips of {lr.shape} LR / {hr.shape} HR, written in {wall:.2f} s; "
+        f"vectors == {MV_SHIFT}: {mv_ok}; frame t-1 warped by them vs frame t: max |diff| {warp_err:.3e}")
+    if len(ds) != VSR_CLIPS or lr.shape != (VSR_T, VSR_HR // VSR_SCALE, VSR_HR // VSR_SCALE, 5) or not mv_ok \
+            or not warp_err <= 1e-5:
+        raise AssertionError(f"REDS-with-MV items: {len(ds)} clips, {lr.shape}, vectors {mv_ok}, warp {warp_err}")
+    return root, dict(clips=len(ds), lr_shape=list(lr.shape), write_s=wall, warp_err=warp_err)
+
+
+def phase_origin_serve(dev):
+    """basic_origin (nf 64, 30 blocks, x4) served in bf16 by StreamingVSR
+    (chunk 4, overlap 3: 10-frame windows) over 10 426x240 frames: 10
+    finite 1080x1920 frames, B1 30 and B2 2 per window (3 windows); then the
+    flow-cached stream (serve/flow_cache.py) on the same frames, within
+    bf16_tol of the plain one, B1 30 per flow group and B2 2 per window;
+    then the ms of one window forward and of sr_fn. Returns (stats, summed
+    launches)."""
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.models.basicvsr import compute_flows
+    from mobilesuperresolution_tpu_torch.serve import FlowCachedStreamingVSR, StreamingVSR, make_flow_sr_fns
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    model = get_vsr_model("basic_origin", scale=4, compute_dtype=torch.bfloat16, device=dev)
+    load_params_npz(model, random_jax_params(model, seed=0))
+    per = ZOO_PER_FORWARD["basic_origin"]
+
+    def apply_fn(x, oh, ow):
+        with torch.inference_mode():
+            return model(x, oh, ow)
+
+    frames = synthetic_stream(T_WIN, H_LR, W_LR, seed=1)
+    windows = len(range(0, T_WIN, CHUNK))
+    stream = StreamingVSR(apply_fn, OH, OW, chunk=CHUNK, overlap=OVERLAP, device=dev)
+    stream.warmup((H_LR, W_LR, 3))
+    reset_vsr_launches()
+    out, wall = run_stream(stream, frames)
+    plain = vsr_launches()
+    if len(out) != T_WIN or any(fr.shape != (OH, OW, 3) or not np.isfinite(fr).all() for fr in out):
+        raise AssertionError(f"basic_origin stream: {len(out)} frames of {out[0].shape if out else None}")
+    if plain != {k: v * windows for k, v in per.items()}:
+        raise AssertionError(f"basic_origin stream launches {plain} for {windows} windows")
+
+    flow_fn, sr_fn = make_flow_sr_fns(model, OH, OW)
+    groups = []
+
+    def counted_flow(ref, supp):
+        groups.append(ref.shape[0])
+        return flow_fn(ref, supp)
+
+    cstream = FlowCachedStreamingVSR(counted_flow, sr_fn, OH, OW, chunk=CHUNK, overlap=OVERLAP, device=dev)
+    cstream.warmup((H_LR, W_LR, 3))
+    groups.clear()
+    reset_vsr_launches()
+    cout, cwall = run_stream(cstream, frames)
+    cached = vsr_launches()
+    want = torch.from_numpy(np.stack(out))
+    err = check("basic_origin cached stream vs plain stream (bf16)", torch.from_numpy(np.stack(cout)), want,
+                bf16_tol(want))
+    if cached != {"B1": B1_PER_WINDOW * len(groups), "B2": per["B2"] * windows, "B4": 0}:
+        raise AssertionError(f"basic_origin cached stream launches {cached} for {len(groups)} groups, "
+                             f"{windows} windows")
+
+    x = torch.from_numpy(np.stack(frames)[None]).to(dev)
+    with torch.inference_mode():
+        win_ms = cuda_ms(lambda: model(x, OH, OW), iters=3, warmup=1)
+        ff, fb = compute_flows(model.spynet, x.to(torch.bfloat16))
+        sr_ms = cuda_ms(lambda: sr_fn(x, ff, fb), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  basic_origin stream: {len(out)} frames in {windows} windows, {wall:.3f} s, launches {plain}; cached: "
+        f"{len(groups)} flow groups, {cwall:.3f} s, launches {cached}; window forward {win_ms:.3f} ms "
+        f"({T_WIN / win_ms * 1e3:.2f} frames/s), sr_fn {sr_ms:.3f} ms; peak {peak:.3f} GiB")
+    total = {k: plain[k] + cached[k] for k in plain}
+    return dict(frames=len(out), windows=windows, stream_wall_s=wall, cached_wall_s=cwall, launches=plain,
+                cached_launches=cached, flow_groups=len(groups), cached_max_abs_err=err, window_ms=win_ms,
+                window_fps=T_WIN / win_ms * 1e3, sr_fn_ms=sr_ms, peak_mem_gib=peak), total
 
 
 def main():
@@ -1745,6 +1981,19 @@ def main():
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}; card: {smi}")
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    marks = []
+
+    def phase(title):
+        """Log the next phase's title; keep the wall seconds of the last one."""
+        now = time.perf_counter()
+        if marks:
+            report.setdefault("phase_s", {})[marks[-1][0]] = round(now - marks[-1][1], 3)
+        if title is None:
+            log("wall s per phase: " + ", ".join(f"{k} {v}" for k, v in report["phase_s"].items()))
+            return
+        marks.append((title.rstrip(":"), now))
+        log(title)
+
     try:
         from mobilesuperresolution_tpu_torch.kernels import _build
 
@@ -1755,57 +2004,67 @@ def main():
                 log(f"  {name}: {line}")
         report["build_s"] = secs
 
-        log("kernels vs plain:")
+        phase("kernels vs plain:")
         rows = phase_kernels(torch.Generator().manual_seed(0), dev)
         report["kernel_cases"] = rows
-        log("small-model parity:")
+        phase("small-model parity:")
         report["tiny_parity_err"] = phase_small_parity(dev)
-        log("full-width serving:")
+        phase("full-width serving:")
         stats, launches, windows, served = phase_serving(dev)
         report["serving"] = stats
-        log("flow-cached serving at full width:")
+        phase("flow-cached serving at full width:")
         report["flow_cache"], launches = phase_flow_cache(dev, *served)
         del served
-        log("small SISR parity:")
+        phase("small SISR parity:")
         report["tiny_sisr_parity_err"] = phase_sisr_parity(dev)
-        log("shipped SISR weights and the eval entry point:")
+        phase("shipped SISR weights and the eval entry point:")
         report["shipped"] = phase_shipped(dev)
-        log("full-width SISR:")
+        phase("full-width SISR:")
         report["sisr"], sisr_main = phase_sisr_full(dev)
-        log("SISR pretraining at full width:")
+        phase("SISR pretraining at full width:")
         report["pretrain"], train_main = phase_pretrain(dev)
-        log("searched-net retraining:")
+        phase("searched-net retraining:")
         report["retrain"] = phase_retrain(dev)
-        log("tiny SISR training steps, card vs CPU:")
+        phase("tiny SISR training steps, card vs CPU:")
         report["train_parity"] = phase_train_parity(dev)
-        log("small NAS supernet parity:")
+        phase("small NAS supernet parity:")
         report["tiny_nas_parity"] = phase_nas_parity(dev)
-        log("NAS search at full width:")
+        phase("NAS search at full width:")
         report["search"], search_main = phase_search(dev)
-        log("VSR training at full width:")
+        phase("VSR training at full width:")
         report["vsr_train"], vsr_main, vsr_job = phase_vsr_train(dev, work)
-        log("resume round trips:")
+        phase("resume round trips:")
         report["vsr_resume"] = phase_vsr_resume(dev, work, vsr_job)
-        log("VSR evaluation entry point:")
+        phase("VSR evaluation entry point:")
         report["vsr_eval"] = phase_vsr_eval(dev, vsr_job, report["vsr_train"]["eval"][-1]["synthetic_vsr"]["PSNR"])
-        log("tiny VSR training steps, card vs CPU, and B2's gradients:")
+        phase("tiny VSR training steps, card vs CPU, and B2's gradients:")
         report["vsr_train_parity"] = phase_vsr_train_parity(dev)
-        log("tiny 'single' and 'multi', card vs CPU:")
+        phase("tiny 'single', 'multi', 'basic_mv', 'multi_v1' and 'basic_origin', card vs CPU:")
         report["zoo_parity"] = phase_zoo_parity(dev)
-        log("'single' and 'multi' training at full width:")
-        report["zoo_train"], zoo_main, zoo_npz = phase_zoo_train(dev, work)
-        log("patch-tiled VSR eval at full width:")
+        phase("'single' and 'multi' training at full width:")
+        report["zoo_train"], zoo_main, zoo_npz = phase_zoo_train(dev, work, ("single", "multi"))
+        phase("patch-tiled VSR eval at full width:")
         report["patch_eval"], patch_main = phase_patch_eval(dev, work, os.path.join(vsr_job, "weights", "models.npz"))
-        log("'multi' serving:")
+        phase("'multi' serving:")
         report["zoo_serve"], serve_main = phase_zoo_serve(dev, work, zoo_npz["multi"])
+        phase("the REDS-with-MV tree:")
+        mv_root, report["mv_data"] = phase_mv_data(work)
+        phase("'basic_mv', 'multi_v1' and 'basic_origin' training at full width:")
+        report["zoo_rest_train"], rest_main, _ = phase_zoo_train(dev, work, ("basic_mv", "multi_v1", "basic_origin"),
+                                                                 mv_root)
+        phase("'basic_origin' serving, plain and flow-cached:")
+        report["origin_serve"], origin_main = phase_origin_serve(dev)
+        phase(None)
         report["launches_sisr_eval"] = sisr_main
         report["launches_serving"] = launches
-        # B1 and B2: the basic VSR training run and this slice's paths, each
-        # count set to 0 before its path
-        vsr_paths = {k: vsr_main[k] + zoo_main[k] + patch_main[k] + serve_main[k] for k in vsr_main}
-        report["launches_vsr_paths"] = dict(basic_train=vsr_main, zoo_train=zoo_main, patch_eval=patch_main,
-                                            multi_serve=serve_main)
-        launches = {**train_main, **search_main, **vsr_paths}
+        # B1, B2 and B4: the basic VSR training run and the VSR paths after
+        # it, each count set to 0 before its path; B4 also from pretraining
+        parts = dict(basic_train=vsr_main, zoo_train=zoo_main, patch_eval=patch_main, multi_serve=serve_main,
+                     zoo_rest_train=rest_main, origin_serve=origin_main)
+        vsr_paths = {k: sum(p[k] for p in parts.values()) for k in ("B1", "B2", "B4")}
+        report["launches_vsr_paths"] = parts
+        launches = {**search_main, **train_main, "B1": vsr_paths["B1"], "B2": vsr_paths["B2"],
+                    "B4": train_main["B4"] + vsr_paths["B4"]}
     except Exception:
         traceback.print_exc()
         return 1

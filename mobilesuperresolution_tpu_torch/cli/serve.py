@@ -11,8 +11,11 @@ Several comma-separated input directories serve as lockstep streams batched
 into one window. ``--flow_cache`` computes each SpyNet pair flow once and
 reuses it across overlapping windows (``serve.FlowCachedStreamingVSR``,
 BasicVSR only); ``--flow_downscale d`` runs SpyNet on 1/d-res frames.
-``--model_type`` serves mobile BasicVSR ('basic'), the per-frame 'single' or
-the searched 'multi' (``--model_path`` its block_index.txt).
+``--model_type`` serves mobile BasicVSR ('basic'), the faithful BasicVSR
+('basic_origin', also with ``--flow_cache``), the per-frame 'single' or the
+searched 'multi' / 'multi_v1' (``--model_path`` its block_index.txt).
+'basic_mv' is refused: it needs the codec's motion vectors beside each
+frame, and serving reads RGB frames only.
 
     python -m mobilesuperresolution_tpu_torch.cli.serve --job_dir runs/serve \\
         --input_dir frames/ --bf16 --chunk_frames 4 --chunk_overlap 3 --flow_cache
@@ -45,8 +48,11 @@ def build_parser():
                    "window (outputs land in stream<i>/ subdirectories).")
     p.add_argument("--output_dir", type=str, default=None,
                    help="Where SR PNGs go (default: job_dir/serve).")
-    p.add_argument("--model_type", default="basic", choices=["basic", "single", "multi"])
-    p.add_argument("--model_path", type=str, default=None, help="block_index.txt for the 'multi' model.")
+    p.add_argument("--model_type", default="basic",
+                   choices=["basic", "basic_origin", "basic_mv", "single", "multi", "multi_v1"],
+                   help="'basic_mv' is refused: it needs motion vectors, and frames are RGB.")
+    p.add_argument("--model_path", type=str, default=None,
+                   help="block_index.txt for the 'multi' and 'multi_v1' models.")
     p.add_argument("--scale", type=int, default=4)
     p.add_argument("--eval_model", type=str, default=None,
                    help="JAX params .npz to serve (default: seeded random weights).")
@@ -76,6 +82,9 @@ def build_parser():
 
 def main(argv=None):
     params = build_parser().parse_args(argv)
+    if params.model_type == "basic_mv":
+        raise ValueError("serving 'basic_mv' needs the codec's motion vectors of every frame, and cli.serve reads "
+                         "RGB frames with no motion-vector source; serve 'basic' or 'basic_origin' (SpyNet flows)")
     device = resolve_device(params.device)
     os.makedirs(params.job_dir, exist_ok=True)
     chunk = params.chunk_frames or 4

@@ -4,8 +4,10 @@ the reference's test_video_superresolution.py).
     python -m mobilesuperresolution_tpu_torch.cli.test_vsr --job_dir runs/eval \\
         --dataset reds --eval_datasets reds --eval_model runs/vsr/weights/models.npz
 
-Scores a VSR model on ``--eval_datasets`` as ``cli/train_vsr.py`` does after
-each epoch (whole clips, ``--chunk_frames`` windows, ``--flow_cache``), with
+Scores a VSR model of any ``--model_type`` (basic_mv on 5-channel data,
+``--dataset reds_with_mv``) on ``--eval_datasets`` as ``cli/train_vsr.py``
+does after each epoch (whole clips, ``--chunk_frames`` windows,
+``--flow_cache``), with
 the weights of ``--eval_model`` (an npz in the JAX package's flat layout, as
 either package writes it) or, without one, seeded random ones. Returns
 {set name: metrics}. Runs on CUDA unless ``--device cpu`` is given. A

@@ -10,7 +10,9 @@ Tiles each LR clip into ``--patch_h`` x ``--patch_w`` patches (rows step
 ``patch_h - overlap_h``, columns ``patch_w - overlap_w``, in raster order),
 runs ``--patch_batch`` patches per forward (the last chunk padded by
 repeating its last patch), records per patch-frame [spatial total
-variation, temporal variation, PSNR (shave 4), bilinear-base PSNR] and saves
+variation, temporal variation, PSNR (shave 4), bilinear-base PSNR] (the
+variations over every input channel, motion vectors too for basic_mv; the
+bilinear base from the RGB channels) and saves
 the 4xN array to ``<job_dir>/run/<model_type>_<patch_h>_<patch_w>_2.npy``
 (``analysis/patch_stats.py`` reads it). Runs on CUDA unless ``--device cpu``
 is given. ``--data_parallel`` (patches over several devices) waits for

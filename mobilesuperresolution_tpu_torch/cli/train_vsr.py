@@ -5,10 +5,12 @@ the reference's train_video_superresolution.py), one device.
         --dataset reds --model_type basic --scale 4 --image_batch 10 --epochs 30 \\
         --train_batch_size 2 --lr_patch_size 64 --learning_rate 1e-4
 
-Trains a VSR model (``get_vsr_model``: ``--model_type`` basic, single, or
-multi with ``--model_path`` its search's block_index.txt) from seeded random
-weights (``--seed``), a SpyNet npz (``--spynet_weights``, for the SpyNet
-models) and optionally a whole-model npz (``--eval_model``): Charbonnier
+Trains a VSR model (``get_vsr_model``: ``--model_type`` basic,
+basic_origin, basic_mv, single, or multi / multi_v1 with ``--model_path``
+its search's block_index.txt; basic_mv reads RGB + motion vectors, 5
+channels, from ``--dataset reds_with_mv``) from seeded random weights
+(``--seed``), a SpyNet npz (``--spynet_weights``, for the SpyNet models) and
+optionally a whole-model npz (``--eval_model``): Charbonnier
 loss, Adam betas (0.9, 0.99) with milestones [E/2, 8E/10] over every
 parameter but SpyNet's, which stays frozen (its flows carry no gradient),
 the non-finite guard of ``train.steps``, checkpoints and ``--resume`` as in
@@ -20,9 +22,8 @@ or with ``--flow_cache`` through ``serve/flow_cache.py``) and writes
 given; float32 in full float32 (TF32 off), ``--bf16`` in bfloat16.
 
 Not ported yet, and refused with the queue item of ROADMAP.md that brings
-them: model types ``basic_mv``, ``multi_v1`` and ``basic_origin`` (A6), a
-``.pth`` SpyNet (A7), ``--spatial_shards`` > 1, ``--chunk_data_parallel``
-and ``--quantize int8`` (A8).
+them: a ``.pth`` SpyNet (A7), ``--spatial_shards`` > 1,
+``--chunk_data_parallel`` and ``--quantize int8`` (A8).
 """
 
 import logging
@@ -58,8 +59,9 @@ log = logging.getLogger("msr_torch.train_vsr")
 def add_vsr_args(parser):
     parser.add_argument("--model_type", default="basic",
                         choices=["single", "multi", "multi_v1", "basic", "basic_mv", "basic_origin"],
-                        help="'basic', 'single' and 'multi' are ported (the rest: ROADMAP.md, queue A6).")
-    parser.add_argument("--model_path", type=str, default=None, help="block_index.txt for the 'multi' model.")
+                        help="'basic_mv' takes 5-channel input (RGB + motion vectors: --dataset reds_with_mv).")
+    parser.add_argument("--model_path", type=str, default=None,
+                        help="block_index.txt for the 'multi' and 'multi_v1' models.")
     parser.add_argument("--spynet_weights", type=str, default=None,
                         help="Pretrained SpyNet params, an .npz keyed like the JAX package's spynet scope.")
     parser.add_argument("--chunk_frames", type=int, default=0,
@@ -70,7 +72,7 @@ def add_vsr_args(parser):
                         help="Windows over several devices (not ported yet: raises).")
     parser.add_argument("--flow_cache", action="store_true",
                         help="With --chunk_frames: compute each SpyNet pair flow once and reuse it across "
-                        "overlapping windows (serve/flow_cache.py; 'basic' only).")
+                        "overlapping windows (serve/flow_cache.py; 'basic' and 'basic_origin').")
     parser.add_argument("--spatial_shards", type=int, default=1,
                         help="Shard frame height over devices (not ported yet: > 1 raises).")
     parser.add_argument("--spatial_max_disp", type=int, default=8)
@@ -111,7 +113,7 @@ def build_vsr_model(params, device, spynet_weights=None):
         flow_net = model.spynet if hasattr(model, "spynet") else getattr(model, "flownet", None)
         if flow_net is None:
             raise ValueError(f"--spynet_weights given but model_type {params.model_type!r} has no flow network "
-                             "('single' is frame-parallel)")
+                             "('single' is frame-parallel; 'basic_mv' takes flows from the bitstream)")
         load_params_npz(flow_net, spynet_weights)
     if params.eval_model:
         load_params_npz(model, params.eval_model)

@@ -30,15 +30,28 @@
 //   copies it out one output row per warp, consecutive lanes on consecutive
 //   4-byte words (a row of y is 2-byte aligned only: one element is peeled).
 //   The crop masks the last partial tiles.
-// Any KH, KW, padding, s, crop and Cin (Cc <= 64) are taken: weights too large
+// Any KH, KW, padding, s <= 8, crop, Cin and Cc are taken: weights too large
 // to stage at once are staged per chunk of input channels and group of kernel
 // rows (slower; never on the path), and Cin or Cc not a multiple of 8 stage
 // through a synchronous zero-filling loop.
 //
-// f32 design: one thread per low-resolution conv position, holding all conv
-// output channels (<= 64) in f32 registers. A block covers 16 x 16
-// positions; the input halo tile and the weights are staged in shared memory
-// 8 input channels at a time, so every weight read is a broadcast. The
+// Channel groups (both kernels): the conv channels are tiled over the grid's
+// y dimension in groups of at most 64, each a multiple of s^2 (64 for s 1, 2,
+// 4 and 8, 63 for s 3), so a group owns whole output channels of the
+// shuffle. BasicVSROrigin's upconvs (3x3, 64 -> 256 conv channels, s 2) run
+// as 4 groups of 64: in bf16 a group's weights (9 * 64 * 64 * 2 = 74 KB) stay
+// resident where all 256 channels' (295 KB) would not fit. Its stage then
+// holds 16 of the 64 output channels of each pixel, and the copy-out writes
+// them as 32-byte runs at the pixel stride: whole 32-byte sectors. The
+// blocks of the groups walk the same tiles in the same order, so a tile's
+// halo is read from device memory about once and from L2 by the others.
+// Optional epilogue: leaky ReLU (slope 0.1) after the bias, in f32 before the
+// one rounding (elementwise, so it commutes with the shuffle and the crop).
+//
+// f32 design: one thread per low-resolution conv position, holding its
+// group's conv output channels (<= 64) in f32 registers. A block covers
+// 16 x 16 positions; the input halo tile and the weights are staged in shared
+// memory 8 input channels at a time, so every weight read is a broadcast. The
 // epilogue adds the bias and scatters each channel to its depth-to-space
 // pixel. CUDA-core FMA, full f32.
 //
@@ -103,16 +116,30 @@ namespace {
 constexpr int TILE = 16;   // conv positions per block side
 constexpr int CK = 8;      // input channels staged per step
 constexpr int THREADS = TILE * TILE;
+constexpr int GROUP_MAX = 64;  // conv channels one block computes, at most
+constexpr float LRELU_SLOPE = 0.1f;
+
+// Conv channels of one group: the most, up to GROUP_MAX, that are a multiple
+// of s^2 (0 when s^2 > GROUP_MAX), never more than cc.
+__host__ __device__ inline int group_width(int cc, int s) {
+  const int g = GROUP_MAX / (s * s) * (s * s);
+  return cc < g ? cc : g;
+}
+
+__device__ __forceinline__ float epilogue(float v, int act) {
+  return (act && v < 0.f) ? v * LRELU_SLOPE : v;
+}
 
 
 // Accumulate one zero-padded KH x KW conv of x (n, H, W, Cin) into acc, for
-// the conv position (ty*TILE + ly, tx*TILE + lx). halo [HH][HW][CK] and wts
-// [KH*KW][CK][CO] are the block's shared staging buffers.
+// the conv position (ty*TILE + ly, tx*TILE + lx) and the group's conv
+// channels n0 .. n0 + Cg - 1 of Cc. halo [HH][HW][CK] and wts [KH*KW][CK][CO]
+// are the block's shared staging buffers.
 template <typename T, int CO>
 __device__ __forceinline__ void accumulate_conv(
     float (&acc)[CO], float* halo, float* wts, const T* __restrict__ x,
     const float* __restrict__ w, int img, int H, int W, int Cin, int KH, int KW,
-    int pad_t, int pad_l, int Cc, int tx, int ty, int ly, int lx) {
+    int pad_t, int pad_l, int Cc, int n0, int Cg, int tx, int ty, int ly, int lx) {
   const int HH = TILE + KH - 1, HW = TILE + KW - 1;
   const size_t img_off = size_t(img) * H * W;
   for (int c0 = 0; c0 < Cin; c0 += CK) {
@@ -129,7 +156,7 @@ __device__ __forceinline__ void accumulate_conv(
       const int n = idx % CO, r = idx / CO;
       const int k = r % CK, tap = r / CK;
       const int c = c0 + k;
-      wts[idx] = (c < Cin && n < Cc) ? w[(size_t(tap) * Cin + c) * Cc + n] : 0.f;
+      wts[idx] = (c < Cin && n < Cg) ? w[(size_t(tap) * Cin + c) * Cc + n0 + n] : 0.f;
     }
     __syncthreads();
     for (int ky = 0; ky < KH; ++ky) {
@@ -147,20 +174,22 @@ __device__ __forceinline__ void accumulate_conv(
   }
 }
 
-// Add the bias and scatter conv channel n = c*s^2 + i*s + j of position
-// (cy, cx) to pixel (cy*s + i, cx*s + j) of channel c, inside the crop.
+// Add the bias (and the activation) and scatter conv channel n0 + n =
+// c*s^2 + i*s + j of position (cy, cx) to pixel (cy*s + i, cx*s + j) of
+// channel c, inside the crop.
 template <typename T, int CO>
 __device__ __forceinline__ void store_shuffled(const float (&acc)[CO], const float* __restrict__ bias,
                                                T* __restrict__ y, int img, int cy, int cx, int Cc,
-                                               int s, int out_h, int out_w) {
+                                               int n0, int Cg, int s, int out_h, int out_w, int act) {
   const int ss = s * s, C = Cc / ss;
 #pragma unroll
   for (int n = 0; n < CO; ++n) {
-    if (n < Cc) {
-      const int c = n / ss, i = (n % ss) / s, j = n % s;
+    if (n < Cg) {
+      const int ng = n0 + n;
+      const int c = ng / ss, i = (ng % ss) / s, j = ng % s;
       const int oy = cy * s + i, ox = cx * s + j;
       if (oy < out_h && ox < out_w)
-        y[((size_t(img) * out_h + oy) * out_w + ox) * C + c] = from_float<T>(acc[n] + bias[n]);
+        y[((size_t(img) * out_h + oy) * out_w + ox) * C + c] = from_float<T>(epilogue(acc[n] + bias[ng], act));
     }
   }
 }
@@ -170,7 +199,7 @@ __global__ void __launch_bounds__(THREADS) fused_tail_kernel(
     const T* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, T* __restrict__ y, int H, int W, int Cin,
     int KH, int KW, int pad_t, int pad_l, int Cc, int s, int Hc, int Wc,
-    int out_h, int out_w, int tiles_w, int tiles_h) {
+    int out_h, int out_w, int tiles_w, int tiles_h, int act) {
   extern __shared__ float smem[];
   float* halo = smem;                                         // [HH][HW][CK]
   float* wts = smem + (TILE + KH - 1) * (TILE + KW - 1) * CK;  // [KH*KW][CK][CO]
@@ -181,17 +210,18 @@ __global__ void __launch_bounds__(THREADS) fused_tail_kernel(
   const int img = tile / (tiles_w * tiles_h);
   const int ly = threadIdx.x / TILE, lx = threadIdx.x % TILE;
   const int cy = ty * TILE + ly, cx = tx * TILE + lx;
+  const int gw = group_width(Cc, s), n0 = blockIdx.y * gw, Cg = min(gw, Cc - n0);
 
   float acc[CO];
 #pragma unroll
   for (int n = 0; n < CO; ++n) acc[n] = 0.f;
-  accumulate_conv<T, CO>(acc, halo, wts, x, w, img, H, W, Cin, KH, KW, pad_t, pad_l, Cc, tx, ty, ly, lx);
+  accumulate_conv<T, CO>(acc, halo, wts, x, w, img, H, W, Cin, KH, KW, pad_t, pad_l, Cc, n0, Cg, tx, ty, ly, lx);
   if (cy >= Hc || cx >= Wc) return;
-  store_shuffled<T, CO>(acc, bias, y, img, cy, cx, Cc, s, out_h, out_w);
+  store_shuffled<T, CO>(acc, bias, y, img, cy, cx, Cc, n0, Cg, s, out_h, out_w, act);
 }
 
 // Call f with the smallest register width (a std::integral_constant) that
-// holds cc <= 64 conv channels.
+// holds one group of cc <= 64 conv channels.
 template <typename F>
 cudaError_t by_width(int cc, F&& f) {
   if (cc <= 16) return f(std::integral_constant<int, 16>());
@@ -202,25 +232,26 @@ cudaError_t by_width(int cc, F&& f) {
 template <typename T>
 cudaError_t launch(const void* x, const float* w, const float* b, void* y, int n,
                    int h, int wd, int cin, int kh, int kw, int pad_t, int pad_l,
-                   int cc, int s, int hc, int wc, int out_h, int out_w,
+                   int cc, int s, int hc, int wc, int out_h, int out_w, int act,
                    cudaStream_t stream) {
-  return by_width(cc, [&](auto width) {
+  const int gw = group_width(cc, s), groups = (cc + gw - 1) / gw;
+  return by_width(gw, [&](auto width) {
     constexpr int CO = decltype(width)::value;
     const size_t smem = (size_t(TILE + kh - 1) * (TILE + kw - 1) * CK + size_t(kh) * kw * CK * CO) * 4;
     cudaError_t err = cudaFuncSetAttribute(
         fused_tail_kernel<T, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
     const int tiles_w = (wc + TILE - 1) / TILE, tiles_h = (hc + TILE - 1) / TILE;
-    fused_tail_kernel<T, CO><<<tiles_w * tiles_h * n, THREADS, smem, stream>>>(
+    fused_tail_kernel<T, CO><<<dim3(tiles_w * tiles_h * n, groups), THREADS, smem, stream>>>(
         static_cast<const T*>(x), w, b, static_cast<T*>(y), h, wd, cin, kh, kw,
-        pad_t, pad_l, cc, s, hc, wc, out_h, out_w, tiles_w, tiles_h);
+        pad_t, pad_l, cc, s, hc, wc, out_h, out_w, tiles_w, tiles_h, act);
     return cudaGetLastError();
   });
 }
 
 bool bad_geometry(int n, int hc, int wc, int cin, int cc, int s) {
-  return n <= 0 || hc <= 0 || wc <= 0 || cin <= 0 || cc <= 0 || cc > 64 || s <= 0 ||
-         cc % (s * s) != 0;
+  return n <= 0 || hc <= 0 || wc <= 0 || cin <= 0 || cc <= 0 || s <= 0 || s * s > GROUP_MAX ||
+         cc % (s * s) != 0 || (cc + group_width(cc, s) - 1) / group_width(cc, s) > 65535;
 }
 
 // ---- B2 in bf16: tensor cores (mma.sync m16n8k16), persistent grid ----
@@ -273,12 +304,18 @@ __device__ __forceinline__ void tail_mma_piece(float (&acc)[2][NB][4], uint32_t 
   }
 }
 
+// Up to 48 conv channels a block (NB <= 6: the serving tails) the kernel
+// keeps to <= 170 registers a thread, so that 3 blocks fit an SM; without the
+// bound ptxas gave NB 6 226 registers, 2 blocks per SM, and the serving tail
+// ran slower on an H100. Wider groups (BasicVSROrigin's upconvs) stage 74+
+// KB of weights, 1 block per SM, and keep every register: capped, they ran
+// slower.
 template <int NB>
-__global__ void __launch_bounds__(M_THREADS) fused_tail_mma_kernel(
+__global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H, int W, int Cin,
     int KH, int KW, int pad_t, int pad_l, int Cc, int s, int Hc, int Wc, int out_h, int out_w,
-    int tiles_w, int tiles_h, int ntiles, MmaPlan pl) {
+    int tiles_w, int tiles_h, int ntiles, int act, MmaPlan pl) {
   extern __shared__ __align__(128) unsigned char tail_smem[];
   unsigned char* halo = tail_smem;                     // [2][HH * hw] pixels of pstr bytes
   unsigned char* wts = tail_smem + 2 * pl.halo_bytes;  // [kyg * KW * kch] rows of wstr bytes
@@ -286,14 +323,19 @@ __global__ void __launch_bounds__(M_THREADS) fused_tail_mma_kernel(
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int ss = s * s, C = Cc / ss, HH = M_TH + KH - 1;
+  // this block's channel group: conv channels n0 .. n0 + Cg - 1, output
+  // channels c0 .. c0 + Cs - 1 of C
+  const int gw = group_width(Cc, s), n0 = blockIdx.y * gw, Cg = min(gw, Cc - n0);
+  const int Cs = Cg / ss, c0 = n0 / ss;
   const int cin_pad = (Cin + 15) / 16 * 16;
   const int nchunks = (cin_pad + pl.kch - 1) / pl.kch, nkg = (KH + pl.kyg - 1) / pl.kyg;
   const bool resident = nchunks == 1 && nkg == 1;
-  const bool vec_x = Cin % 8 == 0, vec_w = Cc % 8 == 0;
+  const bool vec_x = Cin % 8 == 0, vec_w = Cc % 8 == 0 && gw % 8 == 0;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
-  // Where conv channel n = c*s^2 + i*s + j of a position lands in the output
-  // stage, relative to the position's top-left pixel; -1 past Cc.
+  // Where the group's conv channel n (n0 + n = c*s^2 + i*s + j) of a position
+  // lands in the output stage, relative to the position's top-left pixel; -1
+  // past the group.
   int off[NB][2];
   float bv[NB][2];
 #pragma unroll
@@ -301,8 +343,8 @@ __global__ void __launch_bounds__(M_THREADS) fused_tail_mma_kernel(
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int n = 8 * q + 2 * t + e;
-      off[q][e] = n < Cc ? (((n % ss) / s) * (M_TW * s) + n % s) * C + n / ss : -1;
-      bv[q][e] = n < Cc ? bias[n] : 0.f;
+      off[q][e] = n < Cg ? (((n % ss) / s) * (M_TW * s) + n % s) * Cs + n / ss : -1;
+      bv[q][e] = n < Cg ? bias[n0 + n] : 0.f;
     }
 
   auto tile_origin = [&](int tile, int& img, int& cy0, int& cx0) {
@@ -339,39 +381,62 @@ __global__ void __launch_bounds__(M_THREADS) fused_tail_mma_kernel(
       const int r = idx / NB, j = idx % NB;
       const int ky = ky0 + r / (KW * pl.kch), kx = (r / pl.kch) % KW, c = chunk * pl.kch + r % pl.kch;
       const int o = r * pl.wstr + j * 16;
-      const __nv_bfloat16* src = w + ((size_t(ky) * KW + kx) * Cin + c) * Cc + 8 * j;
+      const __nv_bfloat16* src = w + ((size_t(ky) * KW + kx) * Cin + c) * Cc + n0 + 8 * j;
       if (vec_w) {
-        const bool ok = c < Cin && 8 * j < Cc;
+        const bool ok = c < Cin && 8 * j < Cg;
         cp_async16(wts_s + o, ok ? src : w, ok);
       } else {
         __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(wts + o);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) dst[k] = (c < Cin && 8 * j + k < Cc) ? src[k] : zero;
+        for (int k = 0; k < 8; ++k) dst[k] = (c < Cin && 8 * j + k < Cg) ? src[k] : zero;
       }
     }
   };
-  // Bias, one rounding, depth-to-space into the output stage (halo buffer sb,
-  // free once the tile's MMAs are done), then the stage's rows out to y, one
-  // row per warp, consecutive lanes on consecutive 4-byte words.
+  // Bias (and the activation), one rounding, depth-to-space into the output
+  // stage (halo buffer sb, free once the tile's MMAs are done), then the
+  // stage's rows out to y, one row per warp, consecutive lanes on consecutive
+  // 4-byte words.
   auto finish = [&](float (&acc)[2][NB][4], int tile, int sb) {
-    __nv_bfloat16* ost = reinterpret_cast<__nv_bfloat16*>(halo + sb * pl.halo_bytes);  // [M_TH*s][M_TW*s][C]
+    __nv_bfloat16* ost = reinterpret_cast<__nv_bfloat16*>(halo + sb * pl.halo_bytes);  // [M_TH*s][M_TW*s][Cs]
     int img, cy0, cx0;
     tile_origin(tile, img, cy0, cx0);
-    const int row_el = M_TW * s * C;  // elements in one stage row
+    const int row_el = M_TW * s * Cs;  // elements in one stage row
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int base = ((2 * warp + mi) * s * (M_TW * s) + (g + 8 * h) * s) * C;
+        const int base = ((2 * warp + mi) * s * (M_TW * s) + (g + 8 * h) * s) * Cs;
 #pragma unroll
         for (int q = 0; q < NB; ++q)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            if (off[q][e] >= 0) ost[base + off[q][e]] = __float2bfloat16(acc[mi][q][2 * h + e] + bv[q][e]);
+            if (off[q][e] >= 0)
+              ost[base + off[q][e]] = __float2bfloat16(epilogue(acc[mi][q][2 * h + e] + bv[q][e], act));
       }
     __syncthreads();
     const int oy0 = cy0 * s, ox0 = cx0 * s;
-    const int nel = min(M_TW * s, out_w - ox0) * C;
+    const int npx = min(M_TW * s, out_w - ox0), nel = npx * Cs;
+    if (Cs != C) {
+      // one group of several: each pixel's Cs channels are a run at stride C
+      // in y; channel pairs where runs and stride are even (whole 32-byte
+      // sectors at s 2: 16 of 64 channels), else elements
+      const bool pairs = Cs % 2 == 0 && C % 2 == 0 && c0 % 2 == 0;
+      for (int rr = warp; rr < M_TH * s; rr += M_THREADS / 32) {
+        const int oy = oy0 + rr;
+        if (oy >= out_h) break;
+        const __nv_bfloat16* srow = ost + rr * row_el;
+        __nv_bfloat16* grow = y + ((size_t(img) * out_h + oy) * out_w + ox0) * C + c0;
+        if (pairs) {
+          for (int e = 2 * lane; e < nel; e += 64)
+            *reinterpret_cast<__nv_bfloat162*>(grow + (e / Cs) * C + e % Cs) =
+                *reinterpret_cast<const __nv_bfloat162*>(srow + e);
+        } else {
+          for (int e = lane; e < nel; e += 32) grow[(e / Cs) * C + e % Cs] = srow[e];
+        }
+      }
+      __syncthreads();  // the stage is read out before its buffer takes a halo again
+      return;
+    }
     for (int rr = warp; rr < M_TH * s; rr += M_THREADS / 32) {
       const int oy = oy0 + rr;
       if (oy >= out_h) break;
@@ -451,6 +516,7 @@ __global__ void __launch_bounds__(M_THREADS) fused_tail_mma_kernel(
 }
 
 // The largest channel chunk, then the most kernel rows, whose staging fits.
+// cc: the conv channels of one group.
 bool plan_mma(int kh, int kw, int cin, int cc, int nb, MmaPlan& pl) {
   const int cin_pad = (cin + 15) / 16 * 16;
   pl.hw = M_TW + kw - 1;
@@ -472,9 +538,10 @@ bool plan_mma(int kh, int kw, int cin, int cc, int nb, MmaPlan& pl) {
 template <int NB>
 cudaError_t launch_mma_nb(const void* x, const void* w, const float* b, void* y, int n, int h,
                           int wd, int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s,
-                          int hc, int wc, int out_h, int out_w, cudaStream_t stream) {
+                          int hc, int wc, int out_h, int out_w, int act, cudaStream_t stream) {
+  const int gw = group_width(cc, s), groups = (cc + gw - 1) / gw;
   MmaPlan pl;
-  if (!plan_mma(kh, kw, cin, cc, NB, pl)) return cudaErrorInvalidConfiguration;
+  if (!plan_mma(kh, kw, cin, gw, NB, pl)) return cudaErrorInvalidConfiguration;
   const int smem = 2 * pl.halo_bytes + pl.wts_bytes;
   auto kern = fused_tail_mma_kernel<NB>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -486,20 +553,24 @@ cudaError_t launch_mma_nb(const void* x, const void* w, const float* b, void* y,
     return err;
   const int tiles_w = (wc + M_TW - 1) / M_TW, tiles_h = (hc + M_TH - 1) / M_TH;
   const int ntiles = tiles_w * tiles_h * n;
-  const int grid = std::max(1, std::min(ntiles, std::max(per_sm, 1) * sms));
-  kern<<<grid, M_THREADS, smem, stream>>>(
+  // persistent: the resident blocks are shared out among the groups
+  const int per_group = (std::max(per_sm, 1) * sms + groups - 1) / groups;
+  const int grid = std::max(1, std::min(ntiles, per_group));
+  kern<<<dim3(grid, groups), M_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), b,
       static_cast<__nv_bfloat16*>(y), h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w,
-      tiles_w, tiles_h, ntiles, pl);
+      tiles_w, tiles_h, ntiles, act, pl);
   return cudaGetLastError();
 }
 
 cudaError_t launch_mma(const void* x, const void* w, const float* b, void* y, int n, int h, int wd,
                        int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc, int wc,
-                       int out_h, int out_w, cudaStream_t st) {
-  switch ((cc + 7) / 8) {
-#define TAIL_NB(NB) \
-  case NB: return launch_mma_nb<NB>(x, w, b, y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, st);
+                       int out_h, int out_w, int act, cudaStream_t st) {
+  switch ((group_width(cc, s) + 7) / 8) {
+#define TAIL_NB(NB)                                                                                          \
+  case NB:                                                                                                   \
+    return launch_mma_nb<NB>(x, w, b, y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, act, \
+                             st);
     TAIL_NB(1) TAIL_NB(2) TAIL_NB(3) TAIL_NB(4) TAIL_NB(5) TAIL_NB(6) TAIL_NB(7) TAIL_NB(8)
 #undef TAIL_NB
     default: return cudaErrorInvalidValue;
@@ -915,16 +986,17 @@ cudaError_t launch_skip(const void* x, const void* x2, const float* packed, void
 }  // namespace
 
 // B2 in f32. x (n, h, wd, cin), w (kh, kw, cin, cc), b (cc,) and y (n, out_h,
-// out_w, cc / s^2), all f32 and contiguous. hc, wc: conv output positions to
-// compute (those that reach the crop). Launches on `stream`, does not
-// synchronise, returns cudaGetLastError() after the launch.
+// out_w, cc / s^2), all f32 and contiguous; cc a multiple of s^2, s^2 <= 64.
+// hc, wc: conv output positions to compute (those that reach the crop). act
+// 1: leaky ReLU (slope 0.1) after the bias; 0: none. Launches on `stream`,
+// does not synchronise, returns cudaGetLastError() after the launch.
 extern "C" int fused_conv_pixel_shuffle_launch(
     const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
     int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc,
-    int wc, int out_h, int out_w, void* stream) {
+    int wc, int out_h, int out_w, int act, void* stream) {
   if (bad_geometry(n, hc, wc, cin, cc, s)) return int(cudaErrorInvalidValue);
   return int(launch<float>(x, static_cast<const float*>(w), static_cast<const float*>(b), y, n, h, wd, cin, kh,
-                           kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, static_cast<cudaStream_t>(stream)));
+                           kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, act, static_cast<cudaStream_t>(stream)));
 }
 
 // B2 in bf16 on the tensor cores: x (n, h, wd, cin) bf16; w (kh, kw, cin, cc)
@@ -933,10 +1005,10 @@ extern "C" int fused_conv_pixel_shuffle_launch(
 extern "C" int fused_conv_pixel_shuffle_bf16_launch(
     const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
     int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc,
-    int wc, int out_h, int out_w, void* stream) {
+    int wc, int out_h, int out_w, int act, void* stream) {
   if (bad_geometry(n, hc, wc, cin, cc, s) || kh <= 0 || kw <= 0) return int(cudaErrorInvalidValue);
   return int(launch_mma(x, w, static_cast<const float*>(b), y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s,
-                        hc, wc, out_h, out_w, static_cast<cudaStream_t>(stream)));
+                        hc, wc, out_h, out_w, act, static_cast<cudaStream_t>(stream)));
 }
 
 
@@ -951,7 +1023,7 @@ extern "C" int fused_conv_pixel_shuffle_bf16_launch(
 extern "C" int fused_conv_pixel_shuffle_skip_launch(const void* x, const void* x2, const void* packed, void* y,
                                                     int n, int h, int w, int cin, int cp, int c2, int cc, int s,
                                                     int is_bf16, void* stream) {
-  if (bad_geometry(n, h, w, cin, cc, s) || cin > 64 || cp < cin || cp > 80 || cp % 2 || c2 < 1 || c2 > S_C2)
+  if (bad_geometry(n, h, w, cin, cc, s) || cc > 64 || cin > 64 || cp < cin || cp > 80 || cp % 2 || c2 < 1 || c2 > S_C2)
     return int(cudaErrorInvalidValue);
   const float* p = static_cast<const float*>(packed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

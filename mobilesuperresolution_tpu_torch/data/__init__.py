@@ -5,8 +5,8 @@ Each dataset module exposes ``update_argparser(parser)`` and
 (eval sets, synthetic) expose ``bind(name)``. Registered: the SISR
 evaluation sets (DIV2K validation, Set5, Set14, BSDS100, Urban100,
 synthetic_isr), DIV2K's training half, and the video sets REDS, Vimeo-90k,
-NEMO (raw frames from the YUV420 converter, data/yuv.py) and synthetic_vsr;
-reds_with_mv is queued in ROADMAP.md (A6).
+NEMO (raw frames from the YUV420 converter, data/yuv.py), REDS with codec
+motion vectors (reds_with_mv, for 'basic_mv') and synthetic_vsr.
 """
 
 import importlib
@@ -18,6 +18,7 @@ _DATASET_MODULES = {
     "bsds100": "mobilesuperresolution_tpu_torch.data.eval_sets",
     "urban100": "mobilesuperresolution_tpu_torch.data.eval_sets",
     "reds": "mobilesuperresolution_tpu_torch.data.reds",
+    "reds_with_mv": "mobilesuperresolution_tpu_torch.data.reds_with_mv",
     "vimeo": "mobilesuperresolution_tpu_torch.data.vimeo",
     "nemo": "mobilesuperresolution_tpu_torch.data.nemo",
     "synthetic_isr": "mobilesuperresolution_tpu_torch.data.synthetic_module",

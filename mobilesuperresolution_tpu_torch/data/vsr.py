@@ -10,7 +10,11 @@ mobilesuperresolution_tpu/data/vsr.py, the reference's datasets/_vsr.py):
   transpose for video;
 - TRAIN length = windows x num_patches, item index // num_patches;
 - EVAL items are (save_path, lr (T, h, w, C), hr (T, H, W, C)), save_path
-  from the last two components of the first frame's key.
+  from the last two components of the first frame's key;
+- a subclass may add per-frame channels to the LR (``_extra_frames``, e.g.
+  codec motion vectors): they take the LR's crop, are concatenated unscaled
+  after the /255 LR, are flipped with it, and ``_flip_extra`` then adjusts
+  them (e.g. negates the flipped displacement component).
 
 Frames decode through an ``ArrayCache`` when the dataset has one
 (``prepare_cache`` fills it). ``item(index, rng)`` draws from the stream it
@@ -88,6 +92,16 @@ class VideoSRDataset:
             return len(self.lr_windows) * self.params.num_patches
         return len(self.lr_windows)
 
+    def _extra_frames(self, index):
+        """None, or per LR frame of the window an (H, W, Ce) float32 array
+        concatenated onto the normalised LR, not scaled by 1/255."""
+        return None
+
+    def _flip_extra(self, lr, axis):
+        """Adjust the extra channels of ``lr`` after a flip along ``axis``
+        ('width' or 'height'); returns lr."""
+        return lr
+
     def __getitem__(self, index):
         return self.item(index, self.rng)
 
@@ -97,6 +111,7 @@ class VideoSRDataset:
         if self.mode == modes.TRAIN:
             index = index // self.params.num_patches
         lr_list, hr_list = self._load_item(index)
+        extra_list = self._extra_frames(index)
         p = self.params
         p1, p2 = rng.random(), rng.random()
         if self.mode == modes.TRAIN and getattr(p, "train_sample_patch", True):
@@ -107,13 +122,17 @@ class VideoSRDataset:
             ps, s = p.lr_patch_size, p.scale
             lr_list = [f[x : x + ps, y : y + ps] for f in lr_list]
             hr_list = [f[x * s : (x + ps) * s, y * s : (y + ps) * s] for f in hr_list]
+            if extra_list is not None:
+                extra_list = [m[x : x + ps, y : y + ps] for m in extra_list]
         lr = np.stack([np.ascontiguousarray(f) for f in lr_list]).astype(np.float32) / 255.0
         hr = np.stack([np.ascontiguousarray(f) for f in hr_list]).astype(np.float32) / 255.0
+        if extra_list is not None:
+            lr = np.concatenate([lr, np.stack(extra_list).astype(np.float32)], axis=-1)
         if self.mode == modes.TRAIN:
             if p1 < 0.5:  # horizontal flip (width axis)
-                lr, hr = lr[:, :, ::-1], hr[:, :, ::-1]
+                lr, hr = self._flip_extra(lr[:, :, ::-1].copy(), "width"), hr[:, :, ::-1]
             if p2 < 0.5:  # vertical flip (height axis)
-                lr, hr = lr[:, ::-1], hr[:, ::-1]
+                lr, hr = self._flip_extra(lr[:, ::-1].copy(), "height"), hr[:, ::-1]
             return np.ascontiguousarray(lr), np.ascontiguousarray(hr)
         parts = os.path.splitext(self.lr_windows[index][0][0])[0].split("/")
         save_path = (parts[-2] + parts[-1]) if len(parts) >= 2 else parts[-1]

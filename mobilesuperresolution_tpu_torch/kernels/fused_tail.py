@@ -7,8 +7,11 @@ fused_conv_pixel_shuffle (Pallas, 3x3 SAME only) with the hand-written CUDA
 kernels of csrc/fused_tail.cu. B2 is generalised to any kernel size,
 per-side padding, scale and crop: the 3x3/pad-1 form of the Pallas kernel
 and the 2x2/pad-((1,2),(1,2))/s=4 reconstruction tail of BasicVSR
-(ops/layers.py::SubpixelConvTranspose). B2 in bf16 (the main path) runs a
-tensor-core kernel (mma.sync, cp.async double-buffered halo, persistent
+(ops/layers.py::SubpixelConvTranspose). It takes any number of conv channels
+that s² divides (both kernels tile them over the grid in groups of at most
+64, as the Pallas kernel takes any s²·C'; BasicVSROrigin's upconvs have 256)
+and an optional leaky-ReLU epilogue (slope 0.1) after the bias. B2 in bf16
+(the main path) runs a tensor-core kernel (mma.sync, cp.async double-buffered halo, persistent
 grid, depth-to-space staged in shared memory and written out row by row);
 B2 in float32 runs a CUDA-core kernel. B4, ``fused_conv_pixel_shuffle_skip``,
 is the tail of models/wdsr_basic.py::BasicModel and
@@ -36,15 +39,18 @@ from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import _fragments,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "fused_conv_pixel_shuffle_launch": [_P] * 4 + [_I] * 14 + [_P],
-    "fused_conv_pixel_shuffle_bf16_launch": [_P] * 4 + [_I] * 14 + [_P],
+    "fused_conv_pixel_shuffle_launch": [_P] * 4 + [_I] * 15 + [_P],
+    "fused_conv_pixel_shuffle_bf16_launch": [_P] * 4 + [_I] * 15 + [_P],
     "fused_conv_pixel_shuffle_skip_launch": [_P] * 4 + [_I] * 9 + [_P],
 }
-MAX_CONV_CHANNELS = 64
+# B2 computes its conv channels in groups of at most 64 that s² divides, so
+# it takes s² <= 64
+GROUP_CHANNELS = 64
+LRELU_SLOPE = 0.1
 # B4's shapes: a 3x3 body conv over 1..64 channels, a 5x5 skip conv over
 # 1..3 channels, at most 64 conv channels
 SKIP_KERNELS = (3, 5)
-MAX_BODY_CHANNELS, MAX_SKIP_CHANNELS = 64, 3
+MAX_CONV_CHANNELS, MAX_BODY_CHANNELS, MAX_SKIP_CHANNELS = 64, 64, 3
 
 
 def _geometry(x, kernel, scale, padding, crop):
@@ -58,8 +64,9 @@ def _geometry(x, kernel, scale, padding, crop):
 
 
 def _check_channels(name, cc, scale):
-    if cc % (scale * scale) or cc > MAX_CONV_CHANNELS:
-        raise ValueError(f"{name}: {cc} conv channels, need a multiple of s²={scale * scale} and <= 64")
+    if cc % (scale * scale) or scale * scale > GROUP_CHANNELS:
+        raise ValueError(f"{name}: {cc} conv channels at s={scale}, need a multiple of s² and s² <= "
+                         f"{GROUP_CHANNELS}")
 
 
 def _check_cuda(name, x, *others):
@@ -75,7 +82,7 @@ def _output(x, kernel, scale, padding, crop):
     return torch.empty((x.shape[0], oh, ow, cc // (scale * scale)), dtype=x.dtype, device=x.device)
 
 
-def _launch(x, kernel, bias, scale, padding, crop, y):
+def _launch(x, kernel, bias, scale, padding, crop, lrelu, y):
     """Launch B2 (csrc/fused_tail.cu) on checked CUDA tensors: the
     tensor-core kernel in bf16, the CUDA-core kernel in f32. Kernel and bias
     are rounded to x.dtype; the tensor-core kernel reads the kernel as bf16,
@@ -83,7 +90,7 @@ def _launch(x, kernel, bias, scale, padding, crop, y):
     hc, wc, oh, ow = _geometry(x, kernel, scale, padding, crop)
     (pt, _), (pl, _) = padding
     geom = (*x.shape, kernel.shape[0], kernel.shape[1], pt, pl, kernel.shape[3], scale,
-            min(hc, -(-oh // scale)), min(wc, -(-ow // scale)), oh, ow)
+            min(hc, -(-oh // scale)), min(wc, -(-ow // scale)), oh, ow, int(bool(lrelu)))
     b32 = bias.to(x.dtype).float().contiguous()
     w = kernel.to(x.dtype).contiguous()
     stream = torch.cuda.current_stream().cuda_stream
@@ -92,27 +99,31 @@ def _launch(x, kernel, bias, scale, padding, crop, y):
     _build.launch(lib, fn, x.data_ptr(), w.data_ptr(), b32.data_ptr(), y.data_ptr(), *geom, stream)
 
 
-def fused_conv_pixel_shuffle_plain(x, kernel, bias, scale, padding=((1, 1), (1, 1)), crop=None):
+def fused_conv_pixel_shuffle_plain(x, kernel, bias, scale, padding=((1, 1), (1, 1)), crop=None, lrelu=False):
     """Plain PyTorch version: x (B, H, W, C); kernel (KH, KW, C, s²·C') HWIO;
     bias (s²·C',). Returns depth_to_space(conv(pad(x)) + bias, s) cropped to
-    ``crop`` = (out_h, out_w), as (B, out_h, out_w, C') in x.dtype."""
+    ``crop`` = (out_h, out_w), then leaky_relu(·, 0.1) when ``lrelu``, as
+    (B, out_h, out_w, C') in x.dtype."""
     _, _, oh, ow = _geometry(x, kernel, scale, padding, crop)
     (pt, pb), (pl, pr) = padding
     xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
     y = F.conv2d(xp, kernel.permute(3, 2, 0, 1).to(x.dtype), bias.to(x.dtype))
     y = F.pixel_shuffle(y, scale)[:, :, :oh, :ow]
+    if lrelu:
+        y = F.leaky_relu(y, LRELU_SLOPE)
     return y.permute(0, 2, 3, 1)
 
 
-def fused_conv_pixel_shuffle(x, kernel, bias, scale, padding=((1, 1), (1, 1)), crop=None):
-    """x: (B, H, W, C) bf16 or f32; kernel: (KH, KW, C, s²·C'), at most 64
-    conv channels; bias: (s²·C',); padding: ((top, bottom), (left, right));
-    crop: (out_h, out_w) or None for the whole shuffled map. Accumulates in
-    f32 (kernel and bias rounded to x.dtype first) and writes (B, out_h,
-    out_w, C') in x.dtype. On the card, bf16 runs the tensor-core kernel and
-    float32 the CUDA-core one (csrc/fused_tail.cu)."""
+def fused_conv_pixel_shuffle(x, kernel, bias, scale, padding=((1, 1), (1, 1)), crop=None, lrelu=False):
+    """x: (B, H, W, C) bf16 or f32; kernel: (KH, KW, C, s²·C'), any number
+    of conv channels that s² divides, s² <= 64; bias: (s²·C',); padding:
+    ((top, bottom), (left, right)); crop: (out_h, out_w) or None for the
+    whole shuffled map; lrelu: a leaky ReLU (slope 0.1) after the bias.
+    Accumulates in f32 (kernel and bias rounded to x.dtype first) and writes
+    (B, out_h, out_w, C') in x.dtype. On the card, bf16 runs the tensor-core
+    kernel and float32 the CUDA-core one (csrc/fused_tail.cu)."""
     if x.device.type == "cpu":
-        return fused_conv_pixel_shuffle_plain(x, kernel, bias, scale, padding, crop)
+        return fused_conv_pixel_shuffle_plain(x, kernel, bias, scale, padding, crop, lrelu)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_pixel_shuffle: unsupported device {x.device}")
     cc = kernel.shape[3]
@@ -124,7 +135,7 @@ def fused_conv_pixel_shuffle(x, kernel, bias, scale, padding=((1, 1), (1, 1)), c
     _check_channels("fused_conv_pixel_shuffle", cc, scale)
     _check_cuda("fused_conv_pixel_shuffle", x, kernel, bias)
     y = _output(x, kernel, scale, padding, crop)
-    _launch(x, kernel, bias, scale, padding, crop, y)
+    _launch(x, kernel, bias, scale, padding, crop, lrelu, y)
     fused_conv_pixel_shuffle.launches += 1
     return y
 
@@ -134,25 +145,26 @@ fused_conv_pixel_shuffle.launches = 0
 
 class FusedConvPixelShuffleFn(torch.autograd.Function):
     """``fused_conv_pixel_shuffle`` with a gradient, for training on weights
-    that change every step: ``apply(x, kernel, bias, scale, padding,
-    crop)``; forward = one kernel launch (the plain version on the CPU);
-    backward = the plain version recomputed under autograd, differentiated
-    for every input that needs a gradient (in x.dtype, as the plain version
-    computes: its casts of kernel and bias carry their gradients back to
-    their own dtype)."""
+    that change every step: ``apply(x, kernel, bias, scale, padding, crop[,
+    lrelu])``; forward = one kernel launch (the plain version on the CPU);
+    backward = the plain version, activation included, recomputed under
+    autograd, differentiated for every input that needs a gradient (in
+    x.dtype, as the plain version computes: its casts of kernel and bias
+    carry their gradients back to their own dtype)."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias, scale, padding, crop):
+    def forward(ctx, x, kernel, bias, scale, padding, crop, lrelu=False):
         ctx.save_for_backward(x, kernel, bias)
-        ctx.geometry = (scale, padding, crop)
-        return fused_conv_pixel_shuffle(x, kernel, bias, scale, padding, crop)
+        ctx.geometry = (scale, padding, crop, lrelu)
+        return fused_conv_pixel_shuffle(x, kernel, bias, scale, padding, crop, lrelu)
 
     @staticmethod
     def backward(ctx, grad_y):
         def plain(x, kernel, bias):
             return fused_conv_pixel_shuffle_plain(x, kernel, bias, *ctx.geometry)
 
-        return plain_backward(plain, ctx, grad_y) + (None, None, None)
+        # one None for each geometry argument given to apply
+        return plain_backward(plain, ctx, grad_y) + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
 def fused_conv_pixel_shuffle_skip_plain(x, kernel, bias, scale, x_skip, kernel_skip):

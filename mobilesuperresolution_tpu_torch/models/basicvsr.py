@@ -1,4 +1,5 @@
-"""Mobile BasicVSR: bidirectional recurrent video SR (counterpart of
+"""BasicVSR: bidirectional recurrent video SR, mobile (``BasicVSR``) and
+faithful (``BasicVSROrigin``) (counterpart of
 mobilesuperresolution_tpu/models/basicvsr.py).
 
 - Both flow directions of a clip go through ONE batched SpyNet call.
@@ -13,6 +14,11 @@ mobilesuperresolution_tpu/models/basicvsr.py).
   B2 → bilinear resize → + bilinear base) runs batched over B·T.
 
 ``conv_last`` maps 2·nf → 3 channels, as in the JAX package.
+``BasicVSROrigin`` (nf 64, 30 blocks, x4) reconstructs as the paper's
+BasicVSR: fusion 1x1 → lrelu → two [3x3 conv, depth_to_space(2), lrelu]
+upconvs, each one launch of kernel B2 with its leaky ReLU fused (upconv2 has
+256 conv channels) → conv_hr 3x3 → lrelu → conv_last 3x3 → + the 4x
+bilinear base → bilinear resize to (height, width).
 
 In eval mode every layer computes on the weights ``prepare()`` derived. In
 train mode (the VSR trainer) the trunks, ``fusion`` and ``conv_last`` derive
@@ -37,7 +43,7 @@ from mobilesuperresolution_tpu_torch.models.spynet import (
     flow_downscale_hw,
     upsample_flow,
 )
-from mobilesuperresolution_tpu_torch.ops.layers import PlainConv, SubpixelConvTranspose
+from mobilesuperresolution_tpu_torch.ops.layers import PlainConv, SubpixelConvTranspose, UpConv
 from mobilesuperresolution_tpu_torch.ops.quant import conv2d_maybe_quantized
 from mobilesuperresolution_tpu_torch.ops.resize import resize_bilinear
 from mobilesuperresolution_tpu_torch.ops.warp import flow_warp
@@ -155,7 +161,11 @@ class BasicVSRBase(nn.Module):
     """Shared propagation machinery. Parameters are float32 in the JAX
     layouts; ``prepare()`` derives the compute-dtype weights every layer
     uses, and must run again after the parameters or their device change
-    (``train.checkpoint.load_params_npz`` calls it)."""
+    (``train.checkpoint.load_params_npz`` calls it). A subclass whose flows
+    come from elsewhere sets ``has_spynet = False`` and has no ``spynet``
+    module at all (no parameters, nothing prepared), as in the JAX package."""
+
+    has_spynet = True
 
     def __init__(self, num_feat, num_block, scale=4, compute_dtype=torch.float32, flow_downscale=1, remat=False):
         super().__init__()
@@ -167,11 +177,13 @@ class BasicVSRBase(nn.Module):
         # SpyNet runs on 1/flow_downscale-res frames and its flow is
         # upsampled (1 = the reference's flows)
         self.flow_downscale = flow_downscale
-        self.spynet = SpyNet()
+        if self.has_spynet:
+            self.spynet = SpyNet()
         self.propagation = _MergedPropagation(3, num_feat, num_block)
 
     def prepare(self):
-        self.spynet.prepare(self.compute_dtype)
+        if self.has_spynet:
+            self.spynet.prepare(self.compute_dtype)
         self.propagation.trunks.prepare(self.compute_dtype)
 
     def _flows(self, x, flows=None):
@@ -226,12 +238,60 @@ class BasicVSR(BasicVSRBase):
         (T-1, B, H, W, 2) time-major; SpyNet is then skipped."""
         in_dtype = x.dtype
         x = x.to(self.compute_dtype)
-        b, t, h, w, c = x.shape
         ff, fb = self._flows(x, flows)
-        out_b, out_f = self._propagate(x, ff, fb)
+        return self._reconstruct(x, *self._propagate(x, ff, fb), height, width).to(in_dtype)
+
+    def _reconstruct(self, x, out_b, out_f, height, width):
+        """The per-frame reconstruction, batched over B·T: (B, T, height,
+        width, C) in the compute dtype."""
+        b, t, h, w, c = x.shape
         feats = torch.cat([out_b, out_f], dim=-1).reshape(b * t, h, w, 2 * self.num_feat)
         fusion, conv_last = (self.fusion.forward_live, self.conv_last.forward_live) if self.training else (
             self.fusion, self.conv_last)
         out = conv_last(lrelu(fusion(feats)), out_hw=(height, width), align_corners=False)
         out = out + resize_bilinear(x.reshape(b * t, h, w, c), (height, width))
+        return out.reshape(b, t, height, width, c)
+
+
+class BasicVSROrigin(BasicVSRBase):
+    """Faithful BasicVSR (x4 only): fusion 1x1 (2nf→nf) → lrelu → upconv1
+    (3x3 nf→4nf, depth_to_space(2), lrelu) → upconv2 (3x3 nf→256,
+    depth_to_space(2), lrelu) → conv_hr (3x3 64→64) → lrelu → conv_last
+    (3x3 64→3) → + the 4x bilinear base → bilinear resize to (height,
+    width). Each upconv is one launch of kernel B2."""
+
+    def __init__(self, num_feat=64, num_block=30, scale=4, compute_dtype=torch.float32, flow_downscale=1,
+                 remat=False):
+        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale, remat)
+        self.fusion = PlainConv(2 * num_feat, num_feat, 1)
+        self.upconv1 = UpConv(num_feat, 4 * num_feat)
+        # 64 * 4 conv channels whatever nf is, as in the reference
+        self.upconv2 = UpConv(num_feat, 64 * 4)
+        self.conv_hr = PlainConv(64, 64, 3)
+        self.conv_last = PlainConv(64, 3, 3)
+        self.prepare()
+
+    def _convs(self):
+        return (self.fusion, self.upconv1, self.upconv2, self.conv_hr, self.conv_last)
+
+    def prepare(self):
+        super().prepare()
+        for conv in self._convs():
+            conv.prepare(self.compute_dtype)
+
+    def forward(self, x, height=1080, width=1920, flows=None):
+        """x: (B, T, H, W, C) → (B, T, height, width, C) in x.dtype; flows as
+        ``BasicVSR.forward``'s."""
+        in_dtype = x.dtype
+        x = x.to(self.compute_dtype)
+        b, t, h, w, c = x.shape
+        ff, fb = self._flows(x, flows)
+        out_b, out_f = self._propagate(x, ff, fb)
+        feats = torch.cat([out_b, out_f], dim=-1).reshape(b * t, h, w, 2 * self.num_feat)
+        fusion, up1, up2, conv_hr, conv_last = (
+            (m.forward_live for m in self._convs()) if self.training else self._convs())
+        out = up2(up1(lrelu(fusion(feats))))
+        out = conv_last(lrelu(conv_hr(out)))
+        out = out + resize_bilinear(x.reshape(b * t, h, w, c), (4 * h, 4 * w))
+        out = resize_bilinear(out, (height, width))
         return out.reshape(b, t, height, width, c).to(in_dtype)

@@ -118,6 +118,34 @@ class PlainConv(nn.Module):
         return conv2d_nhwc(x, *self._weights(x.dtype), padding=self.kernel.shape[0] // 2)
 
 
+class UpConv(PlainConv):
+    """BasicVSR's upsampling step: a 3x3 SAME ``PlainConv``, then
+    depth_to_space(·, 2), then a leaky ReLU (slope 0.1), as one launch of
+    kernel B2 (conv, bias, shuffle and activation fused). The parameters are
+    PlainConv's (HWIO ``kernel``, ``bias``; checkpoint key
+    ``<name>/Conv_0/...``); ``forward_live`` runs B2 through its autograd
+    Function on the live parameters."""
+
+    _PAD = ((1, 1), (1, 1))
+
+    def __init__(self, in_features, features):
+        super().__init__(in_features, features, 3)
+
+    def prepare(self, dtype=None):
+        """Derive the HWIO kernel and the bias in ``dtype`` (default: the last
+        one used), as copies."""
+        dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
+        with torch.no_grad():
+            self._k, self._b = (t.detach().to(dtype).clone() for t in (self.kernel, self.bias))
+
+    def forward(self, x):
+        return fused_conv_pixel_shuffle(x.contiguous(), self._k, self._b, 2, self._PAD, None, True)
+
+    def forward_live(self, x):
+        return FusedConvPixelShuffleFn.apply(x.contiguous(), self.kernel.to(x.dtype), self.bias.to(x.dtype), 2,
+                                             self._PAD, None, True)
+
+
 def subpixel_transpose_kernel(w, stride):
     """Rearrange a flax ConvTranspose kernel (K, K, Cin, Cout) — un-mirrored,
     applied over the s-dilated input — into the equivalent sub-pixel conv

@@ -30,7 +30,9 @@ from mobilesuperresolution_tpu_torch.serve.streaming import StreamingVSR
 
 
 def make_flow_sr_fns(model, height, width, mesh=None):
-    """Split a BasicVSR into (flow_fn, sr_fn) for flow reuse.
+    """Split a BasicVSR ('basic' or 'basic_origin') into (flow_fn, sr_fn) for
+    flow reuse. 'basic_mv' takes its flows from the bitstream and has no
+    SpyNet, so it is refused, as are the models without this split.
 
     flow_fn(ref, supp): (N, H, W, C) pair frames → (N, H, W, 2) flows at
         input resolution, as ``compute_flows`` computes them for those pair
@@ -44,7 +46,8 @@ def make_flow_sr_fns(model, height, width, mesh=None):
         raise NotImplementedError("flow reuse over a spatial mesh (--spatial_shards) is not ported yet "
                                   "(ROADMAP.md, queue A8)")
     if not hasattr(model, "spynet"):
-        raise ValueError(f"flow reuse needs a SpyNet-based model (BasicVSR family), got {type(model).__name__}")
+        raise ValueError(f"flow reuse needs a SpyNet-based model (BasicVSR family); got {type(model).__name__}, "
+                         "which has no spynet")
     d, dtype = model.flow_downscale, model.compute_dtype
 
     def flow_fn(ref, supp):

@@ -10,7 +10,12 @@ B1: SpyNet's five finest-level space-to-depth convs of one BasicVSR window,
 (18, 128, 224) bf16, 32->128, 128->256, 256->128, 128->64 (ReLU) and 64->8,
 the cases ``chip_smoke.py`` reports as B1's main path. B2: BasicVSR x4's
 reconstruction tail, (10, 240, 426, 48) bf16, 2x2 conv with padding
-((1, 2), (1, 2)), s = 4, cropped to 961x1705. Window: BasicVSR x4 (nf 24,
+((1, 2), (1, 2)), s = 4, cropped to 961x1705; and at the zoo's shapes
+(``b2_more_ms``): 'multi''s decode at the serving window, (10, 240, 426,
+18) 3x3 s 4 bf16, the VSR training step's tail (20, 64, 64, 48) in f32 and
+bf16, and 'basic_origin''s upconv1 (10, 240, 426, 64) 3x3 s 2 to 256 conv
+channels with the leaky ReLU, bf16 (null for a checkout whose B2 does not
+take it). Window: BasicVSR x4 (nf 24,
 8 blocks, bf16, seeded random weights) on chip_smoke.py's 10 synthetic
 426x240 frames, as chip_smoke.py times it. Prints one JSON line with, per
 case, the mean ms of 20 calls (B2: 50, window: 5; CUDA events) in each of 5
@@ -102,6 +107,24 @@ def main():
     report["b2_ms"] = repeats(tail, iters=50)
     report["b2_ms_mean"] = sum(report["b2_ms"]) / len(report["b2_ms"])
     report["checksum"]["b2"] = float(out.float().sum())
+
+    more = {"serve_multi_decode_bf16": (10, 240, 426, 18, 3, 4, 48, ((1, 1), (1, 1)), None, torch.bfloat16),
+            "train_tail_f32": (20, 64, 64, 48, 2, 4, 48, ((1, 2), (1, 2)), (257, 257), torch.float32),
+            "train_tail_bf16": (20, 64, 64, 48, 2, 4, 48, ((1, 2), (1, 2)), (257, 257), torch.bfloat16),
+            "upconv1_bf16": (10, 240, 426, 64, 3, 2, 256, ((1, 1), (1, 1)), None, torch.bfloat16)}
+    report["b2_more_ms"] = {}
+    for name, (n2, h2, w2, cin, k, s2, cc, pad, crop, dt) in more.items():
+        x2 = rand((n2, h2, w2, cin), 1.0, dt)
+        kern2 = rand((k, k, cin, cc), (k * k * cin) ** -0.5, dt)
+        b2 = rand((cc,), 0.1, dt)
+        extra = (True,) if name.startswith("upconv") else ()  # the fused leaky ReLU
+        try:
+            fused_conv_pixel_shuffle(x2, kern2, b2, s2, pad, crop, *extra)
+        except (TypeError, ValueError):  # a B2 that does not take this shape
+            report["b2_more_ms"][name] = None
+            continue
+        report["b2_more_ms"][name] = repeats(lambda: fused_conv_pixel_shuffle(x2, kern2, b2, s2, pad, crop, *extra),
+                                             iters=50)
 
     model = get_vsr_model("basic", scale=4, compute_dtype=torch.bfloat16, device=dev)
     load_params_npz(model, random_jax_params(model, seed=0))

@@ -146,6 +146,34 @@ def test_fused_tail_kernel_matches_plain(cuda, dtype, k, s, pad, crop):
     assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype)
 
 
+# B2 past 64 conv channels (groups of 64 over the grid): BasicVSROrigin's
+# upconvs (3x3, s 2, 64 -> 256 and a 128-channel form) on ragged maps, and
+# a width whose last group is short (260 = 4 x 64 + 4)
+WIDE_TAILS = {"cc128": (2, 13, 21, 64, 128), "cc256": (2, 13, 21, 64, 256), "cc260": (1, 9, 10, 20, 260)}
+
+
+@pytest.mark.parametrize("lrelu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(WIDE_TAILS))
+def test_fused_tail_wide_channels_match_plain(cuda, case, dtype, lrelu):
+    """B2 at 128, 256 and 260 conv channels, 3x3 SAME, s 2, with and without
+    the fused leaky ReLU, against the plain version: one launch."""
+    n, h, w, cin, cc = WIDE_TAILS[case]
+    g = torch.Generator().manual_seed(cc)
+    x = (torch.rand((n, h, w, cin), generator=g) * 2 - 1).to(cuda, dtype)
+    kern = ((torch.rand((3, 3, cin, cc), generator=g) * 2 - 1) / (3 * cin ** 0.5)).to(cuda, dtype)
+    b = (torch.rand(cc, generator=g) - 0.5).to(cuda, dtype)
+    pad = ((1, 1), (1, 1))
+    before = fused_conv_pixel_shuffle.launches
+    got = fused_conv_pixel_shuffle(x, kern, b, 2, pad, None, lrelu)
+    want = fused_conv_pixel_shuffle_plain(x, kern, b, 2, pad, None, lrelu)
+    torch.cuda.synchronize()
+    assert fused_conv_pixel_shuffle.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape == (n, 2 * h, 2 * w, cc // 4)
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype)
+    assert (float(got.min()) < 0) == (float(want.min()) < 0)
+
+
 def _rand(g, shape, scale, dev, dtype=torch.float32):
     return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev, dtype)
 
@@ -293,8 +321,10 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     x = torch.zeros(1, 8, 8, 4, device=cuda)
     with pytest.raises(ValueError):
         conv5x5_same(x[:, :, ::2], torch.zeros(5, 5, 4, 4, device=cuda), torch.zeros(4, device=cuda))
-    with pytest.raises(ValueError):
-        fused_conv_pixel_shuffle(x, torch.zeros(3, 3, 4, 80, device=cuda), torch.zeros(80, device=cuda), 2)
+    with pytest.raises(ValueError):  # 78 conv channels: not a multiple of s² = 4
+        fused_conv_pixel_shuffle(x, torch.zeros(3, 3, 4, 78, device=cuda), torch.zeros(78, device=cuda), 2)
+    with pytest.raises(ValueError):  # s² = 81 > 64: a channel group would not hold one output channel
+        fused_conv_pixel_shuffle(x, torch.zeros(3, 3, 4, 81, device=cuda), torch.zeros(81, device=cuda), 9)
     z = torch.zeros
     with pytest.raises(ValueError, match="not a WDSR-B block"):  # C > 64
         fused_wdsr_block(z(1, 8, 8, 72, device=cuda), z(72, 432, device=cuda), z(432, device=cuda),
@@ -447,30 +477,37 @@ ZOO_TAILS = {
     "single_tail": (3, 13, 21, 32, 2, 4, ((1, 2), (1, 2)), (4 * 13 + 1, 4 * 21 + 1)),
     "multi_decode": (3, 13, 21, 18, 3, 4, ((1, 1), (1, 1)), None),
 }
+# BasicVSROrigin's upconvs: 3x3 SAME, s 2, 64 -> 128 and 256 conv channels,
+# the leaky ReLU fused
+UPCONVS = {"upconv_cc128": 128, "upconv_cc256": 256}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", ["vsr_train_tail", "ragged", "single_tail", "multi_decode"])
+@pytest.mark.parametrize("case", ["vsr_train_tail", "ragged", "single_tail", "multi_decode", *UPCONVS])
 def test_conv_pixel_shuffle_fn_gradients_on_card(cuda, dtype, case):
     """FusedConvPixelShuffleFn (B2 forward) on the card: one launch per
     forward, forward and gradients against autograd through the plain
     version, at the VSR training step's tail (2 clips x 10 frames of 64x64,
-    2x2 over 48 channels, s 4, cropped to 257x257), a ragged 3x3 s2 map, and
-    the 'single' and 'multi' tails (``ZOO_TAILS``)."""
+    2x2 over 48 channels, s 4, cropped to 257x257), a ragged 3x3 s2 map, the
+    'single' and 'multi' tails (``ZOO_TAILS``) and BasicVSROrigin's upconvs
+    with the fused leaky ReLU (``UPCONVS``, ragged 3 x 13x21 maps)."""
+    lrelu = case in UPCONVS
     if case == "vsr_train_tail":
         n, h, w, cin, k, s, pad, crop = 20, 64, 64, 48, 2, 4, ((1, 2), (1, 2)), (257, 257)
     elif case == "ragged":
         n, h, w, cin, k, s, pad, crop = 3, 37, 53, 16, 3, 2, ((1, 1), (1, 1)), (73, 105)
+    elif lrelu:
+        n, h, w, cin, k, s, pad, crop = 3, 13, 21, 64, 3, 2, ((1, 1), (1, 1)), None
     else:
         n, h, w, cin, k, s, pad, crop = ZOO_TAILS[case]
-    cc = 3 * s * s
+    cc = UPCONVS[case] if lrelu else 3 * s * s
     g = torch.Generator().manual_seed(n)
     inputs = [((torch.rand((n, h, w, cin), generator=g) * 2 - 1)).to(cuda, dtype),
               ((torch.rand((k, k, cin, cc), generator=g) * 2 - 1) / (k * cin ** 0.5)).to(cuda),
               (torch.rand(cc, generator=g) * 0.2 - 0.1).to(cuda)]
     before = fused_conv_pixel_shuffle.launches
-    _fn_against_plain(lambda *a: FusedConvPixelShuffleFn.apply(*a, s, pad, crop),
-                      lambda *a: fused_conv_pixel_shuffle_plain(*a, s, pad, crop), inputs, dtype)
+    _fn_against_plain(lambda *a: FusedConvPixelShuffleFn.apply(*a, s, pad, crop, lrelu),
+                      lambda *a: fused_conv_pixel_shuffle_plain(*a, s, pad, crop, lrelu), inputs, dtype)
     assert fused_conv_pixel_shuffle.launches == before + 1
 
 
@@ -542,16 +579,26 @@ def test_pretrain_resume_on_card(cuda, tmp_path):
         np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
 
 
-@pytest.mark.parametrize("kind", ["single", "multi"])
+# kernel launches per forward of each tiny zoo model: (B1, B2, B4)
+ZOO_LAUNCHES = {"single": (0, 1, 0), "multi": (30, 1, 0), "basic_mv": (0, 1, 0), "multi_v1": (30, 0, 1),
+                "basic_origin": (30, 2, 0)}
+
+
+@pytest.mark.parametrize("kind", list(ZOO_LAUNCHES))
 def test_tiny_zoo_models_match_cpu(cuda, kind):
-    """A tiny float32 'single' (8 channels, 2 blocks) and 'multi' (the
-    artifact [[8, 8, 3], [8, 6, 5]]), x4 on 3 frames of 64x64, on the card
+    """A tiny float32 'single' (8 channels, 2 blocks), 'multi' and 'multi_v1'
+    (the artifact [[8, 8, 3], [8, 6, 5]]), 'basic_mv' and 'basic_origin' (nf
+    8, 1 block; basic_origin's upconv2 at 256 conv channels), x4 on 3 frames
+    of 64x64 (basic_mv with motion vectors of a few pixels), on the card
     against the CPU: the eval forward within 1e-4 of the largest output,
-    with B2 once per forward and for 'multi' B1 30 times (SpyNet's six even
-    levels); then three training steps with per-step losses within 1e-4, the
-    first step's gradients within 1e-4 of each one's largest and no
-    gradient for the frozen flownet."""
+    with B1, B2 and B4 launched per forward as ``ZOO_LAUNCHES`` says (B1 30
+    times: SpyNet's six even levels); then three training steps with
+    per-step losses within 1e-4, the first step's gradients within 1e-4 of
+    each one's largest and no gradient for the frozen flow network."""
+    from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSROrigin
+    from mobilesuperresolution_tpu_torch.models.mvvsr import MotionVectorVSR
     from mobilesuperresolution_tpu_torch.models.naive_multi import NaiveMultiModel
+    from mobilesuperresolution_tpu_torch.models.naive_multi_v1 import NaiveMultiModelV1
     from mobilesuperresolution_tpu_torch.models.single_image import SingleImageModel
     from mobilesuperresolution_tpu_torch.train.checkpoint import (
         jax_named_parameters,
@@ -562,25 +609,32 @@ def test_tiny_zoo_models_match_cpu(cuda, kind):
     from mobilesuperresolution_tpu_torch.train.steps import make_vsr_step
 
     def make():
-        if kind == "single":
-            return SingleImageModel(scale=4, channel=8, blocks=2, kernel=3)
-        return NaiveMultiModel(4, ((8, 8, 3), (8, 6, 5)))
+        return {"single": lambda: SingleImageModel(scale=4, channel=8, blocks=2, kernel=3),
+                "multi": lambda: NaiveMultiModel(4, ((8, 8, 3), (8, 6, 5))),
+                "multi_v1": lambda: NaiveMultiModelV1(4, ((8, 8, 3), (8, 6, 5))),
+                "basic_mv": lambda: MotionVectorVSR(num_feat=8, num_block=1, scale=4),
+                "basic_origin": lambda: BasicVSROrigin(num_feat=8, num_block=1, scale=4)}[kind]()
+
+    def clip(shape):
+        x = torch.rand(shape, generator=g)
+        if kind != "basic_mv":
+            return x
+        return torch.cat([x, torch.randn(shape, generator=g)[..., :2] * 1.5], dim=-1)
 
     flat = random_jax_params(make(), seed=3)
     g = torch.Generator().manual_seed(12)
-    x = torch.rand((1, 3, 64, 64, 3), generator=g)
-    batches = [(torch.rand((1, 3, 64, 64, 3), generator=g), torch.rand((1, 3, 256, 256, 3), generator=g))
-               for _ in range(3)]
+    x = clip((1, 3, 64, 64, 3))
+    batches = [(clip((1, 3, 64, 64, 3)), torch.rand((1, 3, 256, 256, 3), generator=g)) for _ in range(3)]
     outs, runs = [], []
     for dev in ("cpu", cuda):
         m = load_params_npz(make().to(dev), flat).eval()
-        b1, b2 = conv5x5_same.launches, fused_conv_pixel_shuffle.launches
+        counters = (conv5x5_same, fused_conv_pixel_shuffle, fused_conv_pixel_shuffle_skip)
+        before = [c.launches for c in counters]
         with torch.inference_mode():
             outs.append(m(x.to(dev), 256, 256).cpu())
         if dev != "cpu":
             torch.cuda.synchronize()
-            assert (conv5x5_same.launches - b1, fused_conv_pixel_shuffle.launches - b2) == (
-                30 if kind == "multi" else 0, 1)
+            assert tuple(c.launches - b for c, b in zip(counters, before)) == ZOO_LAUNCHES[kind]
         m.train()
         named = jax_named_parameters(m)
         step = make_vsr_step(m, vsr_multistep_adam(named, 1e-3, 3, 1, spynet_frozen_mask(named)), (256, 256))
@@ -592,7 +646,7 @@ def test_tiny_zoo_models_match_cpu(cuda, kind):
         runs.append((losses, grads))
     assert float((outs[1] - outs[0]).abs().max()) <= 1e-4 * float(outs[0].abs().max())
     (l0, g0), (l1, g1) = runs
-    assert set(g0) == set(g1) and not any(k.startswith("flownet/") for k in g0)
+    assert set(g0) == set(g1) and not any(k.startswith(("flownet/", "spynet/")) for k in g0)
     for i in range(3):
         assert abs(l1[i] - l0[i]) <= 1e-4 * max(1.0, abs(l0[i])), (i, l1[i], l0[i])
     for k in g0:

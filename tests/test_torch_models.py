@@ -216,8 +216,10 @@ def test_get_vsr_model_defaults_to_cuda(monkeypatch):
         get_vsr_model("basic")
     with pytest.raises(RuntimeError, match="CUDA"):
         get_vsr_model("basic", device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_vsr_model("basic_origin", device="cpu")
+    for kind in ("basic_origin", "basic_mv"):  # the types ported last default to CUDA too
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_vsr_model(kind)
+    assert next(get_vsr_model("basic_mv", device="cpu").parameters()).device.type == "cpu"
     model = get_vsr_model("basic", compute_dtype=torch.bfloat16, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
     assert model.spynet.level_0._s2d[0][0].dtype == torch.bfloat16
@@ -240,8 +242,9 @@ def test_port_imports_no_jax():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     # the NAS search slice's modules, the flow cache's, SISR training's,
-    # checkpointing's and VSR training's, and the VSR zoo's, patch eval's and
-    # the video datasets' are among those checked
+    # checkpointing's and VSR training's, and the VSR zoo's (all six types),
+    # patch eval's and the video datasets' (REDS with motion vectors too) are
+    # among those checked
     rel = {os.path.relpath(f, REPO) for f in files}
     for mod in ("ops/ste", "kernels/fused_convsep", "nas/speed_estimator", "nas/speed_loss", "nas/search",
                 "nas/artifact", "models/wdsr_nas", "train/state", "train/steps", "core/utils", "cli/search",
@@ -249,7 +252,8 @@ def test_port_imports_no_jax():
                 "cli/pretrain", "cli/retrain_searched", "train/checkpoint", "train/preemption", "data/vsr",
                 "data/reds", "data/synthetic", "cli/train_vsr", "cli/test_vsr", "cli/common_cli",
                 "cli/test_vsr_by_patch", "analysis/patch_stats", "models/single_image", "models/naive_multi",
-                "data/vimeo", "data/nemo", "data/yuv", "data/frame_utils"):
+                "data/vimeo", "data/nemo", "data/yuv", "data/frame_utils", "models/mvvsr", "models/naive_multi_v1",
+                "data/reds_with_mv"):
         assert os.path.join("mobilesuperresolution_tpu_torch", mod + ".py") in rel, mod
     for script in ("torch_search_profile.py", "torch_bench.py"):
         assert os.path.join("scripts", script) in rel

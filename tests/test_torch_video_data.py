@@ -125,15 +125,17 @@ def test_nemo_items_and_csvs_match_jax(tmp_path, tiny_nemo, raw_order):
 
 def test_video_datasets_registered():
     """Both names resolve, and each module's flags parse (NEMO's
-    --raw_order among them)."""
+    --raw_order among them); REDS with motion vectors is registered too, and
+    an unknown name is refused."""
     for name, mod in (("vimeo", vimeo), ("nemo", nemo)):
         assert get_dataset_module(name) is mod
         parser = argparse.ArgumentParser()
         mod.update_argparser(parser)
         args = parser.parse_args(["--raw_order", "bgr"] if name == "nemo" else [])
         assert args.val_image_batch == (100 if name == "nemo" else 7)
+    assert get_dataset_module("reds_with_mv").__name__.endswith("data.reds_with_mv")
     with pytest.raises(KeyError):
-        get_dataset_module("reds_with_mv")
+        get_dataset_module("nope")
 
 
 @pytest.mark.parametrize("hw", [(16, 24), (2, 2), (10, 6)])

@@ -373,7 +373,7 @@ def test_vsr_entry_points_refuse_what_is_not_ported(tmp_path, monkeypatch):
     multi-process flags are not parsed; without a card the entry points run
     only when the CPU is asked for."""
     base = ["--job_dir", str(tmp_path), "--device", "cpu", "--dataset", "synthetic_vsr", "--eval_datasets"]
-    for flag, match in ((["--model_type", "basic_origin"], "A6"), (["--spatial_shards", "2"], "A8"),
+    for flag, match in ((["--spatial_shards", "2"], "A8"),
                         (["--chunk_data_parallel"], "A8"), (["--quantize", "int8"], "A8"),
                         (["--spynet_weights", "spynet.pth"], "A7")):
         with pytest.raises(NotImplementedError, match=match):

@@ -183,8 +183,9 @@ def test_zoo_lockstep_matches_jax(tiny):
 
 def test_zoo_refusals(tmp_path):
     """The JAX registry's refusals (flow_downscale for 'single', remat for
-    both, 'multi' without an artifact), the types still queued (A6), the
-    flow cache and --spynet_weights on models without SpyNet."""
+    both, 'multi' without an artifact), an unknown type, the flow cache and
+    --spynet_weights on models without SpyNet. (The other three types'
+    refusals: tests/test_torch_zoo_rest.py.)"""
     for kw, err in ((dict(model_type="single", flow_downscale=2), ValueError),
                     (dict(model_type="single", remat=True), ValueError),
                     (dict(model_type="multi", remat=True, block_index_path=ARTIFACT), ValueError),
@@ -193,9 +194,6 @@ def test_zoo_refusals(tmp_path):
             get_vsr_model(device="cpu", **kw)
         with pytest.raises(err):
             j_get_vsr_model(**{k: v for k, v in kw.items() if k != "device"})
-    for kind in ("basic_mv", "multi_v1", "basic_origin"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            get_vsr_model(kind, device="cpu")
     with pytest.raises(KeyError):
         get_vsr_model("nope", device="cpu")
     m = get_vsr_model("multi", device="cpu", block_index_path=ARTIFACT, flow_downscale=2)
