@@ -119,13 +119,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
 21. 'basic_origin' served in bf16 by StreamingVSR (10 426x240 frames, 3
    windows of 10) plain and flow-cached: 1080x1920 frames, B1 30 and B2 2
    per window, the cached stream within bf16_tol of the plain one, the
-   window's ms.
+   window's ms;
+22. the on-card latency table: kernels/timing.py's build_latency_table at
+   the JAX harness's grid (6 ch_in x 4 splits x k 3/5/7 = 72 configs,
+   240x426, method "loop"), after one split block per k at ch_in 32, full
+   split, against its plain version: B5 launched once per timed block call,
+   every row finite and >= 0, ms per config logged; the table goes to
+   chiprun_out/<device kind>.npy (the port ships it as
+   nas/speed_tables/nvidia_h100_80gb_hbm3.npy);
+23. the search's latency paths through cli.search: --build_speed_table at
+   16 blocks and 32 units (12 configs timed, a (12, 4) speed_table.npy, B5
+   48 per forward), then at 4 blocks --speed_predictor tpu_v5_lite, and
+   --speed_table auto (this card's packaged table) with --pretrained from a
+   seeded reference-layout WDSR-B .pt (9 tensors copied), one width epoch
+   each;
+24. reference checkpoints: seeded state dicts with the reference's key
+   names, each held bit-equal to the npz route with the same weights on the
+   card: a WDSR-B x2 (16 blocks, 24 units) .pt through load_reference_wdsr
+   and evaluate (B3 16 + B4 1 per image); 'basic_origin' (nf 64, 30
+   blocks, mmedit's {"meta", "params"}), 'basic_mv', 'single' and 'multi'
+   .pth through cli.test_vsr --eval_model (ZOO_PER_FORWARD); a SpyNet .pth
+   through cli.train_vsr --spynet_weights for one step;
+25. result.log in the job dir of every entry-point run (run_cli checks each
+   as it returns), and one cli.pretrain epoch with --xla_profile_steps 2
+   writing one trace that names B3's kernel.
 
 Prints the kernel table as one JSON line (launches from this slice's paths,
 each count set to 0 before its path: B1 and B2 from the basic VSR training
-run plus phases 16-18, 20 and 21, B3 from the pretraining run, B4 from it
-and phase 20's 'multi_v1' runs, B5 from the search), the nvidia-smi line,
-and last
+run plus phases 16-18, 20, 21 and 24, B3 from the pretraining run and phase
+24, B4 from those and phase 20's 'multi_v1' runs, B5 from the search and
+phases 22 and 23), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
 Needs CUDA; imports nothing of JAX.
 """
@@ -205,6 +228,9 @@ MV_SHIFT = (2, 1)
 # 2 rows x 5 columns of patches)
 PATCH_HR, PATCH, PATCH_OVERLAP = (720, 1280), 64, (4, 0)
 N_PATCHES = 2 * 5
+# the on-card latency table: the JAX harness's grid (6 ch_in x 4 splits x k
+# 3/5/7) at the NEMO protocol's LR size
+LATENCY_HW = (240, 426)
 
 
 def log(*a):
@@ -297,6 +323,110 @@ def bf16_tol(want):
 def f32_tol(want):
     # full-f32 FMA on both sides (TF32 off), thousands of terms per sum
     return 1e-5 + 1e-4 * float(want.float().abs().max())
+
+
+def run_cli(main, argv):
+    """An entry point's ``main(argv)``, then a check that it wrote
+    ``<job_dir>/result.log`` (core/logging_tool.py); the job dirs seen so
+    far are kept in LOGGED_JOBS for the logging phase."""
+    out = main(argv)
+    job_dir = argv[argv.index("--job_dir") + 1]
+    path = os.path.join(job_dir, "result.log")
+    if not os.path.getsize(path):
+        raise AssertionError(f"{path} is empty")
+    LOGGED_JOBS.append(job_dir)
+    return out
+
+
+LOGGED_JOBS = []
+
+
+def reference_state_dict(kind, flat):
+    """A state dict with the reference's key names and torch layouts holding
+    the JAX-layout flat params ``flat`` of a model of ``kind`` ('wdsr',
+    'spynet', 'basic_origin', 'basic_mv', 'single', 'multi'): the inverse of
+    train/torch_convert.py's converters. OIHW conv weights, weight norm's
+    g as (O, 1, 1, 1), ConvTranspose weights (Cin, Cout, kh, kw) unflipped."""
+
+    def oihw(k):
+        return np.ascontiguousarray(np.transpose(k, (3, 2, 0, 1)))
+
+    sd = {}
+
+    def wn(ours, theirs):
+        sd[f"{theirs}.weight_v"] = oihw(flat[f"{ours}/v"])
+        sd[f"{theirs}.weight_g"] = flat[f"{ours}/g"].reshape(-1, 1, 1, 1)
+        sd[f"{theirs}.bias"] = flat[f"{ours}/b"]
+
+    def plain(ours, theirs):
+        sd[f"{theirs}.weight"] = oihw(flat[f"{ours}/kernel"])
+        sd[f"{theirs}.bias"] = flat[f"{ours}/bias"]
+
+    def transpose(ours, theirs):
+        k = flat[f"{ours}/kernel"]
+        sd[f"{theirs}.weight"] = np.ascontiguousarray(k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+        sd[f"{theirs}.bias"] = flat[f"{ours}/bias"]
+
+    def spynet(scope, prefix):
+        for key in flat:
+            m = re.fullmatch(rf"{scope}level_(\d+)/conv(\d)_kernel", key)
+            if m:
+                lv, j = m.groups()
+                plain_key = f"{prefix}basic_module.{lv}.basic_module.{2 * int(j)}"
+                sd[f"{plain_key}.weight"] = oihw(flat[key])
+                sd[f"{plain_key}.bias"] = flat[f"{scope}level_{lv}/conv{j}_bias"]
+
+    def trunks():
+        for key in flat:
+            m = re.fullmatch(r"propagation/trunks/(backward|forward)_(conv0|block(\d+)_(conv[12]))_kernel", key)
+            if m:
+                d, _, i, c = m.groups()
+                name = f"{d}_trunk.main.0" if i is None else f"{d}_trunk.main.2.{i}.{c}"
+                sd[f"{name}.weight"] = oihw(flat[key])
+                sd[f"{name}.bias"] = flat[key[: -len("kernel")] + "bias"]
+
+    if kind == "wdsr":
+        wn("WNConv_0", "head")
+        i = 0
+        while f"BasicBlock_{i}/WNConv_0/v" in flat:
+            for j, layer in enumerate((0, 2, 3)):
+                wn(f"BasicBlock_{i}/WNConv_{j}", f"body.{i}.body.{layer}")
+            i += 1
+        wn("WNConv_1", "tail")
+        if "WNConv_2/v" in flat:
+            wn("WNConv_2", "skip.0")
+    elif kind == "spynet":
+        spynet("", "")
+    elif kind == "basic_origin":
+        spynet("spynet/", "spynet.")
+        trunks()
+        for name in ("fusion", "upconv1", "upconv2", "conv_hr", "conv_last"):
+            plain(f"{name}/Conv_0", name)
+    elif kind == "basic_mv":
+        trunks()
+        plain("fusion/Conv_0", "fusion")
+        transpose("conv_last", "conv_last")
+    elif kind == "single":
+        wn("encoder", "encoder")
+        i = 0
+        while f"block_{i}/WNConv_0/v" in flat:
+            wn(f"block_{i}/WNConv_0", f"body.{i}.body.0.body.0")
+            wn(f"block_{i}/WNConv_1", f"body.{i}.body.0.body.2")
+            i += 1
+        wn("body_tail", f"body.{i}")
+        transpose("shuf", "shuf.0")
+    elif kind == "multi":
+        spynet("flownet/", "flownet.")
+        wn("encode", "encode")
+        wn("decode", "decode")
+        i = 0
+        while f"block_{i}/PlainConv_0/Conv_0/kernel" in flat:
+            plain(f"block_{i}/PlainConv_0/Conv_0", f"body.{i}.body.0")
+            plain(f"block_{i}/PlainConv_1/Conv_0", f"body.{i}.body.2")
+            i += 1
+    else:
+        raise KeyError(kind)
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
 
 
 def ptxas_summary(path):
@@ -917,7 +1047,7 @@ def phase_shipped(dev):
     out["launches"] = launches
 
     with tempfile.TemporaryDirectory() as job_dir:
-        res = pretrain.main([
+        res = run_cli(pretrain.main, [
             "--job_dir", job_dir, "--eval_only", "--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr",
             "--num_blocks", str(n_wdsr_blocks),
             "--eval_model", os.path.join(ROOT, "artifacts", "convergence", "wdsr_b_x2", "weights", "models.npz"),
@@ -1030,7 +1160,7 @@ def phase_pretrain(dev):
         argv = sisr_train_argv(job_dir) + ["--num_blocks", str(SR_BLOCKS), "--num_residual_units", str(SR_UNITS)]
         reset_sisr_launches()
         t0 = time.perf_counter()
-        out = pretrain.main(argv)
+        out = run_cli(pretrain.main, argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = sisr_launches()
@@ -1065,7 +1195,7 @@ def phase_retrain(dev):
     with tempfile.TemporaryDirectory() as job_dir:
         reset_sisr_launches()
         t0 = time.perf_counter()
-        out = retrain_searched.main(sisr_train_argv(job_dir) + ["--block_index", block_index])
+        out = run_cli(retrain_searched.main, sisr_train_argv(job_dir) + ["--block_index", block_index])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = sisr_launches()
@@ -1180,7 +1310,7 @@ def phase_search(dev):
                 str(NAS_BATCH), "--lr_patch_size", str(NAS_PATCH), "--learning_rate", "1e-3", "--log_steps", "1"]
         fused_convsep.launches = 0
         t0 = time.perf_counter()
-        out = search.main(argv)
+        out = run_cli(search.main, argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"B5": fused_convsep.launches}
@@ -1381,7 +1511,7 @@ def phase_vsr_train(dev, work):
     job = os.path.join(work, "vsr")
     reset_vsr_launches()
     t0 = time.perf_counter()
-    out = train_vsr.main(vsr_train_argv(job))
+    out = run_cli(train_vsr.main, vsr_train_argv(job))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = vsr_launches()
@@ -1459,8 +1589,8 @@ def phase_vsr_resume(dev, work, ref_job):
     out = {}
     job = os.path.join(work, "vsr_resume")
     stop = VSR_STEPS_PER_EPOCH - 1
-    first = train_vsr.main(vsr_train_argv(job) + ["--max_steps_per_run", str(stop)])
-    second = train_vsr.main(vsr_train_argv(job) + ["--resume"])
+    first = run_cli(train_vsr.main, vsr_train_argv(job) + ["--max_steps_per_run", str(stop)])
+    second = run_cli(train_vsr.main, vsr_train_argv(job) + ["--resume"])
     if first.get("preempted") != {"epoch": 1, "batch": stop} or second.get("resumed") != {"epoch": 1, "batch": stop}:
         raise AssertionError(f"train_vsr resume: preempted {first.get('preempted')}, resumed {second.get('resumed')}")
     sched = multistep_lr(VSR_LR, VSR_STEPS_PER_EPOCH, VSR_EPOCHS, milestones=[VSR_EPOCHS // 2, VSR_EPOCHS * 8 // 10])
@@ -1479,7 +1609,8 @@ def phase_vsr_resume(dev, work, ref_job):
     try:
         runs = {}
         for name, extra in (("ref", []), ("job", ["--max_steps_per_run", "3"]), ("job", ["--resume"])):
-            runs[name] = pretrain.main(["--job_dir", os.path.join(work, f"pt_{name}"), "--epochs", "2", *small,
+            runs[name] = run_cli(pretrain.main, ["--job_dir", os.path.join(work, f"pt_{name}"), "--epochs", "2",
+                                                 *small,
                                         *extra])
     finally:
         torch.backends.cudnn.deterministic = saved
@@ -1496,8 +1627,8 @@ def phase_vsr_resume(dev, work, ref_job):
     sjob = os.path.join(work, "search_resume")
     common = ["--job_dir", sjob, *small, "--width_search", "--speed_target", "5", "--width_epochs", "2",
               "--epochs", "0", "--kernel_epochs", "1", "--log_steps", "1"]
-    stopped = search.main(common + ["--max_steps_per_run", "3"])
-    resumed = search.main(common + ["--resume"])
+    stopped = run_cli(search.main, common + ["--max_steps_per_run", "3"])
+    resumed = run_cli(search.main, common + ["--resume"])
     phases = [(s["phase"], s["epoch"]) for s in resumed["steps"]]
     idx, width = read_block_index(sjob)
     log(f"  cli.search stopped {stopped.get('preempted')}, resumed {resumed.get('resumed')}: steps {phases}, final "
@@ -1524,7 +1655,7 @@ def phase_vsr_eval(dev, job, trained_psnr):
                                               "--flow_cache"])):
         reset_vsr_launches()
         t0 = time.perf_counter()
-        res = test_vsr.main(argv + extra)["synthetic_vsr"]
+        res = run_cli(test_vsr.main, argv + extra)["synthetic_vsr"]
         torch.cuda.synchronize()
         out[name] = dict(res, wall_s=time.perf_counter() - t0, launches=vsr_launches())
         log(f"  cli.test_vsr {name}: PSNR {res['PSNR']:.4f} SSIM {res['SSIM']:.4f} ({out[name]['wall_s']:.1f} s, "
@@ -1709,7 +1840,7 @@ def phase_zoo_train(dev, work, kinds, mv_root=None):
         set_name = "reds_with_mv" if kind == "basic_mv" else "synthetic_vsr"
         reset_vsr_launches()
         t0 = time.perf_counter()
-        out = train_vsr.main(vsr_train_argv(job, kind, mv_root) + ["--epochs", "1"])
+        out = run_cli(train_vsr.main, vsr_train_argv(job, kind, mv_root) + ["--epochs", "1"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = vsr_launches()
@@ -1751,7 +1882,8 @@ def phase_zoo_train(dev, work, kinds, mv_root=None):
                 raise AssertionError(f"{kind} step {name}: launches per step {ss['launches_per_step']}")
             del m
         reset_vsr_launches()
-        ev = test_vsr.main(vsr_argv(os.path.join(job, "eval"), kind, mv_root) + ["--eval_model", npzs[kind]])[set_name]
+        ev = run_cli(test_vsr.main, vsr_argv(os.path.join(job, "eval"), kind, mv_root)
+                     + ["--eval_model", npzs[kind]])[set_name]
         st["test_vsr"] = dict(ev, launches=vsr_launches())
         trained = out["eval"][-1][set_name]["PSNR"]
         log(f"  cli.test_vsr {kind} on the npz: PSNR {ev['PSNR']:.4f} (run's last eval {trained:.4f}), launches "
@@ -1786,7 +1918,7 @@ def phase_patch_eval(dev, work, npz):
             "--synthetic_frames", str(VSR_T), "--synthetic_clips", "1", "--synthetic_size", size, "--eval_model", npz]
     reset_vsr_launches()
     t0 = time.perf_counter()
-    res = test_vsr_by_patch.main(argv)["synthetic_vsr"]
+    res = run_cli(test_vsr_by_patch.main, argv)["synthetic_vsr"]
     wall = time.perf_counter() - t0
     launches = vsr_launches()
     arr = np.load(os.path.join(job, "run", f"basic_{PATCH}_{PATCH}_2.npy"))
@@ -1854,7 +1986,7 @@ def phase_zoo_serve(dev, work, npz):
     reset_vsr_launches()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        stats = serve.main(argv)
+        stats = run_cli(serve.main, argv)
     launches = vsr_launches()
     windows = len(range(0, N_STREAM_FRAMES, CHUNK)) + 1  # and the warm-up window
     names = sorted(os.listdir(os.path.join(job, "serve")))
@@ -1966,6 +2098,277 @@ def phase_origin_serve(dev):
                 window_fps=T_WIN / win_ms * 1e3, sr_fn_ms=sr_ms, peak_mem_gib=peak), total
 
 
+def phase_latency_table(gen, dev):
+    """The on-card latency table: kernels/timing.py::build_latency_table at
+    the JAX harness's default grid (LATENCY_CH_IN x 4 splits x k 3/5/7 = 72
+    configs, a 240x426 input, method "loop"), after one split block per k at
+    ch_in 32, full split, against its plain version. Checks B5 launched once
+    per timed block call, every row finite and >= 0; writes the table to
+    chiprun_out/<device kind>.npy."""
+    from mobilesuperresolution_tpu_torch.kernels import timing
+    from mobilesuperresolution_tpu_torch.kernels.fused_convsep import fused_convsep, fused_convsep_plain
+    from mobilesuperresolution_tpu_torch.nas.speed_estimator import device_kind
+
+    errs = {}
+    x = (torch.rand((1, *LATENCY_HW, 32), generator=gen) * 2 - 1).to(dev)
+    for k in (3, 5, 7):
+        w = timing.split_block_weights(32, k, seed=k, device=dev)
+        with torch.inference_mode():
+            got = timing.split_block(x, 32, w)
+            want = timing.split_block(x, 32, w, branch=fused_convsep_plain)
+        errs[k] = check(f"split block k{k} (ch_in 32, full split)", got, want, f32_tol(want))
+    grid = timing.latency_grid()
+    fused_convsep.launches = 0
+    t0 = time.perf_counter()
+    rows = []
+
+    def progress(row):
+        rows.append(row)
+        log(f"    ch_in {row[0]:2d} split {row[1]:2d} k{row[2]}: {row[3]:.5f} ms")
+
+    table = timing.build_latency_table(method="loop", device=dev, progress=progress)
+    wall = time.perf_counter() - t0
+    launches = fused_convsep.launches
+    want_launches = len(grid) * timing.loop_calls(iters=50, reps=5, warmup=1)
+    log(f"  build_latency_table: {len(table)} configs in {wall:.1f} s, B5 launches {launches} "
+        f"(expected {want_launches})")
+    if launches != want_launches:
+        raise AssertionError(f"latency table: B5 launches {launches}, expected {want_launches}")
+    if table.shape != (len(grid), 4) or table[:, :3].tolist() != [list(r) for r in grid]:
+        raise AssertionError(f"latency table grid {table[:, :3].tolist()[:4]}... differs from the harness's")
+    if not (np.isfinite(table).all() and (table[:, 3] >= 0).all()):
+        raise AssertionError(f"latency table has non-finite or negative rows: {table[:, 3]}")
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{device_kind()}.npy")
+    np.save(path, table)
+    log(f"  table → {path}")
+    return dict(rows=table.tolist(), wall_s=wall, block_max_abs_err=errs, launches=launches,
+                kind=device_kind()), {"B5": launches}
+
+
+def nas_argv(job_dir, blocks):
+    """cli.search at launchers/search.sh's width (x2, 32 units, batch 16,
+    patch 48) with ``blocks`` blocks, one epoch of the width phase only."""
+    return ["--job_dir", job_dir, "--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr", "--scale",
+            "2", "--num_blocks", str(blocks), "--num_residual_units", str(NAS_UNITS), "--width_search",
+            "--speed_target", "500", "--width_epochs", "1", "--epochs", "0", "--kernel_epochs", "0",
+            "--num_patches", str(NAS_NUM_PATCHES), "--train_batch_size", str(NAS_BATCH), "--lr_patch_size",
+            str(NAS_PATCH), "--learning_rate", "1e-3"]
+
+
+def phase_search_latency(work):
+    """The search's latency paths through cli.search: --build_speed_table at
+    16 blocks (12 configs timed on the card, then B5 48 times per forward),
+    --speed_predictor tpu_v5_lite, and --speed_table auto (this card's
+    packaged table) with --pretrained from a seeded reference-layout WDSR-B
+    .pt (9 tensors), the last two at 4 blocks."""
+    from mobilesuperresolution_tpu_torch.cli import search
+    from mobilesuperresolution_tpu_torch.kernels import timing
+    from mobilesuperresolution_tpu_torch.kernels.fused_convsep import fused_convsep
+    from mobilesuperresolution_tpu_torch.models import BasicModel
+    from mobilesuperresolution_tpu_torch.nas.speed_estimator import packaged_table_path
+    from mobilesuperresolution_tpu_torch.train.checkpoint import random_jax_params
+
+    stats, total = {}, 0
+    job = os.path.join(work, "search_table")
+    fused_convsep.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(search.main, nas_argv(job, NAS_BLOCKS) + ["--build_speed_table"])
+    wall = time.perf_counter() - t0
+    table = np.load(os.path.join(job, "speed_table.npy"))
+    timed = len(timing.latency_grid((NAS_UNITS,))) * timing.loop_calls(iters=50, reps=5, warmup=1)
+    want = timed + B5_PER_FORWARD * (out["train_forwards"] + out["eval_images"])
+    log(f"  --build_speed_table: table {table.shape}, {out['train_forwards']} steps + {out['eval_images']} eval "
+        f"images, {wall:.1f} s; B5 launches {fused_convsep.launches} (expected {want}: {timed} timed)")
+    if table.shape != (12, 4) or not (np.isfinite(table).all() and (table[:, 3] >= 0).all()):
+        raise AssertionError(f"--build_speed_table wrote {table.shape}: {table}")
+    if fused_convsep.launches != want:
+        raise AssertionError(f"--build_speed_table: B5 launches {fused_convsep.launches}, expected {want}")
+    stats["build_speed_table"] = dict(table=table.tolist(), wall_s=wall, launches=fused_convsep.launches,
+                                      steps=out["steps"])
+    total += fused_convsep.launches
+
+    own = packaged_table_path()
+    wdsr = BasicModel(num_blocks=NAS_BLOCKS, num_residual_units=NAS_UNITS, scale=2)
+    pt = os.path.join(work, "wdsr_b_x2_16_32.pt")
+    torch.save(reference_state_dict("wdsr", random_jax_params(wdsr, seed=4)), pt)
+    runs = {"speed_predictor": ["--speed_predictor", "tpu_v5_lite"],
+            "speed_table_auto_pretrained": ["--speed_table", "auto", "--pretrained", "--pretrained_path", pt]}
+    for name, flags in runs.items():
+        job = os.path.join(work, f"search_{name}")
+        fused_convsep.launches = 0
+        t0 = time.perf_counter()
+        out = run_cli(search.main, nas_argv(job, 4) + flags)
+        wall = time.perf_counter() - t0
+        text = open(os.path.join(job, "result.log")).read()
+        speed = re.search(r"Supernet Speed: ([\d.]+) ms", text).group(1)
+        forwards = out["train_forwards"] + out["eval_images"]
+        log(f"  {' '.join(flags)}: supernet speed {speed} ms, {len(out['steps'])} steps, {wall:.1f} s, B5 "
+            f"launches {fused_convsep.launches} ({forwards} forwards)" +
+            (f"; {out['pretrained_copied']} tensors copied" if "pretrained_copied" in out else ""))
+        if fused_convsep.launches != 3 * 4 * forwards or not all(np.isfinite(s["loss"]) for s in out["steps"]):
+            raise AssertionError(f"search {name}: launches {fused_convsep.launches}, steps {out['steps']}")
+        if name.startswith("speed_table_auto") and (own is None or f"latency table from {own}" not in text
+                                                   or out.get("pretrained_copied") != 9):
+            raise AssertionError(f"--speed_table auto resolved to {own!r}; copied {out.get('pretrained_copied')}")
+        if name == "speed_predictor" and "tpu_v5_lite_predictor.msgpack" not in text:
+            raise AssertionError("--speed_predictor tpu_v5_lite did not load the packaged predictor")
+        stats[name] = dict(supernet_speed_ms=float(speed), wall_s=wall, launches=fused_convsep.launches,
+                           pretrained_copied=out.get("pretrained_copied"), table=own)
+        total += fused_convsep.launches
+    return stats, {"B5": total}
+
+
+def phase_reference_checkpoints(dev, work, mv_root):
+    """Seeded state dicts with the reference's key names, each loaded
+    through its entry point and held bit-equal to the npz route with the
+    same weights: WDSR-B x2 (16 blocks, 24 units) .pt through
+    load_reference_wdsr and the port's evaluate (B3 16 + B4 1 per image);
+    'basic_origin' (as mmedit's {"meta", "params"}), 'basic_mv', 'single'
+    and 'multi' .pth through cli.test_vsr --eval_model (B1 / B2 / B4 per
+    forward as ZOO_PER_FORWARD); a SpyNet .pth through cli.train_vsr
+    --spynet_weights for one step."""
+    from mobilesuperresolution_tpu_torch.cli import test_vsr, train_vsr
+    from mobilesuperresolution_tpu_torch.cli.common_cli import load_vsr_eval_params
+    from mobilesuperresolution_tpu_torch.models import BasicModel, get_vsr_model
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+    from mobilesuperresolution_tpu_torch.train.evaluate import evaluate
+    from mobilesuperresolution_tpu_torch.train.torch_convert import load_reference_wdsr
+
+    stats, total = {}, {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    g = torch.Generator().manual_seed(24)
+    # WDSR-B x2 through evaluate
+    wdsr = BasicModel(num_blocks=SR_BLOCKS, num_residual_units=SR_UNITS, scale=SR_SCALE)
+    flat = random_jax_params(wdsr, seed=5)
+    pt = os.path.join(work, "wdsr_b_x2_16_24.pt")
+    torch.save(reference_state_dict("wdsr", flat), pt)
+    params, blocks, units = load_reference_wdsr(pt)
+    if (blocks, units) != (SR_BLOCKS, SR_UNITS):
+        raise AssertionError(f"load_reference_wdsr: {blocks} blocks, {units} units")
+    from_pt = load_params_npz(BasicModel(blocks, units, SR_SCALE).to(dev), params).eval()
+    from_npz = load_params_npz(BasicModel(blocks, units, SR_SCALE).to(dev), flat).eval()
+    x = torch.rand((1, 96, 128, 3), generator=g).to(dev)
+    reset_sisr_launches()
+    with torch.inference_mode():
+        a = from_pt(x)
+        per_forward = sisr_launches()
+        b = from_npz(x)
+    results = {}
+    reset_sisr_launches()
+    for route, m in (("pt", from_pt), ("npz", from_npz)):
+
+        def fwd(lr, oh, ow, m=m):
+            with torch.inference_mode():
+                return m(lr)
+
+        results[route] = evaluate(fwd, held_out_batches(), scale=SR_SCALE, device=dev).as_dict()
+        if route == "pt":
+            eval_launches = sisr_launches()
+    n_images = len(list(held_out_batches()))
+    log(f"  wdsr .pt: bit-equal {torch.equal(a, b)}, launches per forward {per_forward}, evaluate PSNR "
+        f"{results['pt']['PSNR']:.4f} (npz {results['npz']['PSNR']:.4f}) over {n_images} images, launches "
+        f"{eval_launches}")
+    if not torch.equal(a, b) or results["pt"] != results["npz"]:
+        raise AssertionError("the .pt-loaded WDSR-B differs from the npz-loaded one")
+    if per_forward != {"B3": B3_PER_IMAGE, "B4": B4_PER_IMAGE} or eval_launches != {
+            "B3": B3_PER_IMAGE * n_images, "B4": B4_PER_IMAGE * n_images}:
+        raise AssertionError(f"wdsr .pt launches {per_forward} per forward, {eval_launches} in evaluate")
+    stats["wdsr_pt"] = dict(psnr=results["pt"]["PSNR"], launches=eval_launches)
+    for k in ("B3", "B4"):
+        total[k] += eval_launches[k]
+
+    # the VSR zoo through cli.test_vsr --eval_model x.pth
+    for kind in ("basic_origin", "basic_mv", "single", "multi"):
+        set_name = "reds_with_mv" if kind == "basic_mv" else "synthetic_vsr"
+        model = get_vsr_model(kind, scale=VSR_SCALE, device=dev, block_index_path=ZOO_ARTIFACT)
+        flat = random_jax_params(model, seed=6)
+        sd = reference_state_dict(kind, flat)
+        if kind == "basic_origin":
+            sd = {"meta": {"mmedit_version": "0.x", "epoch": 300}, "params": sd}
+        pth, npz = os.path.join(work, f"{kind}.pth"), os.path.join(work, f"{kind}.npz")
+        torch.save(sd, pth)
+        np.savez(npz, **flat)
+        by_pth = load_vsr_eval_params(pth, kind, get_vsr_model(kind, scale=VSR_SCALE, device=dev,
+                                                               block_index_path=ZOO_ARTIFACT))
+        by_npz = load_params_npz(model, npz)
+        c = 5 if kind == "basic_mv" else 3
+        clip = torch.rand((1, 4, 32, 48, c), generator=g).to(dev)
+        with torch.inference_mode():
+            a, b = by_pth(clip, 128, 192), by_npz(clip, 128, 192)
+        runs = {}
+        for route, path in (("pth", pth), ("npz", npz)):
+            reset_vsr_launches()
+            job = os.path.join(work, f"ckpt_{kind}_{route}")
+            runs[route] = run_cli(test_vsr.main, vsr_argv(job, kind, mv_root) + ["--eval_model", path])[set_name]
+            runs[f"{route}_launches"] = vsr_launches()
+        clips = VSR_CLIPS
+        want = {k: v * clips for k, v in ZOO_PER_FORWARD[kind].items()}
+        log(f"  {kind} .pth: forward bit-equal {torch.equal(a, b)}; cli.test_vsr PSNR {runs['pth']['PSNR']:.4f} "
+            f"(npz {runs['npz']['PSNR']:.4f}), launches {runs['pth_launches']} over {clips} clips")
+        if not torch.equal(a, b) or runs["pth"] != runs["npz"]:
+            raise AssertionError(f"{kind}: the .pth-loaded model differs from the npz-loaded one")
+        if runs["pth_launches"] != want:
+            raise AssertionError(f"{kind} .pth: launches {runs['pth_launches']}, expected {want}")
+        stats[kind] = dict(psnr=runs["pth"]["PSNR"], launches=runs["pth_launches"])
+        for k in ("B1", "B2", "B4"):
+            total[k] += runs["pth_launches"][k]
+        del model, by_pth, by_npz
+
+    # a SpyNet .pth (mmedit's spynet. prefix) through cli.train_vsr, one step
+    from mobilesuperresolution_tpu_torch.models import SpyNet
+
+    spy = random_jax_params(SpyNet(), seed=7)
+    spth, snpz = os.path.join(work, "spynet.pth"), os.path.join(work, "spynet.npz")
+    torch.save({"params": {f"spynet.{k}": v for k, v in reference_state_dict("spynet", spy).items()}}, spth)
+    np.savez(snpz, **spy)
+    losses = {}
+    for route, path in (("pth", spth), ("npz", snpz)):
+        job = os.path.join(work, f"spynet_{route}")
+        reset_vsr_launches()
+        out = run_cli(train_vsr.main, vsr_train_argv(job) + ["--spynet_weights", path, "--max_steps_per_run", "1"])
+        losses[route] = [s["loss"] for s in out["steps"]]
+        launches = vsr_launches()
+    log(f"  spynet .pth through cli.train_vsr: step losses {losses['pth']} (npz {losses['npz']}), launches "
+        f"{launches}")
+    if losses["pth"] != losses["npz"] or len(losses["pth"]) != 1 or launches != {"B1": B1_PER_WINDOW, "B2": 1,
+                                                                                "B4": 0}:
+        raise AssertionError(f"spynet .pth: losses {losses}, launches {launches}")
+    stats["spynet_pth"] = dict(loss=losses["pth"][0], launches=launches)
+    for k in ("B1", "B2"):
+        total[k] += launches[k]
+    return stats, total
+
+
+def phase_logging_profiling(work):
+    """result.log in every job dir of the entry points run so far, then one
+    cli.pretrain epoch with --xla_profile_steps 2: one trace naming B3's
+    kernel."""
+    from mobilesuperresolution_tpu_torch.cli import pretrain
+
+    present = [j for j in LOGGED_JOBS if os.path.isdir(j)]
+    missing = [j for j in present if not os.path.exists(os.path.join(j, "result.log"))]
+    log(f"  result.log written by all {len(LOGGED_JOBS)} entry-point runs so far ({len(present)} job dirs still "
+        f"present, {len(missing)} of them without it)")
+    if missing or not LOGGED_JOBS:
+        raise AssertionError(f"result.log missing in {missing}")
+    job = os.path.join(work, "profiled")
+    t0 = time.perf_counter()
+    run_cli(pretrain.main, sisr_train_argv(job) + ["--num_blocks", str(SR_BLOCKS), "--num_residual_units",
+                                                   str(SR_UNITS), "--xla_profile_steps", "2"])
+    wall = time.perf_counter() - t0
+    traces = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(job, "profile")) for f in fs]
+    text = open(traces[0]).read() if len(traces) == 1 else ""
+    events = json.loads(text).get("traceEvents", []) if text else []
+    b3 = sorted({e["name"] for e in events if "wdsr_block" in e.get("name", "")})
+    log(f"  --xla_profile_steps 2: {traces}, {len(events)} events, {len(text) / 1e6:.2f} MB, B3's kernels {b3}; "
+        f"{wall:.1f} s")
+    if len(traces) != 1 or not b3:
+        raise AssertionError(f"profile: traces {traces}, B3's kernel named {b3}")
+    return dict(logged_jobs=len(LOGGED_JOBS), trace_events=len(events), trace_mb=len(text) / 1e6, b3_kernels=b3,
+                wall_s=wall)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2054,17 +2457,28 @@ def main():
                                                                  mv_root)
         phase("'basic_origin' serving, plain and flow-cached:")
         report["origin_serve"], origin_main = phase_origin_serve(dev)
+        phase("on-card latency table:")
+        report["latency_table"], table_main = phase_latency_table(torch.Generator().manual_seed(22), dev)
+        phase("the search's latency paths:")
+        report["search_latency"], search_latency_main = phase_search_latency(work)
+        phase("reference checkpoints:")
+        report["reference_checkpoints"], ckpt_main = phase_reference_checkpoints(dev, work, mv_root)
+        phase("logging and profiling:")
+        report["logging_profiling"] = phase_logging_profiling(work)
         phase(None)
         report["launches_sisr_eval"] = sisr_main
         report["launches_serving"] = launches
         # B1, B2 and B4: the basic VSR training run and the VSR paths after
         # it, each count set to 0 before its path; B4 also from pretraining
         parts = dict(basic_train=vsr_main, zoo_train=zoo_main, patch_eval=patch_main, multi_serve=serve_main,
-                     zoo_rest_train=rest_main, origin_serve=origin_main)
+                     zoo_rest_train=rest_main, origin_serve=origin_main, reference_checkpoints=ckpt_main)
         vsr_paths = {k: sum(p[k] for p in parts.values()) for k in ("B1", "B2", "B4")}
         report["launches_vsr_paths"] = parts
-        launches = {**search_main, **train_main, "B1": vsr_paths["B1"], "B2": vsr_paths["B2"],
-                    "B4": train_main["B4"] + vsr_paths["B4"]}
+        # B5: the search, the latency table and the search's latency paths
+        b5_parts = dict(search=search_main, latency_table=table_main, search_latency=search_latency_main)
+        report["launches_b5_paths"] = b5_parts
+        launches = {"B5": sum(p["B5"] for p in b5_parts.values()), "B3": train_main["B3"] + ckpt_main["B3"],
+                    "B1": vsr_paths["B1"], "B2": vsr_paths["B2"], "B4": train_main["B4"] + vsr_paths["B4"]}
     except Exception:
         traceback.print_exc()
         return 1

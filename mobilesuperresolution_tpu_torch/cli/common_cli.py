@@ -2,10 +2,11 @@
 
 Only flags that ported code reads are parsed; each entry point adds its own.
 Flags that only concern XLA or multi-host JAX (``--compile_cache``,
-``--xla_profile_steps``, ``--distributed``, ``--coordinator_address``,
-``--num_processes``, ``--process_id``) have no counterpart here
-(``--distributed`` waits for multi-process training, ROADMAP.md queue A8).
-``--device`` picks CUDA (the default) or the CPU.
+``--distributed``, ``--coordinator_address``, ``--num_processes``,
+``--process_id``) have no counterpart here (``--distributed`` waits for
+multi-process training, ROADMAP.md queue A8). ``--xla_profile_steps`` keeps
+its name and traces with torch.profiler (core/profiling.py). ``--device``
+picks CUDA (the default) or the CPU.
 """
 
 import argparse
@@ -19,8 +20,10 @@ import mobilesuperresolution_tpu_torch.data as data_pkg
 import mobilesuperresolution_tpu_torch.models as models_pkg
 from mobilesuperresolution_tpu_torch.core.meters import AverageMeter
 from mobilesuperresolution_tpu_torch.core.metrics_writer import MetricsWriter
+from mobilesuperresolution_tpu_torch.core.profiling import StepProfiler
 from mobilesuperresolution_tpu_torch.data import isr
-from mobilesuperresolution_tpu_torch.train.checkpoint import CheckpointManager, save_params_npz
+from mobilesuperresolution_tpu_torch.train import torch_convert as tc
+from mobilesuperresolution_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz, save_params_npz
 from mobilesuperresolution_tpu_torch.train.preemption import PreemptionGuard, save_midepoch
 
 log = logging.getLogger("msr_torch.train")
@@ -62,6 +65,10 @@ def add_train_args(parser):
                         "loses at most N steps. 0 = end-of-epoch saves only.")
     parser.add_argument("--debug", action="store_true",
                         help="Clamp epochs to 1 and turn on autograd's anomaly detection.")
+    parser.add_argument("--xla_profile_steps", type=int, default=0,
+                        help="Trace the first N optimizer steps with torch.profiler to "
+                        "<job_dir>/profile/train/trace.json (core/profiling.py; the name is the JAX "
+                        "package's). 0 = off.")
     isr.add_train_args(parser)
 
 
@@ -146,6 +153,7 @@ def fit(params, model, optimizer, step, train_ds, device, evaluate, eval_key="ev
         log.info(f"resumed from epoch {start_epoch}" + (f", batch {resume_batch}" if resume_batch else ""))
     writer = MetricsWriter(params.job_dir)
     guard = PreemptionGuard(params.max_steps_per_run)
+    prof = StepProfiler(params.job_dir, params.xla_profile_steps)
     first_epoch = start_epoch if resume_batch else start_epoch + 1
     try:
         for epoch in range(first_epoch, params.epochs + 1):
@@ -157,6 +165,7 @@ def fit(params, model, optimizer, step, train_ds, device, evaluate, eval_key="ev
                 meter.update(metrics["loss"])
                 summary["train_forwards"] += 1
                 summary["steps"].append(dict(metrics, epoch=epoch, batch=bidx))
+                prof.step()
 
             sb = resume_batch if epoch == first_epoch else 0
             stopped = run_epoch(params, train_ds, epoch, sb, step, on_step, guard, ckpt, model, optimizer, device)
@@ -181,9 +190,49 @@ def fit(params, model, optimizer, step, train_ds, device, evaluate, eval_key="ev
             save_params_npz(params.job_dir, model)
     finally:
         guard.restore_handlers()
+        prof.close()
     log.info("Finish Training")
     return summary
 
 
 def eval_modules(params):
     return [(name, data_pkg.get_dataset_module(name)) for name in params.eval_datasets]
+
+
+def load_vsr_eval_params(path, model_type, model):
+    """Load evaluation weights into the VSR ``model``: a ``.pt`` / ``.pth``
+    reference or mmedit checkpoint (its ``['params']`` unless the file
+    holds SpyNet keys at the top), converted per model type
+    (train/torch_convert.py) with its block count and width checked against
+    the model, or else a params npz. Returns the model."""
+    if not path.endswith((".pt", ".pth")):
+        return load_params_npz(model, path)
+    sd = tc.load_torch_checkpoint(path)
+    if "params" in sd and not any(k.startswith("spynet") for k in sd):
+        sd = sd["params"]
+    if model_type == "basic_origin":
+        converted, ckpt_blocks = tc.convert_basicvsr_origin_state_dict(sd)
+        if ckpt_blocks != model.num_block:
+            raise ValueError(f"checkpoint has {ckpt_blocks} trunk blocks but basic_origin expects {model.num_block}")
+    elif model_type == "single":
+        converted, ckpt_blocks, ckpt_ch = tc.convert_single_image_state_dict(sd)
+        channel = model.encoder.v.shape[-1]
+        if (ckpt_blocks, ckpt_ch) != (model.num_blocks, channel):
+            raise ValueError(f"checkpoint is a {ckpt_blocks}-block/{ckpt_ch}-ch 'single' model; got --num_blocks "
+                             f"{model.num_blocks} channel {channel}")
+    elif model_type == "multi":
+        converted, ckpt_blocks = tc.convert_naive_multi_state_dict(sd)
+        if ckpt_blocks != len(model.idx):
+            raise ValueError(f"checkpoint has {ckpt_blocks} body blocks but the block_index artifact "
+                             f"(--model_path) describes {len(model.idx)} — they come from different searches")
+    elif model_type == "basic_mv":
+        converted, ckpt_blocks = tc.convert_mvvsr_state_dict(sd)
+        if ckpt_blocks != model.num_block:
+            raise ValueError(f"checkpoint has {ckpt_blocks} trunk blocks but basic_mv expects {model.num_block}")
+    else:
+        raise ValueError(
+            f"torch checkpoint conversion is not available for {model_type!r} (the reference's mobile 'basic' "
+            "variant cannot run in the reference itself — its conv_last shape is broadcast-impossible, see "
+            "models/basicvsr.py:19-23); export npz weights instead"
+        )
+    return load_params_npz(model, converted)

@@ -39,6 +39,7 @@ from mobilesuperresolution_tpu_torch.cli.common_cli import (
 )
 from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
+from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.models import get_model
@@ -102,8 +103,7 @@ def main(argv=None):
     add_train_args(parser)
     add_eval_args(parser)
     params = parse_with_plugins(parser, argv)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s")
+    LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
     check_eval_tile(params)
     if not params.eval_only and params.model_type != "BASIC_MODEL":

@@ -28,6 +28,7 @@ from mobilesuperresolution_tpu_torch.cli.common_cli import (
 )
 from mobilesuperresolution_tpu_torch.cli.pretrain import check_eval_tile, run_evaluation, train_sisr
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
+from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.models import ResultNet
 from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
@@ -46,8 +47,7 @@ def main(argv=None):
     parser.add_argument("--quantize", choices=["none", "int8"], default="none",
                         help="int8 dynamic-range inference convs (not ported yet: raises).")
     params = parse_with_plugins(parser, argv, with_models=False)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s")
+    LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
     if params.quantize != "none":
         raise NotImplementedError("int8 quantized convs are not ported yet (ROADMAP.md, queue A8)")

@@ -18,9 +18,19 @@ package's flat layout) and the full state to ``<job_dir>/ckpt``.
 batch position, the optimizer state of the phase it belongs to), and a
 SIGTERM or ``--max_steps_per_run`` stop writes a mid-epoch checkpoint.
 Runs on CUDA unless ``--device cpu`` is given; float32 convs run in full
-float32 (TF32 off, the caller's flags restored). ``--pretrained``,
-``--build_speed_table`` and ``--speed_predictor`` are not ported yet
-(ROADMAP.md, queue A7) and are not parsed.
+float32 (TF32 off, the caller's flags restored).
+
+The latency model is the reference's analytic formula unless one of these
+replaces it: ``--speed_table`` (a measured ``.npy``, a packaged table's
+name or ``auto`` for this card's, nas/speed_estimator.py),
+``--speed_predictor`` (a trained predictor's ``.msgpack``, a packaged name
+or ``auto``, nas/speed_model.py) or ``--build_speed_table`` (time the
+blocks on this card first, kernels/timing.py, and use that table, written
+to ``<job_dir>/speed_table.npy``). ``--pretrained --pretrained_path`` copies
+a reference WDSR-B ``.pt``'s head, tail and skip into the supernet
+(train/torch_convert.py). ``--xla_profile_steps N`` traces the first N
+steps (core/profiling.py). The log goes to stdout and
+``<job_dir>/result.log``.
 """
 
 import logging
@@ -43,13 +53,25 @@ from mobilesuperresolution_tpu_torch.cli.common_cli import (
 from mobilesuperresolution_tpu_torch.cli.pretrain import run_evaluation
 from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
+from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
+from mobilesuperresolution_tpu_torch.core.profiling import StepProfiler
 from mobilesuperresolution_tpu_torch.core.utils import SpeedScheduler, attr_extractor
 from mobilesuperresolution_tpu_torch.models import get_model
 from mobilesuperresolution_tpu_torch.models.wdsr_nas import get_block_status, get_width_from_block_idx
 from mobilesuperresolution_tpu_torch.nas.artifact import append_block_index
 from mobilesuperresolution_tpu_torch.nas.search import PHASES, phase_epochs, phase_lr, phase_trainable_mask
-from mobilesuperresolution_tpu_torch.nas.speed_estimator import KERNEL_CHOICES, densify_speed_table, get_ori_speed
+from mobilesuperresolution_tpu_torch.kernels import timing
+from mobilesuperresolution_tpu_torch.nas.speed_estimator import (
+    KERNEL_CHOICES,
+    densify_from_predictor,
+    densify_speed_table,
+    device_kind,
+    get_ori_speed,
+    packaged_names,
+    packaged_table_path,
+)
 from mobilesuperresolution_tpu_torch.nas.speed_loss import SpeedLoss
+from mobilesuperresolution_tpu_torch.nas.speed_model import load_predictor, packaged_predictor_path
 from mobilesuperresolution_tpu_torch.train.checkpoint import (
     CheckpointManager,
     jax_named_parameters,
@@ -59,6 +81,7 @@ from mobilesuperresolution_tpu_torch.train.checkpoint import (
 from mobilesuperresolution_tpu_torch.train.preemption import PreemptionGuard
 from mobilesuperresolution_tpu_torch.train.state import multistep_adam
 from mobilesuperresolution_tpu_torch.train.steps import make_search_step
+from mobilesuperresolution_tpu_torch.train.torch_convert import load_pretrained_supernet, load_torch_checkpoint
 
 log = logging.getLogger("msr_torch.search")
 
@@ -71,10 +94,20 @@ def add_search_args(parser):
     parser.add_argument("--weight_sr_l1", type=float, default=1.0)
     parser.add_argument("--weight_speed", type=float, default=0.1)
     parser.add_argument("--speed_table", type=str, default=None,
-                        help="Measured (N, 4) latency table [ch_in, ch_split, kernel, ms], "
-                        "a .npy path; replaces the analytic latency model.")
+                        help="Measured (N, 4) latency table [ch_in, ch_split, kernel, ms]: a .npy path from "
+                        "kernels/timing.py, a packaged table's name (e.g. 'nvidia_h100_80gb_hbm3', "
+                        "'tpu_v5_lite', 'huawei_p30_cpu') or 'auto' for this card's; replaces the analytic "
+                        "latency model. Packaged tables are measured at 240x426 (the NEMO protocol's LR "
+                        "size); for another deployment shape, re-measure with --build_speed_table.")
     parser.add_argument("--speed_table_fill", type=str, default="linear", choices=("linear", "nearest"),
                         help="How off-grid channel configs get latencies from the table.")
+    parser.add_argument("--speed_predictor", type=str, default=None,
+                        help="Trained SpeedPredictor weights: a .msgpack path (nas/speed_model.py), a packaged "
+                        "name (e.g. 'tpu_v5_lite') or 'auto'. The MLP fills the dense latency table. Mutually "
+                        "exclusive with --speed_table/--build_speed_table.")
+    parser.add_argument("--build_speed_table", action="store_true",
+                        help="Time the blocks on this card first (kernels/timing.py) and use the table, "
+                        "written to <job_dir>/speed_table.npy.")
     parser.add_argument("--log_steps", type=int, default=100)
 
 
@@ -93,8 +126,7 @@ def main(argv=None):
     params = parse_with_plugins(parser, argv)
     params.model_type = "NAS_MODEL"
     params.width_search = True  # the canonical configuration (the reference's other one crashes)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s")
+    LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
     device = resolve_device(params.device)
     with no_tf32(), torch.autograd.set_detect_anomaly(params.debug):
@@ -128,23 +160,79 @@ def _resume(params, ckpt, model, steps_per_epoch, summary):
     return 0, 0
 
 
+def _packaged(flag, value, resolve):
+    """The path a packaged-name or 'auto' flag value resolves to, else a
+    SystemExit (for a table, listing the packaged ones)."""
+    path = resolve(None if value == "auto" else value)
+    if path is not None:
+        return path
+    if flag == "--speed_predictor":
+        raise SystemExit(f"--speed_predictor {value!r}: not a file and no packaged predictor of that name "
+                         "(nas/speed_tables/*_predictor.msgpack); train one with "
+                         "nas.speed_model.train_speed_predictor on a measured table")
+    shipped = packaged_names(".npy")
+    if value == "auto":
+        head = f"--speed_table auto: no packaged table for this backend (device kind {device_kind()!r})."
+    else:
+        head = f"--speed_table {value!r}: not a file and not a packaged table name."
+    raise SystemExit(f"{head} Packaged tables: {shipped}. To measure THIS backend, re-run with "
+                     "--build_speed_table (on-card timing harness, writes <job_dir>/speed_table.npy), or pass "
+                     "one of the packaged names to target that device.")
+
+
+def _latency_table(params, device):
+    """The dense (3, C+1, C+1) latency table of the speed flags (numpy), or
+    None for the analytic model. The flags are checked before any timing."""
+    if params.speed_predictor and (params.speed_table or params.build_speed_table):
+        raise SystemExit("--speed_predictor is mutually exclusive with --speed_table/--build_speed_table")
+    u = params.num_residual_units
+    if params.build_speed_table:
+        table_path = os.path.join(params.job_dir, "speed_table.npy")
+        log.info("building the measured latency table on the card ...")
+        rows = timing.build_latency_table(ch_in_choices=(u,), out_path=table_path, method="loop", device=device)
+        params.speed_table = table_path
+        log.info(f"latency table ({rows.shape[0]} rows) → {table_path}")
+    if params.speed_table:
+        if not os.path.exists(params.speed_table):
+            params.speed_table = _packaged("--speed_table", params.speed_table, packaged_table_path)
+        table = densify_speed_table(np.load(params.speed_table), max_ch=u, method=params.speed_table_fill)
+        log.info(f"using measured latency table from {params.speed_table} (fill={params.speed_table_fill})")
+        return table
+    if params.speed_predictor:
+        path = params.speed_predictor
+        if not os.path.exists(path):
+            path = _packaged("--speed_predictor", path, packaged_predictor_path)
+        table = densify_from_predictor(load_predictor(path), max_ch=u)
+        log.info(f"using MLP latency predictor from {path}")
+        return table
+    return None
+
+
+def _load_pretrained(params, model):
+    """``--pretrained``: the shape-greedy transfer of a reference WDSR-B
+    ``.pt`` into the supernet; returns the tensors copied."""
+    if not params.pretrained_path:
+        raise SystemExit("--pretrained requires --pretrained_path <wdsr .pt>")
+    current = {k: p.detach().cpu().numpy() for k, p in jax_named_parameters(model).items()}
+    new, copied = load_pretrained_supernet(current, load_torch_checkpoint(params.pretrained_path))
+    load_params_npz(model, new)
+    log.info(f"pretrained transfer from {params.pretrained_path}: {copied} tensors copied")
+    return copied
+
+
 def _search(params, device):
     model = get_model(params, device=device)
     named = jax_named_parameters(model)
     train_ds = data_pkg.get_dataset_module(params.dataset).get_dataset(modes.TRAIN, params)
     steps_per_epoch = train_steps_per_epoch(len(train_ds), params.train_batch_size)
 
-    speed_table = None
-    if params.speed_table:
-        if not (params.speed_table.endswith(".npy") and os.path.exists(params.speed_table)):
-            raise SystemExit(f"--speed_table {params.speed_table!r}: not an existing .npy file")
-        rows = np.load(params.speed_table)
-        speed_table = torch.from_numpy(
-            densify_speed_table(rows, max_ch=params.num_residual_units, method=params.speed_table_fill)
-        ).to(device)
+    speed_table = _latency_table(params, device)
+    if speed_table is not None:
+        # the supernet's baseline: num_blocks x the full-width k7 block, the
+        # table's analog of get_ori_speed
         u = params.num_residual_units
+        speed_table = torch.from_numpy(speed_table).to(device)
         ori_speed = float(params.num_blocks * speed_table[KERNEL_CHOICES.index(7), u, u])
-        log.info(f"using measured latency table from {params.speed_table} (fill={params.speed_table_fill})")
     else:
         ori_speed = get_ori_speed(params.num_blocks, params.num_residual_units)
     log.info(f"Supernet Speed: {ori_speed:.02f} ms; target {params.speed_target:.02f} ms")
@@ -161,12 +249,15 @@ def _search(params, device):
     scheduler = SpeedScheduler(search_epoch=params.width_epochs + params.epochs, total_speed=total_speed,
                                target_speed=params.speed_target, gamma=0.5)
 
+    summary = {"steps": [], "eval": [], "train_forwards": 0, "eval_images": 0}
+    if params.pretrained:
+        summary["pretrained_copied"] = _load_pretrained(params, model)
     eval_mods = eval_modules(params)
     n_eval_images = sum(len(mod.get_dataset(modes.EVAL, params)) for _, mod in eval_mods)
-    summary = {"steps": [], "eval": [], "train_forwards": 0, "eval_images": 0}
     ckpt = CheckpointManager(params.job_dir)
     start_epoch, resume_batch = _resume(params, ckpt, model, steps_per_epoch, summary)
     guard = PreemptionGuard(params.max_steps_per_run)
+    prof = StepProfiler(params.job_dir, params.xla_profile_steps)
     epoch = 0
     try:
         for phase in PHASES:
@@ -197,6 +288,7 @@ def _search(params, device):
                     summary["train_forwards"] += 1
                     summary["steps"].append(dict(metrics, phase=phase, epoch=epoch, batch=bidx, target=target))
                     losses.append(metrics["loss"])
+                    prof.step()
                     if bidx % params.log_steps == 0:
                         remain_idx, remain_width = _arch(model)
                         append_block_index(params.job_dir, remain_idx, remain_width)
@@ -222,6 +314,7 @@ def _search(params, device):
                 save_params_npz(params.job_dir, model)
     finally:
         guard.restore_handlers()
+        prof.close()
 
     remain_idx, remain_width = _arch(model)
     append_block_index(params.job_dir, remain_idx, remain_width)

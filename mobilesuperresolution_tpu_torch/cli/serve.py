@@ -20,11 +20,14 @@ frame, and serving reads RGB frames only.
     python -m mobilesuperresolution_tpu_torch.cli.serve --job_dir runs/serve \\
         --input_dir frames/ --bf16 --chunk_frames 4 --chunk_overlap 3 --flow_cache
 
-Runs on CUDA unless ``--device cpu`` is given.
+Runs on CUDA unless ``--device cpu`` is given. ``--eval_model`` is an npz
+or a reference / mmedit ``.pt`` / ``.pth`` (``common_cli.
+load_vsr_eval_params``). The log goes to stdout and ``<job_dir>/result.log``.
 """
 
 import argparse
 import json
+import logging
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -32,11 +35,16 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from mobilesuperresolution_tpu_torch.cli.common_cli import load_vsr_eval_params
 from mobilesuperresolution_tpu_torch.core.device import resolve_device
+from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
+from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.io_cache import load_image, save_png
 from mobilesuperresolution_tpu_torch.models import get_vsr_model
 from mobilesuperresolution_tpu_torch.serve import FlowCachedStreamingVSR, StreamingVSR, make_flow_sr_fns
 from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+log = logging.getLogger("msr_torch.serve")
 
 
 def build_parser():
@@ -55,7 +63,8 @@ def build_parser():
                    help="block_index.txt for the 'multi' and 'multi_v1' models.")
     p.add_argument("--scale", type=int, default=4)
     p.add_argument("--eval_model", type=str, default=None,
-                   help="JAX params .npz to serve (default: seeded random weights).")
+                   help="Weights to serve: a JAX params .npz or a reference/mmedit .pt/.pth "
+                   "(default: seeded random weights).")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute.")
     p.add_argument("--chunk_frames", type=int, default=0,
@@ -82,16 +91,20 @@ def build_parser():
 
 def main(argv=None):
     params = build_parser().parse_args(argv)
+    LoggingTool(params.job_dir)
+    log.info(attr_extractor(params))
     if params.model_type == "basic_mv":
         raise ValueError("serving 'basic_mv' needs the codec's motion vectors of every frame, and cli.serve reads "
                          "RGB frames with no motion-vector source; serve 'basic' or 'basic_origin' (SpyNet flows)")
     device = resolve_device(params.device)
-    os.makedirs(params.job_dir, exist_ok=True)
     chunk = params.chunk_frames or 4
     dtype = torch.bfloat16 if params.bf16 else torch.float32
     model = get_vsr_model(params.model_type, scale=params.scale, compute_dtype=dtype, device=device,
                           flow_downscale=params.flow_downscale, block_index_path=params.model_path)
-    load_params_npz(model, params.eval_model or random_jax_params(model, params.seed))
+    if params.eval_model:
+        load_vsr_eval_params(params.eval_model, params.model_type, model)
+    else:
+        load_params_npz(model, random_jax_params(model, params.seed))
 
     in_dirs = [d for d in params.input_dir.split(",") if d]
     per_stream_names = []

@@ -9,10 +9,12 @@ Scores a VSR model of any ``--model_type`` (basic_mv on 5-channel data,
 does after each epoch (whole clips, ``--chunk_frames`` windows,
 ``--flow_cache``), with
 the weights of ``--eval_model`` (an npz in the JAX package's flat layout, as
-either package writes it) or, without one, seeded random ones. Returns
-{set name: metrics}. Runs on CUDA unless ``--device cpu`` is given. A
-``.pth`` ``--eval_model`` waits for train/torch_convert.py (ROADMAP.md,
-queue A7); the flags of ``train_vsr.check_vsr_args`` are refused as there.
+either package writes it, or a reference / mmedit ``.pt`` / ``.pth``
+converted per model type by ``common_cli.load_vsr_eval_params``) or,
+without one, seeded random ones. Returns {set name: metrics}. Runs on CUDA
+unless ``--device cpu`` is given; the log goes to stdout and
+``<job_dir>/result.log``. The flags of ``train_vsr.check_vsr_args`` are
+refused as there.
 """
 
 import logging
@@ -25,6 +27,7 @@ from mobilesuperresolution_tpu_torch.cli.train_vsr import (
     run_vsr_evaluation,
 )
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
+from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 
 log = logging.getLogger("msr_torch.test_vsr")
@@ -34,16 +37,13 @@ def main(argv=None):
     parser = base_parser("VSR evaluation (PyTorch/CUDA)")
     parser.set_defaults(dataset="reds", eval_datasets=["reds"])
     parser.add_argument("--eval_model", type=str, default=None,
-                        help="Path to a params .npz (the JAX package's flat layout) to evaluate.")
+                        help="Weights to evaluate: a params .npz (the JAX package's flat layout) or a "
+                        "reference/mmedit .pt/.pth checkpoint (converted).")
     add_vsr_args(parser)
     params = parse_with_plugins(parser, argv, with_models=False)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s")
+    LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
     check_vsr_args(params)
-    if params.eval_model and params.eval_model.endswith((".pt", ".pth")):
-        raise NotImplementedError("torch VSR checkpoints need train/torch_convert.py, not ported yet "
-                                  "(ROADMAP.md, queue A7); pass an .npz")
     device = resolve_device(params.device)
     model = build_vsr_model(params, device)
     with no_tf32():

@@ -30,6 +30,7 @@ from mobilesuperresolution_tpu_torch.cli.common_cli import base_parser, eval_mod
 from mobilesuperresolution_tpu_torch.cli.train_vsr import add_vsr_args, build_vsr_model, check_vsr_args
 from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
+from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.metrics import psnr
@@ -106,7 +107,8 @@ def main(argv=None):
     parser = base_parser("VSR patch-tiled evaluation (PyTorch/CUDA)")
     parser.set_defaults(dataset="reds", eval_datasets=["reds"])
     parser.add_argument("--eval_model", type=str, default=None,
-                        help="Path to a params .npz (the JAX package's flat layout) to evaluate.")
+                        help="Weights to evaluate: a params .npz (the JAX package's flat layout) or a "
+                        "reference/mmedit .pt/.pth checkpoint (converted).")
     add_vsr_args(parser)
     parser.add_argument("--patch_h", type=int, default=64)
     parser.add_argument("--patch_w", type=int, default=64)
@@ -116,8 +118,7 @@ def main(argv=None):
                         help="Patches over several devices (not ported yet: raises).")
     parser.add_argument("--patch_batch", type=int, default=None, help="Patches per forward (default 1).")
     params = parse_with_plugins(parser, argv, with_models=False)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s")
+    LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
     if params.chunk_frames:
         raise ValueError("--chunk_frames applies to full-frame eval (cli.test_vsr); patch-tiled eval bounds "
@@ -126,9 +127,6 @@ def main(argv=None):
         raise NotImplementedError("--data_parallel (patches over several devices) is not ported yet "
                                   "(ROADMAP.md, queue A8)")
     check_vsr_args(params)
-    if params.eval_model and params.eval_model.endswith((".pt", ".pth")):
-        raise NotImplementedError("torch VSR checkpoints need train/torch_convert.py, not ported yet "
-                                  "(ROADMAP.md, queue A7); pass an .npz")
     device = resolve_device(params.device)
     model = build_vsr_model(params, device)
 

@@ -9,9 +9,9 @@ Trains a VSR model (``get_vsr_model``: ``--model_type`` basic,
 basic_origin, basic_mv, single, or multi / multi_v1 with ``--model_path``
 its search's block_index.txt; basic_mv reads RGB + motion vectors, 5
 channels, from ``--dataset reds_with_mv``) from seeded random weights
-(``--seed``), a SpyNet npz (``--spynet_weights``, for the SpyNet models) and
-optionally a whole-model npz (``--eval_model``): Charbonnier
-loss, Adam betas (0.9, 0.99) with milestones [E/2, 8E/10] over every
+(``--seed``), a SpyNet npz or reference ``.pth`` (``--spynet_weights``,
+for the SpyNet models) and optionally a whole-model npz (``--eval_model``):
+Charbonnier loss, Adam betas (0.9, 0.99) with milestones [E/2, 8E/10] over every
 parameter but SpyNet's, which stays frozen (its flows carry no gradient),
 the non-finite guard of ``train.steps``, checkpoints and ``--resume`` as in
 cli/pretrain.py. After every epoch it scores ``--eval_datasets`` (whole
@@ -20,10 +20,12 @@ or with ``--flow_cache`` through ``serve/flow_cache.py``) and writes
 ``<job_dir>/weights/models.npz`` in the JAX package's layout.
 ``--eval_only`` evaluates instead. Runs on CUDA unless ``--device cpu`` is
 given; float32 in full float32 (TF32 off), ``--bf16`` in bfloat16.
+``--xla_profile_steps N`` traces the first N steps (core/profiling.py); the
+log goes to stdout and ``<job_dir>/result.log``.
 
 Not ported yet, and refused with the queue item of ROADMAP.md that brings
-them: a ``.pth`` SpyNet (A7), ``--spatial_shards`` > 1,
-``--chunk_data_parallel`` and ``--quantize int8`` (A8).
+them: ``--spatial_shards`` > 1, ``--chunk_data_parallel`` and ``--quantize
+int8`` (A8).
 """
 
 import logging
@@ -38,11 +40,13 @@ from mobilesuperresolution_tpu_torch.cli.common_cli import (
     base_parser,
     eval_modules,
     fit,
+    load_vsr_eval_params,
     parse_with_plugins,
     train_steps_per_epoch,
 )
 from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
+from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.models import get_vsr_model
@@ -52,6 +56,7 @@ from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameter
 from mobilesuperresolution_tpu_torch.train.evaluate import evaluate
 from mobilesuperresolution_tpu_torch.train.state import spynet_frozen_mask, vsr_multistep_adam
 from mobilesuperresolution_tpu_torch.train.steps import make_vsr_step
+from mobilesuperresolution_tpu_torch.train.torch_convert import convert_spynet_state_dict, load_torch_checkpoint
 
 log = logging.getLogger("msr_torch.train_vsr")
 
@@ -63,7 +68,8 @@ def add_vsr_args(parser):
     parser.add_argument("--model_path", type=str, default=None,
                         help="block_index.txt for the 'multi' and 'multi_v1' models.")
     parser.add_argument("--spynet_weights", type=str, default=None,
-                        help="Pretrained SpyNet params, an .npz keyed like the JAX package's spynet scope.")
+                        help="Pretrained SpyNet params: an .npz keyed like the JAX package's spynet scope, or an "
+                        "mmedit/reference .pth checkpoint (converted).")
     parser.add_argument("--chunk_frames", type=int, default=0,
                         help="Evaluate long clips in temporal windows of this many output frames (0 = whole "
                         "clip); propagation is truncated at window edges, so PSNR can differ slightly.")
@@ -94,16 +100,27 @@ def check_vsr_args(params):
                                   "(ROADMAP.md, queue A8)")
     if params.quantize != "none":
         raise NotImplementedError("int8 quantized convs are not ported yet (ROADMAP.md, queue A8)")
-    if params.spynet_weights and params.spynet_weights.endswith((".pt", ".pth")):
-        raise NotImplementedError("torch SpyNet checkpoints need train/torch_convert.py, not ported yet "
-                                  "(ROADMAP.md, queue A7); pass an .npz")
+
+
+def _spynet_params(path):
+    """SpyNet weights of ``path``: an npz of the flow network's scope, or a
+    reference / mmedit ``.pth`` (its ``['params']`` if it has them, the
+    ``spynet.`` prefix if its keys carry it) converted."""
+    if not path.endswith((".pt", ".pth")):
+        return path
+    sd = load_torch_checkpoint(path)
+    if "params" in sd:
+        sd = sd["params"]
+    prefix = "spynet." if any(k.startswith("spynet.") for k in sd) else ""
+    return convert_spynet_state_dict(sd, prefix=prefix)
 
 
 def build_vsr_model(params, device, spynet_weights=None):
     """The VSR model of ``params`` on ``device``, in eval mode, with seeded
-    random weights (``params.seed``), then ``spynet_weights`` (an npz of the
-    flow network's scope, ``spynet`` or ``flownet``) and ``params.eval_model``
-    (a whole-model npz) if given."""
+    random weights (``params.seed``), then ``spynet_weights`` (the flow
+    network's, ``spynet`` or ``flownet``: an npz or a ``.pth``) and
+    ``params.eval_model`` if given (``common_cli.load_vsr_eval_params``: an
+    npz, or a reference / mmedit ``.pt`` / ``.pth``)."""
     model = get_vsr_model(params.model_type, scale=params.scale,
                           compute_dtype=torch.bfloat16 if params.bf16 else torch.float32, device=device,
                           flow_downscale=params.flow_downscale, remat=getattr(params, "remat", False),
@@ -114,9 +131,9 @@ def build_vsr_model(params, device, spynet_weights=None):
         if flow_net is None:
             raise ValueError(f"--spynet_weights given but model_type {params.model_type!r} has no flow network "
                              "('single' is frame-parallel; 'basic_mv' takes flows from the bitstream)")
-        load_params_npz(flow_net, spynet_weights)
+        load_params_npz(flow_net, _spynet_params(spynet_weights))
     if params.eval_model:
-        load_params_npz(model, params.eval_model)
+        load_vsr_eval_params(params.eval_model, params.model_type, model)
     return model
 
 
@@ -195,10 +212,14 @@ def main(argv=None):
     add_eval_args(parser, tile=False)
     add_vsr_args(parser)
     params = parse_with_plugins(parser, argv, with_models=False)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s")
+    LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
     check_vsr_args(params)
+    if params.eval_model and params.eval_model.endswith((".pt", ".pth")):
+        # the JAX trainer initializes from an npz only; cli.test_vsr
+        # evaluates torch checkpoints
+        raise ValueError("cli.train_vsr's --eval_model is a params npz; evaluate a torch checkpoint with "
+                         "cli.test_vsr, or convert it to an npz first")
     device = resolve_device(params.device)
     model = build_vsr_model(params, device, params.spynet_weights)
     with no_tf32(), torch.autograd.set_detect_anomaly(params.debug):

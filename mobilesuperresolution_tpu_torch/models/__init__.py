@@ -36,6 +36,11 @@ def update_argparser(parser):
     parser.add_argument("--differentiable_speed", action="store_true",
                         help="NAS_MODEL: STE-differentiable latency estimate "
                         "(the reference leaves it without gradient).")
+    parser.add_argument("--pretrained", action="store_true",
+                        help="cli.search: shape-greedy transfer from a reference WDSR-B checkpoint into the "
+                        "supernet (head, tail, skip); needs --pretrained_path.")
+    parser.add_argument("--pretrained_path", type=str, default=None,
+                        help="Reference wdsr_b_x<scale>_<blocks>_<units>.pt checkpoint for --pretrained.")
     parser.add_argument("--quantize", choices=["none", "int8"], default="none",
                         help="int8 dynamic-range inference convs (not ported yet: raises).")
 

@@ -6,6 +6,10 @@ off:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import os
+import sys
+
+import numpy as np
 import pytest
 import torch
 
@@ -651,3 +655,63 @@ def test_tiny_zoo_models_match_cpu(cuda, kind):
         assert abs(l1[i] - l0[i]) <= 1e-4 * max(1.0, abs(l0[i])), (i, l1[i], l0[i])
     for k in g0:
         assert float((g1[k] - g0[k]).abs().max()) <= 1e-4 * max(float(g0[k].abs().max()), 1e-3), k
+
+
+def test_timing_harness_launches_b5_and_matches_plain(cuda):
+    """kernels/timing.py's split block on the card: one B5 launch per call,
+    within f32 tolerance of the plain block; time_fn_loop launches it once
+    per chained call."""
+    from mobilesuperresolution_tpu_torch.kernels import timing
+
+    fwd, zero = timing._split_block_forward(32, 24, 5, (48, 64), device=cuda)
+    assert zero.device.type == "cuda" and zero.shape == (1, 48, 64, 32)
+    x = (torch.rand((1, 48, 64, 32), generator=torch.Generator().manual_seed(3)) * 2 - 1).to(cuda)
+    weights = timing.split_block_weights(24, 5, device=cuda)
+    before = fused_convsep.launches
+    with torch.inference_mode():
+        got = fwd(x)
+        want = timing.split_block(x, 24, weights, branch=fused_convsep_plain)
+    torch.cuda.synchronize()
+    assert fused_convsep.launches == before + 1
+    assert float((got - want).abs().max()) <= _tol(want, torch.float32)
+    before = fused_convsep.launches
+    ms = timing.time_fn_loop(fwd, zero, iters=4, reps=3, warmup=1)
+    assert fused_convsep.launches - before == timing.loop_calls(iters=4, reps=3, warmup=1) and ms > 0
+
+
+def test_timing_harness_raises_where_b5_refuses(cuda, monkeypatch):
+    """A width B5 does not take (65 channels) raises on the card, and the
+    plain version never runs in its place."""
+    from mobilesuperresolution_tpu_torch.kernels import fused_convsep as b5
+    from mobilesuperresolution_tpu_torch.kernels import timing
+
+    def no_plain(*a):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(b5, "fused_convsep_plain", no_plain)
+    fwd, zero = timing._split_block_forward(65, 65, 3, (8, 8), device=cuda)
+    before = fused_convsep.launches
+    with pytest.raises(ValueError, match="not taken"):
+        with torch.inference_mode():
+            fwd(zero)
+    assert fused_convsep.launches == before
+
+
+def test_pth_loaded_basic_mv_equals_npz_loaded_on_card(cuda, tmp_path):
+    """A 'basic_mv' loaded from a reference-layout .pth (train/torch_convert)
+    gives bit-equal output to the same weights loaded from an npz."""
+    from mobilesuperresolution_tpu_torch.cli.common_cli import load_vsr_eval_params
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import reference_state_dict
+
+    flat = random_jax_params(get_vsr_model("basic_mv", device="cpu"), seed=8)
+    torch.save(reference_state_dict("basic_mv", flat), tmp_path / "mv.pth")
+    np.savez(tmp_path / "mv.npz", **flat)
+    by_pth = load_vsr_eval_params(str(tmp_path / "mv.pth"), "basic_mv", get_vsr_model("basic_mv", device=cuda))
+    by_npz = load_vsr_eval_params(str(tmp_path / "mv.npz"), "basic_mv", get_vsr_model("basic_mv", device=cuda))
+    x = torch.rand((1, 3, 32, 48, 5), generator=torch.Generator().manual_seed(9)).to(cuda)
+    with torch.inference_mode():
+        assert torch.equal(by_pth(x, 128, 192), by_npz(x, 128, 192))

@@ -242,9 +242,10 @@ def test_port_imports_no_jax():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     # the NAS search slice's modules, the flow cache's, SISR training's,
-    # checkpointing's and VSR training's, and the VSR zoo's (all six types),
-    # patch eval's and the video datasets' (REDS with motion vectors too) are
-    # among those checked
+    # checkpointing's and VSR training's, the VSR zoo's (all six types),
+    # patch eval's and the video datasets' (REDS with motion vectors too),
+    # and the rest of NAS, the torch checkpoints', logging's and profiling's
+    # are among those checked
     rel = {os.path.relpath(f, REPO) for f in files}
     for mod in ("ops/ste", "kernels/fused_convsep", "nas/speed_estimator", "nas/speed_loss", "nas/search",
                 "nas/artifact", "models/wdsr_nas", "train/state", "train/steps", "core/utils", "cli/search",
@@ -253,11 +254,12 @@ def test_port_imports_no_jax():
                 "data/reds", "data/synthetic", "cli/train_vsr", "cli/test_vsr", "cli/common_cli",
                 "cli/test_vsr_by_patch", "analysis/patch_stats", "models/single_image", "models/naive_multi",
                 "data/vimeo", "data/nemo", "data/yuv", "data/frame_utils", "models/mvvsr", "models/naive_multi_v1",
-                "data/reds_with_mv"):
+                "data/reds_with_mv", "core/msgpack_io", "nas/speed_model", "kernels/timing", "train/torch_convert",
+                "core/logging_tool", "core/profiling", "cli/prepare_dataset"):
         assert os.path.join("mobilesuperresolution_tpu_torch", mod + ".py") in rel, mod
     for script in ("torch_search_profile.py", "torch_bench.py"):
         assert os.path.join("scripts", script) in rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "mobilesuperresolution_tpu"), (path, mod)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "msgpack", "mobilesuperresolution_tpu"), (path, mod)

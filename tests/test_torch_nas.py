@@ -562,8 +562,8 @@ def test_search_cli_on_cpu(tmp_path, monkeypatch):
     """cli.search end to end on the CPU at a tiny size: three phases, finite
     metrics at every step, a block_index.txt that the JAX reader parses and a
     weights npz that loads into a JAX NASModel and gives the port's output;
-    flags of parts not ported are refused, and without a card it runs only
-    when the CPU is asked for."""
+    flags of parts not ported and an unknown table name are refused, and
+    without a card it runs only when the CPU is asked for."""
     argv = ["--job_dir", str(tmp_path), "--device", "cpu", "--dataset", "synthetic_isr",
             "--eval_datasets", "synthetic_isr", "--num_blocks", "2", "--num_residual_units", "8",
             "--width_epochs", "1", "--epochs", "1", "--kernel_epochs", "1", "--lr_patch_size", "8",
@@ -589,12 +589,11 @@ def test_search_cli_on_cpu(tmp_path, monkeypatch):
     with torch.no_grad():
         np.testing.assert_allclose(m(_t(x))[0].numpy(), np.asarray(jm.apply({"params": jp}, jnp.asarray(x))[0]),
                                    atol=1e-5)
-    for flag in (["--distributed"], ["--pretrained"], ["--eval_tile", "64"], ["--speed_predictor", "auto"],
-                 ["--build_speed_table"]):
+    for flag in (["--distributed"], ["--eval_tile", "64"]):
         with pytest.raises(SystemExit):
             search.main(argv[:2] + ["--device", "cpu"] + flag)
-    with pytest.raises(SystemExit, match="npy"):
-        search.main(argv[:-1] + ["huawei_p30_cpu"])
+    with pytest.raises(SystemExit, match="not a packaged table name"):
+        search.main(argv[:-1] + ["huawei_p31_cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         search.main([a for a in argv if a not in ("--device", "cpu")])

@@ -57,7 +57,7 @@ from mobilesuperresolution_tpu_torch.train.state import spynet_frozen_mask, vsr_
 from mobilesuperresolution_tpu_torch.train.steps import make_vsr_step
 
 torch.set_num_threads(2)
-NF, NB, T, HW, S = 8, 1, 3, 16, 4
+NF, NB, T, HW, S = 8, 1, 2, 16, 4
 
 
 def _t(a):
@@ -374,12 +374,12 @@ def test_vsr_entry_points_refuse_what_is_not_ported(tmp_path, monkeypatch):
     only when the CPU is asked for."""
     base = ["--job_dir", str(tmp_path), "--device", "cpu", "--dataset", "synthetic_vsr", "--eval_datasets"]
     for flag, match in ((["--spatial_shards", "2"], "A8"),
-                        (["--chunk_data_parallel"], "A8"), (["--quantize", "int8"], "A8"),
-                        (["--spynet_weights", "spynet.pth"], "A7")):
+                        (["--chunk_data_parallel"], "A8"), (["--quantize", "int8"], "A8")):
         with pytest.raises(NotImplementedError, match=match):
             train_vsr.main(base + flag)
-    with pytest.raises(NotImplementedError, match="A7"):
-        test_vsr.main(base + ["--eval_model", "model.pth"])
+    # the trainer initializes from an npz only, as the JAX trainer does
+    with pytest.raises(ValueError, match="cli.test_vsr"):
+        train_vsr.main(base + ["--eval_model", "model.pth"])
     with pytest.raises(SystemExit):
         train_vsr.main(base + ["--distributed"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

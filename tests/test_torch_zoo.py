@@ -9,7 +9,8 @@ Both sides get the same seeded weights through the bridge
 (``random_jax_params``), so no JAX init is compiled; the JAX tree is checked
 with ``jax.eval_shape``, which only traces. JAX compiles one forward and one
 training step per model type, at a tiny size ('single' 8 channels and 2
-blocks, 'multi' the artifact [[8, 8, 3], [8, 6, 5]]; 3 frames of 16x16, x4).
+blocks, 'multi' the artifact [[8, 8, 3], [8, 6, 5]]; x4, 16x16 LR, 3 frames
+for the forward and 2 for the steps).
 
 Tolerances: the f32 forward within 1e-5 of the largest output; per-step
 losses 2e-4 relative (Adam carries one step's summation-order noise into the
@@ -146,11 +147,11 @@ def _adam_drift(lrs, b1=0.9, b2=0.99):
 def test_zoo_lockstep_matches_jax(tiny):
     """Three VSR steps of the port's make_vsr_step + vsr_multistep_adam with
     the frozen-SpyNet mask against the JAX package's, crossing both
-    milestones (one step per epoch, 3 epochs): per-step losses agree, the
-    trainable weights agree within the Adam drift bound and all moved, and
-    'multi''s flownet never moves on either side."""
+    milestones (one step per epoch, 3 epochs), on 2-frame clips: per-step
+    losses agree, the trainable weights agree within the Adam drift bound and
+    all moved, and 'multi''s flownet never moves on either side."""
     kind, make, flat, jm = tiny
-    lr_rate, spe, epochs = 1e-3, 1, 3
+    lr_rate, spe, epochs, t = 1e-3, 1, 3, 2
     m = load_params_npz(make(), flat).train()
     params = _tree(flat)
     tx = j_vsr_multistep_adam(lr_rate, spe, epochs, trainable_mask=j_spynet_frozen_mask(params))
@@ -163,8 +164,8 @@ def test_zoo_lockstep_matches_jax(tiny):
     tstep = make_vsr_step(m, opt, (OUT, OUT))
     data = np.random.default_rng(8)
     for i in range(3):
-        lr_clip = data.random((1, T, HW, HW, 3), np.float32)
-        hr_clip = data.random((1, T, OUT, OUT, 3), np.float32)
+        lr_clip = data.random((1, t, HW, HW, 3), np.float32)
+        hr_clip = data.random((1, t, OUT, OUT, 3), np.float32)
         state, jmet = jstep(state, (jnp.asarray(lr_clip), jnp.asarray(hr_clip)))
         tmet = tstep((_t(lr_clip), _t(hr_clip)))
         assert float(tmet["skipped"]) == float(jmet["skipped"]) == 0.0
