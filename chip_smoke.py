@@ -140,17 +140,41 @@ Phases, each fatal on failure (non-zero exit, no result line):
    blocks, mmedit's {"meta", "params"}), 'basic_mv', 'single' and 'multi'
    .pth through cli.test_vsr --eval_model (ZOO_PER_FORWARD); a SpyNet .pth
    through cli.train_vsr --spynet_weights for one step;
-25. result.log in the job dir of every entry-point run (run_cli checks each
+25. Q1, the int8 dynamic-range conv (not a TPU kernel: the JAX package's
+   XLA int8 conv), against its plain version bit for bit (f32 and bf16 out,
+   with and without bias, all-±127 inputs) at the dual trunk's 54->48 and
+   48->48 (426x240), SpyNet's five s2d convs at a window's finest level,
+   WDSR-B's and ResultNet's convs at 678x1020 (k 1/3/5/7), with ms, plain,
+   cuDNN bf16 (the nearest library call, not the same function) and bound
+   (int8 operations at 1,979 TOP/s, or bytes);
+26. cli.serve --quantize int8 of mobile BasicVSR x4 (bf16, 16 426x240
+   frames, chunk 4, overlap 3), plain and --flow_cache: Q1 200 per window
+   (flow-cached 30 per flow group + 170 per window), B1 0, B2 1; the
+   agreement PSNR with phase 5's float stream; the quantized window's ms;
+27. quantized evaluation: the shipped wdsr_b_x2 / result_net_x2 int8 on
+   their held-out set (PSNR and its delta from the float report), through
+   cli.pretrain / cli.retrain_searched --eval_only --quantize int8 beside the
+   float runs (B3 = B4 = 0), cli.test_vsr --quantize int8 for 'basic',
+   'single', 'multi' and 'basic_mv' with each first output held to the CPU's,
+   and a tiny 'basic_origin' card vs CPU;
+28. cli.export of the searched net (360x540) and of mobile BasicVSR (10
+   frames of 360x540): the .pt2 checked on the card against the kernel
+   forward, its export seconds, the artifact's and the port's ms;
+29. cli.pretrain --eval_only --eval_tile 128 on the shipped wdsr_b_x2 at
+   256x256 LR against the whole images (B3 / B4 per tile);
+30. analysis.approx_ladder --config tiny on the card: the table and the JAX
+   package's monotone properties;
+31. result.log in the job dir of every entry-point run (run_cli checks each
    as it returns), and one cli.pretrain epoch with --xla_profile_steps 2
    writing one trace that names B3's kernel.
 
 Prints the kernel table as one JSON line (launches from this slice's paths,
 each count set to 0 before its path: B1 and B2 from the basic VSR training
-run plus phases 16-18, 20, 21 and 24, B3 from the pretraining run and phase
-24, B4 from those and phase 20's 'multi_v1' runs, B5 from the search and
-phases 22 and 23), the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
-Needs CUDA; imports nothing of JAX.
+run plus phases 16-18, 20, 21, 24 and 26-30, B3 from the pretraining run and
+phases 24 and 29, B4 from those and phase 20's 'multi_v1' runs and 28, B5
+from the search and phases 22 and 23, Q1 from phases 26, 27 and 30), the
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Details go to
+chiprun_out/chip_smoke.json. Needs CUDA; imports nothing of JAX.
 """
 
 import argparse
@@ -174,7 +198,7 @@ sys.path.insert(0, ROOT)
 # published H100 SXM peaks (NVIDIA data sheet, dense), by the unit and type
 # a route computes on; "tf32x3" is the TF32 tensor-core rate over 3, the
 # rate of a 3xTF32 split (hi·hi + hi·lo + lo·hi)
-PEAK_RATES = {"f32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3}
+PEAK_RATES = {"f32": 67e12, "bf16": 989e12, "tf32x3": 495e12 / 3, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 T_WIN, H_LR, W_LR, OH, OW = 10, 240, 426, 1080, 1920
 N_STREAM_FRAMES = 16
@@ -2369,6 +2393,417 @@ def phase_logging_profiling(work):
                 wall_s=wall)
 
 
+def q1_counts():
+    """The int8 path's kernel counts: Q1 and the float kernels beside it."""
+    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import qconv_int8
+
+    return dict(vsr_launches(), **sisr_launches(), Q1=qconv_int8.launches)
+
+
+def reset_q1_counts():
+    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import qconv_int8
+
+    reset_vsr_launches()
+    reset_sisr_launches()
+    qconv_int8.launches = 0
+
+
+def phase_q1_kernels(gen, dev):
+    """Q1 against its plain version at every shape this slice launches it on:
+    bit for bit (tolerance 0) with f32 and bf16 output, with and without
+    bias, and on all-±127 inputs (the int32 edge); then ms, the plain ms,
+    the bound (int8 operations at the dense tensor-core rate, or bytes) and
+    cuDNN's bf16 conv of the same shape, the nearest library call (not the
+    same function: no int8 conv exists in PyTorch on CUDA)."""
+    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import pack_weights, qconv_int8, qconv_int8_plain
+
+    n_pairs = 2 * (T_WIN - 1)
+    cases = [("trunk conv0", 1, H_LR, W_LR, 54, 48, 3, True), ("trunk conv", 1, H_LR, W_LR, 48, 48, 3, True)]
+    cases += [(f"SpyNet s2d {ci}->{co}", n_pairs, 128, 224, ci, co, 5, True)
+              for ci, co in ((32, 128), (128, 256), (256, 128), (128, 64), (64, 8))]
+    hs, ws = SR_HR[0] // SR_SCALE, SR_HR[1] // SR_SCALE
+    cases += [(f"WDSR-B {name}", 1, hs, ws, ci, co, k, False)
+              for name, ci, co, k in (("head", 3, 24, 3), ("expand", 24, 144, 1), ("linear", 144, 20, 1),
+                                      ("3x3", 20, 24, 3), ("tail", 24, 12, 3), ("skip", 3, 12, 5))]
+    cases += [(f"ResultNet k{k}", 1, hs, ws, c, c, k, False) for c, k in ((18, 3), (16, 5), (15, 7))]
+    rows = []
+    for tag, n, h, w, ci, co, k, serving in cases:
+        xq = torch.randint(-127, 128, (n, h, w, ci), generator=gen, dtype=torch.int8).to(dev)
+        wq = torch.randint(-127, 128, (co, ci, k, k), generator=gen, dtype=torch.int8).to(dev)
+        xs = (torch.rand(n, generator=gen) * 1e-2 + 1e-4).to(dev)
+        ks = (torch.rand(co, generator=gen) * 1e-2 + 1e-4).to(dev)
+        b = (torch.rand(co, generator=gen) - 0.5).to(dev)
+        packed = pack_weights(wq)
+        edge_x = torch.full_like(xq, 127)
+        edge_x[..., 1::2] = -127
+        edge_w = torch.full_like(wq, -127)
+        err = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            for bias in (None, b):
+                for x_, w_, p_ in ((xq, wq, packed), (edge_x, edge_w, None)):
+                    got = qconv_int8(x_, w_, xs, ks, bias, dtype, packed=p_)
+                    want = qconv_int8_plain(x_, w_, xs, ks, bias, dtype)
+                    err = max(err, float((got.float() - want.float()).abs().max()))
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"Q1 {tag} {dtype} bias {bias is not None}: differs from its plain "
+                                             f"version (max {err})")
+        # timed as the path runs it: serving's convs in bf16 with the bias
+        # inside (PlainConv), the SISR nets' in f32 with the bias after (WNConv)
+        dtype, bias = (torch.bfloat16, b) if serving else (torch.float32, None)
+        ms = cuda_ms(lambda: qconv_int8(xq, wq, xs, ks, bias, dtype, packed=packed))
+        plain_ms = cuda_ms(lambda: qconv_int8_plain(xq, wq, xs, ks, bias, dtype), iters=3, warmup=1)
+        xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb, bb = wq.to(torch.bfloat16), b.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.conv2d(xb, wb, bb, padding=k // 2))
+        ops = 2.0 * n * h * w * ci * co * k * k
+        out_bytes = n * h * w * co * (2 if dtype == torch.bfloat16 else 4)
+        bms, by, basis = bound_by_route([(ops, "int8")], nbytes(xq, wq, xs, ks, b) + out_bytes)
+        label = f"Q1 {tag} {n}x{h}x{w} {ci}->{co} k{k} -> {str(dtype)[6:]}"
+        log(f"  {label}: equal to its plain version (f32/bf16 out, +/- bias, all-127 edge); ms {ms:.4f} plain "
+            f"{plain_ms:.4f} cuDNN bf16 {lib_ms:.4f} bound {bms:.4f} ({by}; {basis}); "
+            f"{ops / ms / 1e9:.1f} TOP/s")
+        rows.append(dict(case=label, main_path=serving, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by, bound_basis=basis, gop=ops / 1e9))
+    return rows
+
+
+def read_pngs(d):
+    from PIL import Image
+
+    return [np.asarray(Image.open(os.path.join(d, f))) for f in sorted(os.listdir(d))]
+
+
+def psnr_u8(a, b):
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def phase_quantized_serving(dev, work, frames, float_out, flow_groups):
+    """cli.serve --quantize int8 of mobile BasicVSR x4 (nf 24, 8 blocks,
+    bf16, the float stream's seeded weights) over the 16 426x240 frames,
+    chunk 4, overlap 3, plain and --flow_cache: 16 1080x1920 frames each;
+    Q1 200 (SpyNet's 30 and the dual trunks' 17 x 10 steps), B1 0 and B2 1
+    per window (flow-cached: Q1 30 per flow group and 170 per window); the
+    agreement PSNR of each stream's PNGs with the float stream's frames;
+    then the quantized window forward's ms and frames/s."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from mobilesuperresolution_tpu_torch.cli import serve
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    d = os.path.join(work, "qserve_frames")
+    os.makedirs(d)
+    for i, fr in enumerate(frames):
+        Image.fromarray((fr * 255).round().astype(np.uint8)).save(os.path.join(d, f"{i:04d}.png"))
+    ref = [(np.clip(f, 0, 1) * 255).round() for f in float_out]
+    windows = len(range(0, N_STREAM_FRAMES, CHUNK)) + 1  # and the warm-up window
+    q1_sr, q1_flow = 17 * T_WIN, B1_PER_WINDOW
+    out, total = {}, {}
+    for name, extra, want_q1 in (("plain", [], (q1_flow + q1_sr) * windows),
+                                 ("flow_cache", ["--flow_cache"], q1_flow * (flow_groups + 1) + q1_sr * windows)):
+        job = os.path.join(work, f"qserve_{name}")
+        argv = ["--job_dir", job, "--input_dir", d, "--bf16", "--chunk_frames", str(CHUNK), "--chunk_overlap",
+                str(OVERLAP), "--height", str(OH), "--width", str(OW), "--quantize", "int8", *extra]
+        reset_q1_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = run_cli(serve.main, argv)
+        launches = q1_counts()
+        got = read_pngs(os.path.join(job, "serve"))
+        agreement = psnr_u8(np.stack(got), np.stack(ref))
+        log(f"  cli.serve --quantize int8 {name}: {stats['frames']} frames of {got[0].shape}, "
+            f"{stats['fps_end_to_end']} frames/s end to end (PNG writes included), agreement with the float stream "
+            f"{agreement:.2f} dB, launches {launches}")
+        if len(got) != N_STREAM_FRAMES or got[0].shape != (OH, OW, 3) or not agreement > 25.0:
+            raise AssertionError(f"quantized serve {name}: {len(got)} frames of {got[0].shape}, agreement {agreement}")
+        if (launches["Q1"], launches["B1"], launches["B2"]) != (want_q1, 0, B2_PER_WINDOW * windows):
+            raise AssertionError(f"quantized serve {name}: launches {launches}, want Q1 {want_q1}, B1 0, "
+                                 f"B2 {windows}")
+        out[name] = dict(stats, agreement_db=agreement, launches=launches)
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+
+    model = get_vsr_model("basic", scale=4, compute_dtype=torch.bfloat16, device=dev, quantized=True)
+    load_params_npz(model, random_jax_params(model, seed=0))
+    x = torch.from_numpy(np.stack(frames[:T_WIN])[None]).to(dev)
+    reset_q1_counts()
+    with torch.inference_mode():
+        y = model(x, OH, OW)
+        torch.cuda.synchronize()
+        per_window = q1_counts()
+        win_ms = cuda_ms(lambda: model(x, OH, OW), iters=5, warmup=1)
+    if per_window["Q1"] != q1_flow + q1_sr or per_window["B1"] != 0 or per_window["B2"] != 1 \
+            or not torch.isfinite(y).all():
+        raise AssertionError(f"quantized window: launches {per_window}, finite {bool(torch.isfinite(y).all())}")
+    log(f"  quantized window forward {win_ms:.3f} ms = {T_WIN / win_ms * 1e3:.2f} frames/s; per window {per_window}")
+    out["window"] = dict(ms=win_ms, fps=T_WIN / win_ms * 1e3, launches=per_window)
+    total = {k: total.get(k, 0) + v for k, v in per_window.items()}
+    return out, total
+
+
+def write_block_index(path, idx):
+    with open(path, "w") as f:
+        f.write(f"{([], [list(b) for b in idx])}\n")
+    return path
+
+
+def phase_quantized_eval(dev, work, mv_root):
+    """The int8 models' evaluation: the shipped wdsr_b_x2 and result_net_x2
+    quantized on their held-out set (PSNR and its delta from the float
+    report) and through cli.pretrain / cli.retrain_searched --eval_only
+    --quantize int8 beside the float runs (B3 = B4 = 0, Q1 per image: WDSR-B
+    51, the searched net 11); cli.test_vsr --quantize int8 for 'basic',
+    'single', 'multi' and 'basic_mv' at their launchers' width on seeded
+    weights (Q1 per forward 200, 18, 34, 170; B1 0), each model's first
+    output on the card held to the same model's on the CPU, and a tiny
+    'basic_origin' the same way. Tolerance card vs CPU: 2e-2 of the largest
+    output, mean 1e-3 (float32 convs in other orders upstream flip an
+    occasional round-half activation, a one-step change that later layers
+    carry)."""
+    import contextlib
+    import io
+
+    from mobilesuperresolution_tpu_torch.cli import pretrain, retrain_searched, test_vsr
+    from mobilesuperresolution_tpu_torch.core import modes
+    from mobilesuperresolution_tpu_torch.data import get_dataset_module
+    from mobilesuperresolution_tpu_torch.models import BasicModel, BasicVSROrigin, ResultNet, get_vsr_model
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+    from mobilesuperresolution_tpu_torch.train.evaluate import evaluate
+
+    out, total = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    per_image = {}
+    for run, want in SHIPPED_PSNR.items():
+        d = os.path.join(ROOT, "artifacts", "convergence", run)
+        with open(os.path.join(d, "report.json")) as f:
+            cfg = json.load(f)["config"]
+        if run == "wdsr_b_x2":
+            model = BasicModel(cfg["num_blocks"], cfg["num_residual_units"], cfg["scale"], quantized=True)
+            per_image[run] = 1 + 3 * cfg["num_blocks"] + 2
+        else:
+            model = ResultNet(cfg["scale"], cfg["idx"], quantized=True)
+            per_image[run] = 1 + len(cfg["idx"]) + 2
+        model.to(dev)
+        load_params_npz(model, os.path.join(d, "weights", "models.npz"))
+
+        def fwd(lr, oh, ow):
+            with torch.inference_mode():
+                return model(lr)
+
+        reset_q1_counts()
+        res = evaluate(fwd, held_out_batches(), scale=cfg["scale"], device=dev).as_dict()
+        launches = q1_counts()
+        add(launches)
+        log(f"  {run} int8: PSNR {res['PSNR']:.4f} (float report {want}, delta {res['PSNR'] - want:+.4f} dB), "
+            f"SSIM {res['SSIM']:.4f}; launches {launches}")
+        if (launches["Q1"], launches["B3"], launches["B4"]) != (4 * per_image[run], 0, 0) or \
+                not abs(res["PSNR"] - want) <= 1.0:
+            raise AssertionError(f"{run} int8: PSNR {res['PSNR']}, launches {launches}")
+        out[run] = dict(res, delta_db=res["PSNR"] - want, launches=launches)
+
+    wdsr_npz = os.path.join(ROOT, "artifacts", "convergence", "wdsr_b_x2", "weights", "models.npz")
+    wdsr_cfg = shipped_config("wdsr_b_x2")
+    result_dir = os.path.join(ROOT, "artifacts", "convergence", "result_net_x2")
+    with open(os.path.join(result_dir, "report.json")) as f:
+        idx = json.load(f)["config"]["idx"]
+    data = ["--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr", "--eval_only"]
+    cli_runs = (("pretrain", pretrain.main, ["--num_blocks", str(wdsr_cfg["num_blocks"]), "--num_residual_units",
+                                             str(wdsr_cfg["num_residual_units"]), "--eval_model", wdsr_npz],
+                 "wdsr_b_x2"),
+                ("retrain_searched", retrain_searched.main,
+                 ["--block_index", write_block_index(os.path.join(work, "result_net_x2.txt"), idx),
+                  "--eval_model", os.path.join(result_dir, "weights", "models.npz")], "result_net_x2"))
+    for name, main, extra, run in cli_runs:
+        res = {}
+        for q in ("none", "int8"):
+            reset_q1_counts()
+            res[q] = run_cli(main, ["--job_dir", os.path.join(work, f"q_{name}_{q}"), *data, *extra, "--quantize",
+                                    q])["synthetic_isr"]
+            launches = q1_counts()
+            if q == "int8":
+                add(launches)
+                if (launches["Q1"], launches["B3"], launches["B4"]) != (8 * per_image[run], 0, 0):
+                    raise AssertionError(f"cli.{name} --quantize int8: launches {launches}")
+        log(f"  cli.{name} --eval_only on synthetic_isr: PSNR float {res['none']['PSNR']:.4f}, int8 "
+            f"{res['int8']['PSNR']:.4f} (delta {res['int8']['PSNR'] - res['none']['PSNR']:+.4f} dB)")
+        if not all(np.isfinite(v) for v in res["int8"].values()):
+            raise AssertionError(f"cli.{name} int8: non-finite metrics {res['int8']}")
+        out[f"cli_{name}"] = res
+
+    vsr_data = ["--dataset", "synthetic_vsr", "--eval_datasets", "synthetic_vsr", "--synthetic_clips", "1",
+                "--synthetic_frames", str(VSR_T), "--synthetic_size", "256"]
+    per_forward = {"basic": B1_PER_WINDOW + 17 * VSR_T, "single": 1 + 2 * 8 + 1, "multi": B1_PER_WINDOW + 4,
+                   "basic_mv": 17 * VSR_T}
+    for kind, want_q1 in per_forward.items():
+        job = os.path.join(work, f"q_test_vsr_{kind}")
+        if kind == "basic_mv":
+            argv = vsr_argv(job, kind, mv_root)
+        else:
+            argv = ["--job_dir", job, *vsr_data, *model_argv(kind), "--scale", str(VSR_SCALE), "--image_batch",
+                    str(VSR_T)]
+        reset_q1_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = run_cli(test_vsr.main, argv + ["--quantize", "int8"])[argv[argv.index("--eval_datasets") + 1]]
+        launches = q1_counts()
+        add(launches)
+        params = argparse.Namespace(scale=VSR_SCALE, data_dir=mv_root, image_batch=VSR_T, val_image_batch=VSR_T,
+                                    seed=0, synthetic_clips=1, synthetic_frames=VSR_T, synthetic_size="256")
+        ds = get_dataset_module("reds_with_mv" if kind == "basic_mv" else "synthetic_vsr").get_dataset(modes.EVAL,
+                                                                                                      params)
+        clips = len(ds)
+        want_b2 = 0 if kind == "multi" else 1
+        if (launches["Q1"], launches["B1"], launches["B2"]) != (want_q1 * clips, 0, want_b2 * clips) or \
+                not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"cli.test_vsr {kind} int8: {res}, launches {launches} for {clips} clips")
+        lr = torch.from_numpy(np.asarray(ds[0][1])[None, :, :64, :64])
+        outs = []
+        for d in ("cpu", dev):
+            m = get_vsr_model(kind, scale=VSR_SCALE, device=d, quantized=True,
+                              block_index_path=ZOO_ARTIFACT if kind == "multi" else None)
+            load_params_npz(m, random_jax_params(m, 0))
+            oh, ow = VSR_SCALE * lr.shape[2], VSR_SCALE * lr.shape[3]
+            with torch.inference_mode():
+                outs.append(m(lr.to(d), oh, ow).float().cpu())
+        err, mean = float((outs[1] - outs[0]).abs().max()), float((outs[1] - outs[0]).abs().mean())
+        top = float(outs[0].abs().max())
+        log(f"  cli.test_vsr {kind} --quantize int8: PSNR {res['PSNR']:.4f} over {clips} clip(s), launches "
+            f"{launches}; first output card vs CPU max {err:.3e} mean {mean:.3e} (tol {2e-2 * top:.3e}, "
+            f"{1e-3 * top:.3e})")
+        if not (err <= 2e-2 * top and mean <= 1e-3 * top):
+            raise AssertionError(f"{kind} int8 card vs CPU: max {err}, mean {mean}, largest output {top}")
+        out[f"test_vsr_{kind}"] = dict(res, launches=launches, card_vs_cpu_max=err, card_vs_cpu_mean=mean)
+
+    x = torch.from_numpy(np.random.default_rng(7).random((1, 3, 32, 32, 3), dtype=np.float32))
+    outs = []
+    for d in ("cpu", dev):
+        m = BasicVSROrigin(num_feat=8, num_block=1, quantized=True).to(d)
+        load_params_npz(m, random_jax_params(m, 7))
+        with torch.inference_mode():
+            outs.append(m(x.to(d), 128, 128).float().cpu())
+    err, top = float((outs[1] - outs[0]).abs().max()), float(outs[0].abs().max())
+    log(f"  tiny basic_origin int8 card vs CPU: max {err:.3e} (tol {2e-2 * top:.3e})")
+    if not err <= 2e-2 * top:
+        raise AssertionError(f"tiny basic_origin int8 card vs CPU {err}")
+    out["tiny_basic_origin_err"] = err
+    return out, total
+
+
+def phase_export(dev, work):
+    """cli.export of the searched net ('result', 360x540) and of mobile
+    BasicVSR ('basic', 10 frames of 360x540, x4), each checked on the card
+    by the CLI against the port's kernel forward (B4 1; B1 25 and B2 1: the
+    coarsest SpyNet level, 12x17, runs direct); then the export seconds, and
+    the artifact's ms and the port's ms on the card (the CLI's --time_iters
+    3, after a warm-up call)."""
+    import contextlib
+    import io
+
+    from mobilesuperresolution_tpu_torch.cli import export as export_cli
+
+    out, total = {}, {}
+    for kind, argv, want in (("result", ["--block_index", ZOO_ARTIFACT, "--scale", "2"], {"B4": 1}),
+                             ("basic", ["--model_type", "basic", "--scale", "4"], {"B1": 25, "B2": 1})):
+        argv = argv + ["--out", os.path.join(work, f"export_{kind}"), "--time_iters", "3"]
+        reset_q1_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = export_cli.main(argv)
+        launches = q1_counts()  # the check's forward, its warm-up and 3 timed calls
+        if any(launches[k] != 5 * want.get(k, 0) for k in ("B1", "B2", "B4")):
+            raise AssertionError(f"export {kind}: the check's launches {launches}, want 5 x {want}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        art_ms, port_ms = res["check"]["artifact_ms"], res["check"]["port_ms"]
+        size = os.path.getsize(res["paths"]["pt2"]) / 1e6
+        log(f"  cli.export {kind}: exported in {res['export_s']:.1f} s ({size:.1f} MB), artifact vs kernel forward on "
+            f"the card max {res['check']['max_abs_err']:.3e} (tol {res['check']['tol']:.3e}); artifact {art_ms:.3f} "
+            f"ms, port {port_ms:.3f} ms; the check's launches {launches}")
+        out[kind] = dict(res["check"], export_s=res["export_s"], mb=size, launches=launches)
+    return out, total
+
+
+def shipped_config(run):
+    with open(os.path.join(ROOT, "artifacts", "convergence", run, "report.json")) as f:
+        return json.load(f)["config"]
+
+
+def phase_tiled_eval(work):
+    """cli.pretrain --eval_only --eval_tile 128 on the shipped wdsr_b_x2 over
+    synthetic_isr at 512x512 (256x256 LR: 3 x 3 tiles of 128, 9 per image;
+    radius 1 + blocks + 1 + 2) against the whole-image run: metrics within
+    1e-3 dB (cuDNN's head conv may sum in another order per input shape; B3
+    and B4 compute each pixel alike at any shape), B3 once per block and B4
+    once per tile."""
+    from mobilesuperresolution_tpu_torch.cli import pretrain
+
+    npz = os.path.join(ROOT, "artifacts", "convergence", "wdsr_b_x2", "weights", "models.npz")
+    cfg = shipped_config("wdsr_b_x2")
+    argv = ["--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr", "--synthetic_size", "512",
+            "--eval_only", "--num_blocks", str(cfg["num_blocks"]), "--num_residual_units",
+            str(cfg["num_residual_units"]), "--eval_model", npz]
+    res, launches = {}, {}
+    for name, extra in (("whole", []), ("tiled", ["--eval_tile", "128"])):
+        reset_sisr_launches()
+        t0 = time.perf_counter()
+        res[name] = run_cli(pretrain.main, ["--job_dir", os.path.join(work, f"tile_{name}"), *argv, *extra])[
+            "synthetic_isr"]
+        torch.cuda.synchronize()
+        launches[name] = dict(sisr_launches(), wall_s=time.perf_counter() - t0)
+    tiles = 8 * 9
+    d = {k: res["tiled"][k] - res["whole"][k] for k in res["whole"]}
+    log(f"  --eval_tile 128: PSNR {res['tiled']['PSNR']:.6f} vs whole {res['whole']['PSNR']:.6f} (diff "
+        f"{d['PSNR']:+.2e} dB, SSIM {d['SSIM']:+.2e}), tiles of (128, 128), 9 per 256x256 image; launches "
+        f"{launches}")
+    if (launches["tiled"]["B3"], launches["tiled"]["B4"]) != (cfg["num_blocks"] * tiles, tiles) or \
+            not abs(d["PSNR"]) <= 1e-3:
+        raise AssertionError(f"tiled eval: {res}, launches {launches}")
+    return dict(res, diff=d, launches=launches, tile_shape=[128, 128], tiles_per_image=9), \
+        {"B3": launches["tiled"]["B3"], "B4": launches["tiled"]["B4"]}
+
+
+def phase_ladder():
+    """analysis.approx_ladder --config tiny on the card: the table, and the
+    JAX package's properties (tests/test_approx_ladder.py): agreement with
+    the exact output rises with chunk overlap 0 < 2 < 4, flow_downscale 2
+    beats 4, every flow / chunk delta within 3 dB, int8 agreement above 25
+    dB with its delta within 3 dB. The overlap's rise is read on the frames
+    whose windows hold no replicate-padded context (all frames at overlap
+    0): a one-clip photometric SpyNet gives identical frames a non-zero
+    flow, so the padded clip-edge windows may move the other way (the JAX
+    package's note); the whole-clip order is logged beside it."""
+    import contextlib
+    import io
+
+    from mobilesuperresolution_tpu_torch.analysis import approx_ladder
+
+    reset_q1_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = approx_ladder.main(["--config", "tiny"])
+    wall = time.perf_counter() - t0
+    launches = q1_counts()
+    for line in buf.getvalue().splitlines():
+        log(f"  {line}")
+    ags = [res["chunk_overlap"][ov].get("interior_agreement", res["chunk_overlap"][ov]["agreement"])
+           for ov in (0, 2, 4)]
+    whole = [res["chunk_overlap"][ov]["agreement"] for ov in (0, 2, 4)]
+    a2, a4 = res["flow_downscale"][2]["agreement"], res["flow_downscale"][4]["agreement"]
+    q = res["quantize_int8"]
+    deltas = [r["delta"] for g in ("flow_downscale", "chunk_overlap") for r in res[g].values()]
+    log(f"  ladder {wall:.1f} s, launches {launches}; agreement at overlap 0/2/4: interior {ags}, whole clip "
+        f"{whole} (rising: {whole[0] < whole[1] < whole[2]})")
+    if not (ags[0] < ags[1] < ags[2] and np.isfinite(ags[0]) and a2 > a4 and np.isfinite(a4)
+            and all(abs(v) < 3.0 for v in deltas) and np.isfinite(q["agreement"]) and q["agreement"] > 25.0
+            and abs(q["delta"]) < 3.0 and launches["Q1"] > 0):
+        raise AssertionError(f"ladder properties: overlap {ags}, downscale {a2} {a4}, int8 {q}, deltas {deltas}")
+    return dict(res=json.loads(json.dumps(res, default=str)), wall_s=wall, launches=launches), launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2417,6 +2852,7 @@ def main():
         report["serving"] = stats
         phase("flow-cached serving at full width:")
         report["flow_cache"], launches = phase_flow_cache(dev, *served)
+        q_frames, q_float_out = served[1], served[2]  # for the quantized stream
         del served
         phase("small SISR parity:")
         report["tiny_sisr_parity_err"] = phase_sisr_parity(dev)
@@ -2463,6 +2899,20 @@ def main():
         report["search_latency"], search_latency_main = phase_search_latency(work)
         phase("reference checkpoints:")
         report["reference_checkpoints"], ckpt_main = phase_reference_checkpoints(dev, work, mv_root)
+        phase("Q1, the int8 conv, against its plain version:")
+        rows["Q1"] = phase_q1_kernels(torch.Generator().manual_seed(26), dev)
+        phase("quantized serving at full width:")
+        report["quantized_serving"], q_serve_main = phase_quantized_serving(
+            dev, work, q_frames, q_float_out, report["flow_cache"]["groups"])
+        del q_frames, q_float_out
+        phase("quantized evaluation:")
+        report["quantized_eval"], q_eval_main = phase_quantized_eval(dev, work, mv_root)
+        phase("export:")
+        report["export"], export_main = phase_export(dev, work)
+        phase("tiled SISR eval:")
+        report["tiled_eval"], tiled_main = phase_tiled_eval(work)
+        phase("the approximation ladder:")
+        report["ladder"], ladder_main = phase_ladder()
         phase("logging and profiling:")
         report["logging_profiling"] = phase_logging_profiling(work)
         phase(None)
@@ -2478,7 +2928,14 @@ def main():
         b5_parts = dict(search=search_main, latency_table=table_main, search_latency=search_latency_main)
         report["launches_b5_paths"] = b5_parts
         launches = {"B5": sum(p["B5"] for p in b5_parts.values()), "B3": train_main["B3"] + ckpt_main["B3"],
-                    "B1": vsr_paths["B1"], "B2": vsr_paths["B2"], "B4": train_main["B4"] + vsr_paths["B4"]}
+                    "B1": vsr_paths["B1"], "B2": vsr_paths["B2"], "B4": train_main["B4"] + vsr_paths["B4"], "Q1": 0}
+        # this slice's paths: the int8 stream and evals, the export checks,
+        # tiled eval and the ladder, each count set to 0 before its path
+        q_parts = dict(quantized_serving=q_serve_main, quantized_eval=q_eval_main, export=export_main,
+                       tiled_eval=tiled_main, ladder=ladder_main)
+        report["launches_deployment_paths"] = q_parts
+        for key in launches:
+            launches[key] += sum(p.get(key, 0) for p in q_parts.values())
     except Exception:
         traceback.print_exc()
         return 1
@@ -2509,6 +2966,9 @@ def main():
               "mobilesuperresolution_tpu/kernels/fused_tail.py:85", "B4"),
         entry("fused_convsep", "mobilesuperresolution_tpu_torch/csrc/fused_convsep.cu",
               "mobilesuperresolution_tpu/kernels/fused_convsep.py:68", "B5"),
+        # not a TPU kernel: the XLA int8 conv of the JAX package's qconv2d
+        entry("qconv_int8", "mobilesuperresolution_tpu_torch/csrc/qconv_int8.cu",
+              "mobilesuperresolution_tpu/ops/quant.py:86", "Q1"),
     ]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

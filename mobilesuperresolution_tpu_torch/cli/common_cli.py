@@ -82,8 +82,8 @@ def add_eval_args(parser, tile=True):
     parser.add_argument("--eval_only", action="store_true")
     if tile:
         parser.add_argument("--eval_tile", type=int, default=0,
-                            help="Overlap-tiled evaluation. Only 0 (whole images) is supported: tiling "
-                            "bounds XLA recompiles, and eager PyTorch compiles nothing per shape.")
+                            help="Evaluate in overlapping tiles of this size (train/eval_tiling.py): exact, "
+                            "bounded memory per forward. 0 = whole images.")
 
 
 def parse_with_plugins(parser, argv=None, with_models=True):

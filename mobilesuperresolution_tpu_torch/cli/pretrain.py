@@ -17,7 +17,10 @@ epoch (``train.checkpoint.CheckpointManager``), mid-epoch on a SIGTERM or
 and ``--resume`` continues from the latest save exactly. ``--eval_only``
 evaluates the loaded weights instead. Runs on CUDA unless ``--device cpu``
 is given; float32 convs run in full float32 (TF32 off, the caller's flags
-restored after); ``--bf16`` computes in bfloat16.
+restored after); ``--bf16`` computes in bfloat16. ``--eval_tile T`` scores
+the eval sets in exact overlapping T x T tiles (train/eval_tiling.py);
+``--quantize int8`` evaluates the int8 dynamic-range model (kernel Q1 on
+the card) and needs ``--eval_only``.
 
 Not ported (argparse refuses it): ``--spatial_shards`` (ROADMAP.md, queue
 A8).
@@ -43,11 +46,13 @@ from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.models import get_model
+from mobilesuperresolution_tpu_torch.parallel.halo import receptive_radius_wdsr
 from mobilesuperresolution_tpu_torch.train.checkpoint import (
     jax_named_parameters,
     load_params_npz,
     random_jax_params,
 )
+from mobilesuperresolution_tpu_torch.train.eval_tiling import make_tiled_forward
 from mobilesuperresolution_tpu_torch.train.evaluate import evaluate
 from mobilesuperresolution_tpu_torch.train.state import multistep_adam
 from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
@@ -55,12 +60,32 @@ from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
 log = logging.getLogger("msr_torch.pretrain")
 
 
-def run_evaluation(params, model, eval_mods, device):
-    """Evaluate ``model`` on every eval set; returns {set name: metrics}."""
+def _eval_radius(model):
+    """The model's receptive radius (+ 2 to spare), from the model itself:
+    a searched ResultNet from its blocks' kernels, WDSR-B from its depth.
+    Too large costs time, never exactness."""
+    if hasattr(model, "idx"):
+        nb, k = len(model.idx), max(b[2] for b in model.idx)
+    else:
+        nb = model.num_blocks
+        k = 3 if type(model).__name__ == "BasicModel" else 7
+    return receptive_radius_wdsr(nb, block_kernel=k) + 2
 
-    def forward(lr, out_h, out_w):
+
+def run_evaluation(params, model, eval_mods, device):
+    """Evaluate ``model`` on every eval set, in ``params.eval_tile`` tiles
+    when set; returns {set name: metrics}."""
+
+    def whole(lr):
         with torch.inference_mode():
             return model(lr)
+
+    fwd = whole
+    if getattr(params, "eval_tile", 0):
+        fwd = make_tiled_forward(whole, params.scale, _eval_radius(model), tile=params.eval_tile)
+
+    def forward(lr, out_h, out_w):
+        return fwd(lr)
 
     results = {}
     for name, mod in eval_mods:
@@ -74,12 +99,12 @@ def run_evaluation(params, model, eval_mods, device):
     return results
 
 
-def check_eval_tile(params):
-    if params.eval_tile:
-        raise NotImplementedError(
-            "--eval_tile bounds XLA recompiles for mixed-shape eval sets; eager PyTorch "
-            "compiles nothing per shape, so the port evaluates whole images only"
-        )
+def check_quantize(params):
+    """int8 quantization is inference-only, as in the JAX package: round()
+    has zero gradient almost everywhere, so a quantized forward would stop
+    training silently."""
+    if getattr(params, "quantize", "none") != "none" and not params.eval_only:
+        raise SystemExit("--quantize is inference-only: add --eval_only")
 
 
 def train_sisr(params, model, device):
@@ -105,7 +130,7 @@ def main(argv=None):
     params = parse_with_plugins(parser, argv)
     LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
-    check_eval_tile(params)
+    check_quantize(params)
     if not params.eval_only and params.model_type != "BASIC_MODEL":
         # the reference's pretrain crashes on the supernet (its model returns
         # (sr, speed)); the supernet trains in cli.search

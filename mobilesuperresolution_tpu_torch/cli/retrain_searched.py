@@ -11,8 +11,9 @@ step, schedule, data, per-epoch evaluation, weights npz and metrics.jsonl;
 seeded random weights (``--seed``) or a JAX flat-npz checkpoint
 (``--eval_model``), which ``--eval_only`` evaluates instead. Runs on CUDA
 unless ``--device cpu`` is given; checkpoints, ``--resume`` and the
-preemption flags as in cli/pretrain.py. ``--quantize int8`` is not ported
-yet and raises (ROADMAP.md, queue A8).
+preemption flags as in cli/pretrain.py, and ``--eval_tile`` as there.
+``--quantize int8`` evaluates the int8 dynamic-range net (kernel Q1 on the
+card) and needs ``--eval_only``.
 """
 
 import logging
@@ -26,7 +27,7 @@ from mobilesuperresolution_tpu_torch.cli.common_cli import (
     eval_modules,
     parse_with_plugins,
 )
-from mobilesuperresolution_tpu_torch.cli.pretrain import check_eval_tile, run_evaluation, train_sisr
+from mobilesuperresolution_tpu_torch.cli.pretrain import check_quantize, run_evaluation, train_sisr
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
 from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
@@ -45,16 +46,16 @@ def main(argv=None):
     parser.add_argument("--block_index", type=str, required=True,
                         help="Path to block_index.txt (or its job dir).")
     parser.add_argument("--quantize", choices=["none", "int8"], default="none",
-                        help="int8 dynamic-range inference convs (not ported yet: raises).")
+                        help="int8 dynamic-range inference convs (kernel Q1 on the card); --eval_only runs "
+                        "only.")
     params = parse_with_plugins(parser, argv, with_models=False)
     LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
-    if params.quantize != "none":
-        raise NotImplementedError("int8 quantized convs are not ported yet (ROADMAP.md, queue A8)")
-    check_eval_tile(params)
+    check_quantize(params)
     device = resolve_device(params.device)
     dtype = torch.bfloat16 if params.bf16 else torch.float32
-    model = ResultNet.from_artifact(params.block_index, scale=params.scale, compute_dtype=dtype).to(device)
+    model = ResultNet.from_artifact(params.block_index, scale=params.scale, compute_dtype=dtype,
+                                    quantized=params.quantize == "int8").to(device)
     log.info(f"searched architecture: {model.idx}")
     load_params_npz(model, params.eval_model or random_jax_params(model, params.seed))
     with no_tf32(), torch.autograd.set_detect_anomaly(params.debug):

@@ -1,6 +1,6 @@
 """Streaming VSR serving entry (counterpart of
-mobilesuperresolution_tpu/cli/serve.py, without ``--spatial_shards`` and
-``--quantize``, which are not ported).
+mobilesuperresolution_tpu/cli/serve.py, without ``--spatial_shards``, which
+is not ported).
 
 Reads an ordered directory of frames, pushes them in arrival order through
 ``serve.StreamingVSR`` (windows are enqueued ahead of result fetches, outputs
@@ -14,6 +14,8 @@ BasicVSR only); ``--flow_downscale d`` runs SpyNet on 1/d-res frames.
 ``--model_type`` serves mobile BasicVSR ('basic'), the faithful BasicVSR
 ('basic_origin', also with ``--flow_cache``), the per-frame 'single' or the
 searched 'multi' / 'multi_v1' (``--model_path`` its block_index.txt).
+``--quantize int8`` serves the int8 dynamic-range model (SpyNet and the
+trunks, or 'multi''s and 'single''s convs, on kernel Q1; not 'multi_v1').
 'basic_mv' is refused: it needs the codec's motion vectors beside each
 frame, and serving reads RGB frames only.
 
@@ -74,6 +76,9 @@ def build_parser():
     p.add_argument("--flow_cache", action="store_true",
                    help="Compute each SpyNet pair flow once and reuse it across overlapping "
                    "windows (serve/flow_cache.py). Matches the plain stream to float tolerance.")
+    p.add_argument("--quantize", choices=["none", "int8"], default="none",
+                   help="int8 dynamic-range inference convs (the numerics class of the reference's int8 "
+                   "TFLite deployment; kernel Q1 on the card).")
     p.add_argument("--flow_downscale", type=int, default=1,
                    help="Run SpyNet on 1/d-res frames and upsample the flow (1 = exact reference flows).")
     p.add_argument("--height", type=int, default=None,
@@ -100,7 +105,8 @@ def main(argv=None):
     chunk = params.chunk_frames or 4
     dtype = torch.bfloat16 if params.bf16 else torch.float32
     model = get_vsr_model(params.model_type, scale=params.scale, compute_dtype=dtype, device=device,
-                          flow_downscale=params.flow_downscale, block_index_path=params.model_path)
+                          flow_downscale=params.flow_downscale, block_index_path=params.model_path,
+                          quantized=params.quantize == "int8")
     if params.eval_model:
         load_vsr_eval_params(params.eval_model, params.model_type, model)
     else:

@@ -13,8 +13,9 @@ either package writes it, or a reference / mmedit ``.pt`` / ``.pth``
 converted per model type by ``common_cli.load_vsr_eval_params``) or,
 without one, seeded random ones. Returns {set name: metrics}. Runs on CUDA
 unless ``--device cpu`` is given; the log goes to stdout and
-``<job_dir>/result.log``. The flags of ``train_vsr.check_vsr_args`` are
-refused as there.
+``<job_dir>/result.log``. ``--quantize int8`` scores the int8 dynamic-range
+model (kernel Q1 on the card). The flags of ``train_vsr.check_vsr_args``
+are refused as there.
 """
 
 import logging

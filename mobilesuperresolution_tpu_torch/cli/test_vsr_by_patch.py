@@ -17,7 +17,8 @@ the 4xN array to ``<job_dir>/run/<model_type>_<patch_h>_<patch_w>_2.npy``
 (``analysis/patch_stats.py`` reads it). Runs on CUDA unless ``--device cpu``
 is given. ``--data_parallel`` (patches over several devices) waits for
 ROADMAP.md queue A8; ``--chunk_frames`` is refused, as the patch already
-bounds the memory.
+bounds the memory. ``--quantize int8`` evaluates the int8 dynamic-range
+model (kernel Q1 on the card), each patch batch quantized per sample.
 """
 
 import logging

@@ -24,8 +24,9 @@ given; float32 in full float32 (TF32 off), ``--bf16`` in bfloat16.
 log goes to stdout and ``<job_dir>/result.log``.
 
 Not ported yet, and refused with the queue item of ROADMAP.md that brings
-them: ``--spatial_shards`` > 1, ``--chunk_data_parallel`` and ``--quantize
-int8`` (A8).
+them: ``--spatial_shards`` > 1 and ``--chunk_data_parallel`` (A8).
+``--quantize int8`` is inference-only (cli.test_vsr, cli.test_vsr_by_patch,
+cli.serve) and refused here, as by the JAX trainer.
 """
 
 import logging
@@ -88,7 +89,8 @@ def add_vsr_args(parser):
                         help="Recompute each propagation step in the backward: O(1) activation memory in clip "
                         "length, the same gradients.")
     parser.add_argument("--quantize", choices=["none", "int8"], default="none",
-                        help="int8 inference convs (not ported yet: raises).")
+                        help="int8 dynamic-range inference convs (kernel Q1 on the card): cli.test_vsr, "
+                        "cli.test_vsr_by_patch and cli.serve; the trainer refuses it.")
 
 
 def check_vsr_args(params):
@@ -98,8 +100,6 @@ def check_vsr_args(params):
     if params.chunk_data_parallel:
         raise NotImplementedError("--chunk_data_parallel (windows over devices) is not ported yet "
                                   "(ROADMAP.md, queue A8)")
-    if params.quantize != "none":
-        raise NotImplementedError("int8 quantized convs are not ported yet (ROADMAP.md, queue A8)")
 
 
 def _spynet_params(path):
@@ -124,7 +124,8 @@ def build_vsr_model(params, device, spynet_weights=None):
     model = get_vsr_model(params.model_type, scale=params.scale,
                           compute_dtype=torch.bfloat16 if params.bf16 else torch.float32, device=device,
                           flow_downscale=params.flow_downscale, remat=getattr(params, "remat", False),
-                          block_index_path=params.model_path)
+                          block_index_path=params.model_path,
+                          quantized=getattr(params, "quantize", "none") == "int8")
     load_params_npz(model, random_jax_params(model, params.seed))
     if spynet_weights:
         flow_net = model.spynet if hasattr(model, "spynet") else getattr(model, "flownet", None)
@@ -214,6 +215,9 @@ def main(argv=None):
     params = parse_with_plugins(parser, argv, with_models=False)
     LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
+    if params.quantize != "none":
+        raise SystemExit("--quantize is inference-only (use test_vsr / serve); training runs the exact float "
+                         "path like the reference")
     check_vsr_args(params)
     if params.eval_model and params.eval_model.endswith((".pt", ".pth")):
         # the JAX trainer initializes from an npz only; cli.test_vsr

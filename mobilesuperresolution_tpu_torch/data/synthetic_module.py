@@ -1,8 +1,8 @@
 """Registry adapters for the synthetic datasets (tests, smoke runs), as
 mobilesuperresolution_tpu/data/synthetic_module.py binds ``synthetic_isr``
-and ``synthetic_vsr``. The VSR one's size flags are the port's own; their
-defaults make the JAX package's dataset (2 clips of 6 frames of 96x96), and
-``--synthetic_size`` also takes HxW frames."""
+and ``synthetic_vsr``. The size flags are the port's own; their defaults
+make the JAX package's datasets (8 images of 128x128; 2 clips of 6 frames of
+96x96), and ``--synthetic_size`` also takes HxW."""
 
 from types import SimpleNamespace
 
@@ -15,6 +15,8 @@ def _update_isr_argparser(parser):
     _isr.update_argparser(parser)
     parser.add_argument("--synthetic_textured", type=lambda v: v.lower() != "false", default=True,
                         help="False = noise-free synthetic images (fully learnable).")
+    parser.add_argument("--synthetic_size", type=str, default="128",
+                        help="HR image size: one number (square) or HxW.")
     parser.set_defaults(num_patches=4, train_batch_size=8)
 
 
@@ -34,6 +36,10 @@ def _frame_size(text):
     return int(h), int(w or h)
 
 
+def _isr_dataset(mode, params):
+    return SyntheticISRDataset(mode, params, hw=_frame_size(getattr(params, "synthetic_size", "128")))
+
+
 def _vsr_dataset(mode, params):
     hw = _frame_size(getattr(params, "synthetic_size", "96"))
     return SyntheticVSRDataset(mode, params, num_clips=getattr(params, "synthetic_clips", 2),
@@ -42,7 +48,7 @@ def _vsr_dataset(mode, params):
 
 def bind(name):
     if name == "synthetic_isr":
-        return SimpleNamespace(name=name, update_argparser=_update_isr_argparser, get_dataset=SyntheticISRDataset)
+        return SimpleNamespace(name=name, update_argparser=_update_isr_argparser, get_dataset=_isr_dataset)
     if name == "synthetic_vsr":
         return SimpleNamespace(name=name, update_argparser=_update_vsr_argparser, get_dataset=_vsr_dataset)
     raise KeyError(f"the port has no synthetic dataset {name!r}")

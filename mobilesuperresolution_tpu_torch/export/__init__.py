@@ -1,0 +1,9 @@
+from mobilesuperresolution_tpu_torch.export.export import (
+    FixedSizeForward,
+    export_onnx,
+    export_pt2,
+    export_tflite,
+    load_pt2,
+)
+
+__all__ = ["FixedSizeForward", "export_onnx", "export_pt2", "export_tflite", "load_pt2"]

@@ -20,7 +20,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("conv5x5", "fused_tail", "fused_wdsr_block", "fused_convsep")
+SOURCES = ("conv5x5", "fused_tail", "fused_wdsr_block", "fused_convsep", "qconv_int8")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -42,7 +42,8 @@ def update_argparser(parser):
     parser.add_argument("--pretrained_path", type=str, default=None,
                         help="Reference wdsr_b_x<scale>_<blocks>_<units>.pt checkpoint for --pretrained.")
     parser.add_argument("--quantize", choices=["none", "int8"], default="none",
-                        help="int8 dynamic-range inference convs (not ported yet: raises).")
+                        help="int8 dynamic-range inference convs (the numerics class of the reference's int8 "
+                        "TFLite deployment; kernel Q1 on the card). BASIC_MODEL, --eval_only runs only.")
 
 
 def get_model(params, device=None):
@@ -52,9 +53,13 @@ def get_model(params, device=None):
     weights with ``train.checkpoint.load_params_npz``. ``NAS_MODEL`` (the
     supernet, ``--width_search`` / ``--differentiable_speed``) is ready to
     train: seeded random weights from the JAX initializers
-    (``random_jax_params``, seed ``params.seed``), train mode."""
-    if getattr(params, "quantize", "none") == "int8":
-        raise NotImplementedError("int8 quantized convs are not ported yet (ROADMAP.md, queue A8)")
+    (``random_jax_params``, seed ``params.seed``), train mode.
+    ``params.quantize == "int8"`` builds the int8 dynamic-range WDSR-B
+    (inference only); the supernet refuses it, as in the JAX package."""
+    quantized = getattr(params, "quantize", "none") == "int8"
+    if quantized and params.model_type != "BASIC_MODEL":
+        raise ValueError("--quantize int8 applies to BASIC_MODEL (and ResultNet via retrain_searched); the NAS "
+                         "supernet trains and must stay float")
     if params.model_type not in ("BASIC_MODEL", "NAS_MODEL"):
         raise KeyError(f"unknown SISR model_type {params.model_type!r}")
     dev = resolve_device(device)
@@ -72,13 +77,13 @@ def get_model(params, device=None):
         ).to(dev)
         load_params_npz(model, random_jax_params(model, getattr(params, "seed", 0)))
         return model.train()
-    model = BasicModel(**common)
+    model = BasicModel(quantized=quantized, **common)
     model.to(dev).prepare()
     return model.eval()
 
 
 def get_vsr_model(model_type="basic", scale=4, compute_dtype=torch.float32, device=None, flow_downscale=1,
-                  remat=False, block_index_path=None):
+                  remat=False, block_index_path=None, quantized=False):
     """Build a VSR model at the reference's canonical size on ``device``
     (default CUDA; raises without it unless ``device="cpu"``), in eval mode:
     'basic' (mobile BasicVSR, nf 24, 8 blocks), 'basic_origin' (the faithful
@@ -91,8 +96,11 @@ def get_vsr_model(model_type="basic", scale=4, compute_dtype=torch.float32, devi
     ``flow_downscale`` d runs SpyNet on 1/d-res frames and upsamples the flow
     (1 = the reference's flows; 'basic', 'basic_origin' and 'multi');
     ``remat`` recomputes each propagation step in the backward (the
-    recurrent 'basic', 'basic_origin' and 'basic_mv'). The refusals are the
-    JAX package's."""
+    recurrent 'basic', 'basic_origin' and 'basic_mv'). ``quantized``: int8
+    dynamic-range inference convs (ops/quant.py, kernel Q1 on the card) in
+    SpyNet and the trunks of the BasicVSR family, SpyNet, the encoder, the
+    blocks and the decode of 'multi', the body of 'single'; the
+    reconstructions stay float. The refusals are the JAX package's."""
     dev = resolve_device(device)  # before building: a missing card fails fast
     if flow_downscale < 1:
         raise ValueError(f"flow_downscale must be >= 1, got {flow_downscale}")
@@ -104,25 +112,29 @@ def get_vsr_model(model_type="basic", scale=4, compute_dtype=torch.float32, devi
         raise ValueError(f"remat applies to the recurrent BasicVSR family ('basic'/'basic_mv'/'basic_origin'), "
                          f"not {model_type!r}: 'single'/'multi' are frame-parallel (no temporal scan to "
                          "recompute) and 'multi_v1' does not implement it")
+    if quantized and model_type == "multi_v1":
+        raise ValueError("quantized int8 inference is not implemented for 'multi_v1' (historical per-block-carry "
+                         "variant) — use 'multi'")
+    q = dict(quantized=quantized)
     if model_type == "basic":
         model = BasicVSR(num_feat=24, num_block=8, scale=scale, compute_dtype=compute_dtype,
-                         flow_downscale=flow_downscale, remat=remat)
+                         flow_downscale=flow_downscale, remat=remat, **q)
     elif model_type == "basic_origin":
         if scale != 4:
             raise ValueError(f"basic_origin is the faithful x4 BasicVSR: its reconstruction is two fixed "
                              f"depth_to_space(2) stages, so scale={scale} would compute at x4 and resample; use "
                              "'basic' for other scales")
         model = BasicVSROrigin(num_feat=64, num_block=30, scale=scale, compute_dtype=compute_dtype,
-                               flow_downscale=flow_downscale, remat=remat)
+                               flow_downscale=flow_downscale, remat=remat, **q)
     elif model_type == "basic_mv":
-        model = MotionVectorVSR(num_feat=20, num_block=8, scale=scale, compute_dtype=compute_dtype, remat=remat)
+        model = MotionVectorVSR(num_feat=20, num_block=8, scale=scale, compute_dtype=compute_dtype, remat=remat, **q)
     elif model_type == "single":
-        model = SingleImageModel(scale=scale, channel=32, blocks=8, kernel=3, compute_dtype=compute_dtype)
+        model = SingleImageModel(scale=scale, channel=32, blocks=8, kernel=3, compute_dtype=compute_dtype, **q)
     elif model_type == "multi":
         if block_index_path is None:
             raise ValueError("'multi' needs block_index_path (search artifact)")
         model = NaiveMultiModel.from_artifact(block_index_path, scale=scale, compute_dtype=compute_dtype,
-                                              flow_downscale=flow_downscale)
+                                              flow_downscale=flow_downscale, **q)
     elif model_type == "multi_v1":
         if block_index_path is None:
             raise ValueError("'multi_v1' needs block_index_path (search artifact)")

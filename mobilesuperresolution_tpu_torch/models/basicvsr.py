@@ -25,9 +25,16 @@ train mode (the VSR trainer) the trunks, ``fusion`` and ``conv_last`` derive
 theirs from the live parameters on every call (B2 through its autograd
 Function), and SpyNet, which the trainer freezes, computes the flows on its
 prepared weights without a gradient (the JAX package's ``stop_flow_grad``,
-exact for a frozen SpyNet). ``remat`` recomputes each propagation step in
+exact for a frozen SpyNet); built with ``stop_flow_grad=False`` the model
+trains SpyNet with the rest, on its live weights. ``remat recomputes each propagation step in
 the backward (``torch.utils.checkpoint``) instead of keeping its
 activations: the same gradients in O(1) activation memory in clip length.
+
+``quantized`` (inference only) runs SpyNet's convs and the dual trunks' as
+int8 dynamic-range convs (ops/quant.py, kernel Q1 on the card): each trunk
+conv quantizes the block-diagonal weight built in the compute dtype, with
+one per-sample activation scale over both directions' channels, as the JAX
+package does. The reconstruction stays float (B2).
 """
 
 import functools
@@ -44,7 +51,7 @@ from mobilesuperresolution_tpu_torch.models.spynet import (
     upsample_flow,
 )
 from mobilesuperresolution_tpu_torch.ops.layers import PlainConv, SubpixelConvTranspose, UpConv
-from mobilesuperresolution_tpu_torch.ops.quant import conv2d_maybe_quantized
+from mobilesuperresolution_tpu_torch.ops.quant import QConvWeight, conv2d_maybe_quantized
 from mobilesuperresolution_tpu_torch.ops.resize import resize_bilinear
 from mobilesuperresolution_tpu_torch.ops.warp import flow_warp
 
@@ -61,9 +68,10 @@ class _DualTrunk(nn.Module):
     block-diagonal weight is built from the live kernels on every call; its
     off-diagonal blocks are constant zeros, so no gradient reaches them."""
 
-    def __init__(self, in_ch, num_feat, num_block):
+    def __init__(self, in_ch, num_feat, num_block, quantized=False):
         super().__init__()
         self.num_block = num_block
+        self.quantized = quantized
         self._names = ["conv0"] + [f"block{i}_conv{j}" for i in range(num_block) for j in (1, 2)]
         for name in self._names:
             ci = in_ch if name == "conv0" else num_feat
@@ -87,8 +95,12 @@ class _DualTrunk(nn.Module):
         dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
         with torch.no_grad():
             self._w = {name: tuple(t.detach().clone() for t in self._dual(name, dtype)) for name in self._names}
+        if self.quantized:
+            self._q = {name: QConvWeight(*self._w[name]) for name in self._names}
 
     def _conv(self, y, name):
+        if self.quantized:
+            return self._q[name](y)
         w, b = self._dual(name, y.dtype) if self.training else self._w[name]
         return conv2d_maybe_quantized(y, w, b)
 
@@ -104,10 +116,10 @@ class _MergedPropagation(nn.Module):
     """One recurrence step for both directions: warp each direction's carry
     by its own flow (direction-stacked on batch), then run both trunks."""
 
-    def __init__(self, in_ch, num_feat, num_block):
+    def __init__(self, in_ch, num_feat, num_block, quantized=False):
         super().__init__()
         self.num_feat = num_feat
-        self.trunks = _DualTrunk(in_ch + num_feat, num_feat, num_block)
+        self.trunks = _DualTrunk(in_ch + num_feat, num_feat, num_block, quantized)
 
     def forward(self, feat_prop, x_i, flow):
         """feat_prop: (2B, H, W, nf); x_i: (2B, H, W, C); flow: (2B, H, W, 2)."""
@@ -167,8 +179,11 @@ class BasicVSRBase(nn.Module):
 
     has_spynet = True
 
-    def __init__(self, num_feat, num_block, scale=4, compute_dtype=torch.float32, flow_downscale=1, remat=False):
+    def __init__(self, num_feat, num_block, scale=4, compute_dtype=torch.float32, flow_downscale=1, remat=False,
+                 quantized=False, stop_flow_grad=True):
         super().__init__()
+        self.quantized = quantized
+        self.stop_flow_grad = stop_flow_grad
         self.num_feat = num_feat
         self.num_block = num_block
         self.scale = scale
@@ -178,8 +193,8 @@ class BasicVSRBase(nn.Module):
         # upsampled (1 = the reference's flows)
         self.flow_downscale = flow_downscale
         if self.has_spynet:
-            self.spynet = SpyNet()
-        self.propagation = _MergedPropagation(3, num_feat, num_block)
+            self.spynet = SpyNet(quantized=quantized)
+        self.propagation = _MergedPropagation(3, num_feat, num_block, quantized)
 
     def prepare(self):
         if self.has_spynet:
@@ -193,6 +208,8 @@ class BasicVSRBase(nn.Module):
         if flows is not None:
             ff, fb = flows
             return ff.to(x.dtype), fb.to(x.dtype)
+        if self.training and not self.stop_flow_grad:
+            return compute_flows(self.spynet.forward_live, x, self.flow_downscale)
         # in training SpyNet is frozen: no gradient reaches it
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.training):
             return compute_flows(self.spynet, x, self.flow_downscale)
@@ -221,8 +238,8 @@ class BasicVSR(BasicVSRBase):
     base."""
 
     def __init__(self, num_feat=24, num_block=8, scale=4, compute_dtype=torch.float32, flow_downscale=1,
-                 remat=False):
-        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale, remat)
+                 remat=False, quantized=False, stop_flow_grad=True):
+        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale, remat, quantized, stop_flow_grad)
         self.fusion = PlainConv(2 * num_feat, 2 * num_feat, 1)
         self.conv_last = SubpixelConvTranspose(2 * num_feat, 3, kernel_size=5, stride=scale)
         self.prepare()
@@ -261,8 +278,8 @@ class BasicVSROrigin(BasicVSRBase):
     width). Each upconv is one launch of kernel B2."""
 
     def __init__(self, num_feat=64, num_block=30, scale=4, compute_dtype=torch.float32, flow_downscale=1,
-                 remat=False):
-        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale, remat)
+                 remat=False, quantized=False, stop_flow_grad=True):
+        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale, remat, quantized, stop_flow_grad)
         self.fusion = PlainConv(2 * num_feat, num_feat, 1)
         self.upconv1 = UpConv(num_feat, 4 * num_feat)
         # 64 * 4 conv channels whatever nf is, as in the reference

@@ -9,6 +9,8 @@ no SpyNet, so no ``spynet`` module or parameter, and ``flow_downscale`` does
 not apply. Propagation is BasicVSR's; the reconstruction is mobile
 BasicVSR's 2nf→3 one (fusion, then the sub-pixel transpose conv on kernel
 B2, once per forward) with the bilinear base of the RGB channels.
+``quantized`` runs the trunks' convs as int8 dynamic-range convs (kernel Q1
+on the card), as BasicVSR's.
 """
 
 import torch
@@ -23,8 +25,9 @@ class MotionVectorVSR(BasicVSR):
 
     has_spynet = False
 
-    def __init__(self, num_feat=20, num_block=8, scale=4, compute_dtype=torch.float32, remat=False):
-        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale=1, remat=remat)
+    def __init__(self, num_feat=20, num_block=8, scale=4, compute_dtype=torch.float32, remat=False, quantized=False):
+        super().__init__(num_feat, num_block, scale, compute_dtype, flow_downscale=1, remat=remat,
+                         quantized=quantized)
 
     def forward(self, x_mv, height=1080, width=1920):
         """x_mv: (B, T, H, W, 5) → (B, T, height, width, 3) in x_mv.dtype."""

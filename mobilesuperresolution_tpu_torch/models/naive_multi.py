@@ -19,6 +19,11 @@ mode the encoder, blocks and decode derive theirs from the live parameters
 on every call (B2 through its autograd Function), and SpyNet, which the
 trainer freezes, computes the flows on its prepared weights without a
 gradient (the JAX package's ``stop_flow_grad``, exact for a frozen SpyNet).
+
+``quantized`` (inference only) runs SpyNet, the encoder, the blocks and the
+decode as int8 dynamic-range convs (ops/quant.py, kernel Q1 on the card), as
+the JAX package does; the decode's depth-to-space then runs in torch and B2
+is not launched.
 """
 
 import torch
@@ -28,7 +33,7 @@ import torch.nn.functional as F
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import FusedConvPixelShuffleFn, fused_conv_pixel_shuffle
 from mobilesuperresolution_tpu_torch.models.spynet import SpyNet, downscale_frames, flow_downscale_hw, upsample_flow
 from mobilesuperresolution_tpu_torch.nas.artifact import read_block_index
-from mobilesuperresolution_tpu_torch.ops.layers import PlainConv, WNConv
+from mobilesuperresolution_tpu_torch.ops.layers import PlainConv, WNConv, depth_to_space
 from mobilesuperresolution_tpu_torch.ops.resize import resize_bilinear
 from mobilesuperresolution_tpu_torch.ops.warp import flow_warp
 
@@ -38,10 +43,10 @@ _SAME3 = ((1, 1), (1, 1))
 class _PlainBlock(nn.Module):
     """conv k → ReLU → conv k (flax's ``PlainConv_0``, ``PlainConv_1``)."""
 
-    def __init__(self, in_features, features, kernel_size):
+    def __init__(self, in_features, features, kernel_size, quantized=False):
         super().__init__()
-        self.PlainConv_0 = PlainConv(in_features, features, kernel_size)
-        self.PlainConv_1 = PlainConv(features, features, kernel_size)
+        self.PlainConv_0 = PlainConv(in_features, features, kernel_size, quantized)
+        self.PlainConv_1 = PlainConv(features, features, kernel_size, quantized)
 
     def forward(self, x):
         if self.training:
@@ -55,19 +60,20 @@ class NaiveMultiModel(nn.Module):
     module's: ``flownet/level_{i}/...``, ``encode``,
     ``block_{i}/PlainConv_{0,1}/Conv_0/{kernel,bias}``, ``decode``."""
 
-    def __init__(self, scale, idx, compute_dtype=torch.float32, flow_downscale=1):
+    def __init__(self, scale, idx, compute_dtype=torch.float32, flow_downscale=1, quantized=False):
         super().__init__()
+        self.quantized = quantized
         self.scale = scale
         self.idx = tuple(tuple(b) for b in idx)
         self.compute_dtype = compute_dtype
         self.flow_downscale = flow_downscale
         ch = self.idx[0][0]
         self.channels = ch
-        self.flownet = SpyNet()
-        self.encode = WNConv(3, ch, 3, g_init=None)
+        self.flownet = SpyNet(quantized=quantized)
+        self.encode = WNConv(3, ch, 3, g_init=None, quantized=quantized)
         for i, (_, _, kernel) in enumerate(self.idx):
-            setattr(self, f"block_{i}", _PlainBlock(2 * ch + 2 if i == 0 else ch, ch, kernel))
-        self.decode = WNConv(ch, scale * scale * 3, 3, g_init=None)
+            setattr(self, f"block_{i}", _PlainBlock(2 * ch + 2 if i == 0 else ch, ch, kernel, quantized))
+        self.decode = WNConv(ch, scale * scale * 3, 3, g_init=None, quantized=quantized)
         self.prepare()
 
     @classmethod
@@ -117,7 +123,9 @@ class NaiveMultiModel(nn.Module):
         y = enc.reshape(b * t, h, w, ch)
         for i, blk in enumerate(self.blocks()):
             y = blk(torch.cat([flows, x_warp, y], dim=-1) if i == 0 else y) + y
-        if live:
+        if self.quantized:
+            out = depth_to_space(self.decode(y), s)
+        elif live:
             dt = self.compute_dtype
             out = FusedConvPixelShuffleFn.apply(y.contiguous(), self.decode.effective_kernel().to(dt),
                                                 self.decode.b.to(dt), s, _SAME3, None)

@@ -14,6 +14,9 @@ trained tail convs learned the shift.
 In train mode the layers derive their weights from the live parameters on
 each call, and the tail runs through B4's autograd Function, as in
 models/wdsr_basic.py; in eval mode they use what ``prepare()`` derived.
+``quantized`` (inference only) runs every conv as an int8 dynamic-range conv
+(ops/quant.py, kernel Q1 on the card): the tail and skip as two, added and
+rearranged in torch, so B4 is not launched.
 """
 
 import torch
@@ -22,14 +25,14 @@ import torch.nn as nn
 from mobilesuperresolution_tpu_torch.kernels import fused_tail
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import FusedTailSkipFn, fused_conv_pixel_shuffle_skip
 from mobilesuperresolution_tpu_torch.nas.artifact import read_block_index
-from mobilesuperresolution_tpu_torch.ops.layers import WNConv
+from mobilesuperresolution_tpu_torch.ops.layers import WNConv, depth_to_space
 
 
 class _SplitConvBlock(nn.Module):
-    def __init__(self, channels_in, split, kernel_size):
+    def __init__(self, channels_in, split, kernel_size, quantized=False):
         super().__init__()
         self.passthrough = channels_in - split
-        self.WNConv_0 = WNConv(split, split, kernel_size, g_init=None)
+        self.WNConv_0 = WNConv(split, split, kernel_size, g_init=None, quantized=quantized)
 
     def prepare(self, dtype):
         self.WNConv_0.prepare(dtype)
@@ -46,19 +49,20 @@ class ResultNet(nn.Module):
     """idx: sequence of (IN, split, kernel) triples, the final line of
     block_index.txt (see nas/artifact.py)."""
 
-    def __init__(self, scale, idx, image_mean=0.5, compute_dtype=torch.float32):
+    def __init__(self, scale, idx, image_mean=0.5, compute_dtype=torch.float32, quantized=False):
         super().__init__()
+        self.quantized = q = quantized
         self.scale = scale
         self.idx = tuple(tuple(b) for b in idx)
         self.image_mean = image_mean
         self.compute_dtype = compute_dtype
         num_outputs = scale * scale * 3
         ch = self.idx[0][0]
-        self.head = WNConv(3, ch, 3, g_init=None)
+        self.head = WNConv(3, ch, 3, g_init=None, quantized=q)
         for i, (cin, split, kernel) in enumerate(self.idx):
-            setattr(self, f"block_{i}", _SplitConvBlock(cin, split, kernel))
-        self.tail = WNConv(self.idx[-1][0], num_outputs, 3, g_init=None)
-        self.skip = WNConv(3, num_outputs, 5, g_init=None)
+            setattr(self, f"block_{i}", _SplitConvBlock(cin, split, kernel, q))
+        self.tail = WNConv(self.idx[-1][0], num_outputs, 3, g_init=None, quantized=q)
+        self.skip = WNConv(3, num_outputs, 5, g_init=None, quantized=q)
         self.prepare()
 
     @classmethod
@@ -73,6 +77,8 @@ class ResultNet(nn.Module):
         dt = self.compute_dtype
         for m in [self.head, *self.blocks(), self.tail, self.skip]:
             m.prepare(dt)
+        if self.quantized:
+            return
         self._tail_bias = self._live_tail_bias().detach()
         self._tail_packed = fused_tail.pack_for_card(self.tail.kernel, self.skip.kernel, self._tail_bias,
                                                      self.scale, dt)
@@ -90,6 +96,9 @@ class ResultNet(nn.Module):
         y = self.head.forward_live(x) if self.training else self.head(x)
         for blk in self.blocks():
             y = blk(y)
+        if self.quantized:
+            y = self.tail(y) + self.skip(x)
+            return (depth_to_space(y, self.scale) if self.scale > 1 else y).to(in_dtype)
         if self.training:
             dt = self.compute_dtype
             y = FusedTailSkipFn.apply(

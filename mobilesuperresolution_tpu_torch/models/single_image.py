@@ -9,7 +9,9 @@ bilinear resize to (height, width).
 
 In eval mode every layer runs on the weights ``prepare()`` derived; in train
 mode each derives them from the live parameters on every call, and the tail
-runs B2 through its autograd Function.
+runs B2 through its autograd Function. ``quantized`` (inference only) runs
+the encoder, the blocks and body_tail as int8 dynamic-range convs (kernel Q1
+on the card); the tail stays float (B2), as in the JAX package.
 """
 
 import torch
@@ -23,10 +25,10 @@ class _DoubleConv(nn.Module):
     """conv k → ReLU → conv k, both weight-normed with g = ||v|| at init
     (flax's ``WNConv_0``, ``WNConv_1``)."""
 
-    def __init__(self, features, kernel_size):
+    def __init__(self, features, kernel_size, quantized=False):
         super().__init__()
-        self.WNConv_0 = WNConv(features, features, kernel_size, g_init=None)
-        self.WNConv_1 = WNConv(features, features, kernel_size, g_init=None)
+        self.WNConv_0 = WNConv(features, features, kernel_size, g_init=None, quantized=quantized)
+        self.WNConv_1 = WNConv(features, features, kernel_size, g_init=None, quantized=quantized)
 
     def forward(self, x):
         if self.training:
@@ -39,15 +41,16 @@ class SingleImageModel(nn.Module):
     ``block_{i}/WNConv_{0,1}``, ``body_tail`` (WNConv ``v``/``g``/``b``) and
     ``shuf`` (the raw ConvTranspose ``kernel``/``bias``)."""
 
-    def __init__(self, scale=4, channel=32, blocks=8, kernel=3, compute_dtype=torch.float32):
+    def __init__(self, scale=4, channel=32, blocks=8, kernel=3, compute_dtype=torch.float32, quantized=False):
         super().__init__()
         self.scale = scale
         self.num_blocks = blocks
         self.compute_dtype = compute_dtype
-        self.encoder = WNConv(3, channel, 3, g_init=None)
+        self.quantized = quantized
+        self.encoder = WNConv(3, channel, 3, g_init=None, quantized=quantized)
         for i in range(blocks):
-            setattr(self, f"block_{i}", _DoubleConv(channel, kernel))
-        self.body_tail = WNConv(channel, channel, 3, g_init=None)
+            setattr(self, f"block_{i}", _DoubleConv(channel, kernel, quantized))
+        self.body_tail = WNConv(channel, channel, 3, g_init=None, quantized=quantized)
         self.shuf = SubpixelConvTranspose(channel, 3, kernel_size=5, stride=scale)
         self.prepare()
 

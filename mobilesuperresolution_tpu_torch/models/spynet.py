@@ -9,7 +9,11 @@ resized up front (align_corners=False) and the flow rescaled back.
 On even-sized levels the 7x7 stack runs in space-to-depth form: one s2d,
 five exactly transformed 5x5 convs at 4x channels and quarter resolution on
 kernel B1 (kernels/conv5x5.py), one d2s. Odd levels fall back to direct 7x7
-convs (``F.conv2d``).
+convs (``F.conv2d``). ``quantized`` runs every conv as an int8
+dynamic-range conv (ops/quant.py, kernel Q1 on the card) instead, as the JAX
+package does: each kernel cast to the compute dtype, s2d-transformed (scales
+per output channel of the transformed kernel, 4x the channels), then
+quantized; B1 is not launched.
 """
 
 import math
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 
 from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, pack_weights
 from mobilesuperresolution_tpu_torch.ops.layers import depth_to_space, space_to_depth
-from mobilesuperresolution_tpu_torch.ops.quant import conv2d_maybe_quantized
+from mobilesuperresolution_tpu_torch.ops.quant import QConvWeight, conv2d_maybe_quantized
 from mobilesuperresolution_tpu_torch.ops.resize import avg_pool_2x2, replicate_pad_hw, resize_bilinear
 from mobilesuperresolution_tpu_torch.ops.s2d_conv import s2d_transform_weights
 from mobilesuperresolution_tpu_torch.ops.warp import flow_warp
@@ -35,8 +39,9 @@ class SpyNetBasicModule(nn.Module):
     """conv7x7 stack 8→32→64→32→16→2 with ReLUs; parameters
     ``conv{i}_kernel`` (7, 7, Cin, Cout) and ``conv{i}_bias``."""
 
-    def __init__(self):
+    def __init__(self, quantized=False):
         super().__init__()
+        self.quantized = quantized
         for i, (cin, cout) in enumerate(_SPYNET_CHANNELS):
             self.register_parameter(f"conv{i}_kernel", nn.Parameter(torch.zeros(7, 7, cin, cout)))
             self.register_parameter(f"conv{i}_bias", nn.Parameter(torch.zeros(cout)))
@@ -45,9 +50,16 @@ class SpyNetBasicModule(nn.Module):
     def prepare(self, dtype=None):
         """Derive the s2d 5x5 weights (HWIO, and on the card packed for
         kernel B1), and the direct OIHW ones, in ``dtype`` (default: the last
-        one used)."""
+        one used); quantized, the int8 weights of both forms instead."""
         dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
         self._s2d, self._direct = [], []
+        if self.quantized:
+            for i in range(len(_SPYNET_CHANNELS)):
+                k = getattr(self, f"conv{i}_kernel").detach().to(dtype)
+                b = getattr(self, f"conv{i}_bias").detach().to(dtype)
+                self._s2d.append(QConvWeight(s2d_transform_weights(k).permute(3, 2, 0, 1), b.repeat_interleave(4)))
+                self._direct.append(QConvWeight(k.permute(3, 2, 0, 1), b))
+            return
         for i in range(len(_SPYNET_CHANNELS)):
             k = getattr(self, f"conv{i}_kernel").detach()
             b = getattr(self, f"conv{i}_bias").detach()
@@ -59,6 +71,8 @@ class SpyNetBasicModule(nn.Module):
             self._direct.append((k.permute(3, 2, 0, 1).to(dtype).contiguous(), b.to(dtype).clone()))
 
     def forward(self, x):
+        if self.quantized:
+            return self._forward_quantized(x)
         last = len(_SPYNET_CHANNELS) - 1
         if x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0:
             y = space_to_depth(x, 2)
@@ -72,15 +86,40 @@ class SpyNetBasicModule(nn.Module):
                 y = F.relu(y)
         return y
 
+    def _forward_quantized(self, x):
+        even = x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0
+        y = space_to_depth(x, 2) if even else x
+        for i, conv in enumerate(self._s2d if even else self._direct):
+            y = conv(y)
+            if i < len(_SPYNET_CHANNELS) - 1:
+                y = F.relu(y)
+        return depth_to_space(y, 2) if even else y
+
+    def forward_live(self, x):
+        """The stack on the current parameters, differentiably, as direct 7x7
+        convs in x.dtype (the s2d form is the same function); quantized,
+        ``forward``."""
+        if self.quantized:
+            return self.forward(x)
+        y = x
+        for i in range(len(_SPYNET_CHANNELS)):
+            k = getattr(self, f"conv{i}_kernel").to(x.dtype).permute(3, 2, 0, 1)
+            y = conv2d_maybe_quantized(y, k, getattr(self, f"conv{i}_bias").to(x.dtype))
+            if i < len(_SPYNET_CHANNELS) - 1:
+                y = F.relu(y)
+        return y
+
 
 class SpyNet(nn.Module):
-    """Returns flow (N, H, W, 2) with channel 0 = dx, 1 = dy, in input pixels."""
+    """Returns flow (N, H, W, 2) with channel 0 = dx, 1 = dy, in input pixels.
+    ``quantized``: int8 dynamic-range convs in every level."""
 
-    def __init__(self, levels=6):
+    def __init__(self, levels=6, quantized=False):
         super().__init__()
         self.levels = levels
+        self.quantized = quantized
         for i in range(levels):
-            self.add_module(f"level_{i}", SpyNetBasicModule())
+            self.add_module(f"level_{i}", SpyNetBasicModule(quantized))
         self.prepare()
 
     def prepare(self, dtype=None):
@@ -97,6 +136,14 @@ class SpyNet(nn.Module):
         return (x - self._mean.to(x.dtype)) / self._std.to(x.dtype)
 
     def forward(self, ref, supp):
+        return self._pyramid(ref, supp, lambda level, inp: level(inp))
+
+    def forward_live(self, ref, supp):
+        """The flow on the current parameters, with gradients to them (a
+        SpyNet trained outside the VSR trainers, which keep it frozen)."""
+        return self._pyramid(ref, supp, lambda level, inp: level.forward_live(inp))
+
+    def _pyramid(self, ref, supp, run_level):
         if ref.shape != supp.shape:
             raise ValueError(f"ref {tuple(ref.shape)} and supp {tuple(supp.shape)} differ")
         n, h, w, _ = ref.shape
@@ -120,7 +167,7 @@ class SpyNet(nn.Module):
             up = up[:, :th, :tw]
             warped = flow_warp(supps[level], up, padding_mode="border")
             inp = torch.cat([refs[level], warped, up], dim=-1)
-            flow = getattr(self, f"level_{level}")(inp) + up
+            flow = run_level(getattr(self, f"level_{level}"), inp) + up
 
         return scale_flow(resize_bilinear(flow, (h, w)), w / w32, h / h32)
 

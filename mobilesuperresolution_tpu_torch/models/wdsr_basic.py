@@ -18,6 +18,11 @@ once for the kernels); call it again after the parameters change. In train
 mode every layer derives its weights from the live parameters on each call,
 rounded to the compute dtype as ``prepare()`` rounds them, and B3 and B4 run
 through their autograd Functions (kernel forward, plain-version backward).
+
+``quantized`` (inference only) runs every conv as an int8 dynamic-range conv
+(ops/quant.py, kernel Q1 on the card), as the JAX package does: each block
+as its three convs, the tail and skip as two, then the add, depth-to-space
+and + image_mean in torch; B3 and B4 are not launched.
 """
 
 import math
@@ -33,19 +38,20 @@ from mobilesuperresolution_tpu_torch.kernels.fused_wdsr_block import (
     fused_wdsr_block,
     pack_weights,
 )
-from mobilesuperresolution_tpu_torch.ops.layers import WNConv
+from mobilesuperresolution_tpu_torch.ops.layers import WNConv, depth_to_space
 
 
 class BasicBlock(nn.Module):
     """x + conv_k(linear(relu(expand(x)))), one B3 launch."""
 
-    def __init__(self, num_residual_units, kernel_size=3, res_scale=1.0, expand=6.0, linear=0.84):
+    def __init__(self, num_residual_units, kernel_size=3, res_scale=1.0, expand=6.0, linear=0.84, quantized=False):
         super().__init__()
         r = num_residual_units
         e, m = int(r * expand), int(r * linear)
-        self.WNConv_0 = WNConv(r, e, 1, g_init=2.0)
-        self.WNConv_1 = WNConv(e, m, 1, g_init=2.0)
-        self.WNConv_2 = WNConv(m, r, kernel_size, g_init=res_scale)
+        self.quantized = quantized
+        self.WNConv_0 = WNConv(r, e, 1, g_init=2.0, quantized=quantized)
+        self.WNConv_1 = WNConv(e, m, 1, g_init=2.0, quantized=quantized)
+        self.WNConv_2 = WNConv(m, r, kernel_size, g_init=res_scale, quantized=quantized)
         self.prepare()
 
     def prepare(self, dtype=None):
@@ -54,6 +60,8 @@ class BasicBlock(nn.Module):
         card also packed once for the kernel (``pack_weights``)."""
         for c in (self.WNConv_0, self.WNConv_1, self.WNConv_2):
             c.prepare(dtype)
+        if self.quantized:
+            return
         with torch.no_grad():  # copies: a float32 bias's .to(float32) is the parameter
             self._weights = tuple(t.contiguous().clone() for t in self.live_weights())
         w1 = self._weights[0]
@@ -71,6 +79,8 @@ class BasicBlock(nn.Module):
         return w1[0, 0], b1, w2[0, 0], b2, w3, b3
 
     def forward(self, x):
+        if self.quantized:
+            return x + self.WNConv_2(self.WNConv_1(torch.relu(self.WNConv_0(x))))
         if self.training:
             return FusedWdsrBlockFn.apply(x.contiguous(), *self.live_weights())
         return fused_wdsr_block(x.contiguous(), *self._weights, packed=self._packed)
@@ -82,8 +92,9 @@ class BasicModel(nn.Module):
     skip), so a JAX checkpoint loads by key (train/checkpoint.py)."""
 
     def __init__(self, num_blocks=16, num_residual_units=24, scale=2, num_channels=3,
-                 image_mean=0.5, compute_dtype=torch.float32):
+                 image_mean=0.5, compute_dtype=torch.float32, quantized=False):
         super().__init__()
+        self.quantized = quantized
         self.num_blocks = num_blocks
         self.num_residual_units = num_residual_units
         self.scale = scale
@@ -92,14 +103,15 @@ class BasicModel(nn.Module):
         self.compute_dtype = compute_dtype
         num_outputs = scale * scale * num_channels
         r = num_residual_units
-        self.WNConv_0 = WNConv(num_channels, r, 3, g_init=1.0)
+        q = quantized
+        self.WNConv_0 = WNConv(num_channels, r, 3, g_init=1.0, quantized=q)
         res_scale = 1.0 / math.sqrt(num_blocks)
         for i in range(num_blocks):
-            setattr(self, f"BasicBlock_{i}", BasicBlock(r, 3, res_scale))
-        self.WNConv_1 = WNConv(r, num_outputs, 3, g_init=1.0)
+            setattr(self, f"BasicBlock_{i}", BasicBlock(r, 3, res_scale, quantized=q))
+        self.WNConv_1 = WNConv(r, num_outputs, 3, g_init=1.0, quantized=q)
         self.has_skip_conv = num_channels != num_outputs
         if self.has_skip_conv:
-            self.WNConv_2 = WNConv(num_channels, num_outputs, 5, g_init=1.0)
+            self.WNConv_2 = WNConv(num_channels, num_outputs, 5, g_init=1.0, quantized=q)
         self.prepare()
 
     def blocks(self):
@@ -113,6 +125,7 @@ class BasicModel(nn.Module):
         self.WNConv_1.prepare(dt)
         if self.has_skip_conv:
             self.WNConv_2.prepare(dt)
+        if self.has_skip_conv and not self.quantized:
             self._tail_bias = self._live_tail_bias().detach()
             self._tail_packed = fused_tail.pack_for_card(self.WNConv_1.kernel, self.WNConv_2.kernel,
                                                          self._tail_bias, self.scale, dt)
@@ -131,6 +144,11 @@ class BasicModel(nn.Module):
         y = self.WNConv_0.forward_live(x) if self.training else self.WNConv_0(x)
         for blk in self.blocks():
             y = blk(y)
+        if self.quantized:
+            y = self.WNConv_1(y) + (self.WNConv_2(x) if self.has_skip_conv else x)
+            if self.scale > 1:
+                y = depth_to_space(y, self.scale)
+            return (y + self.image_mean).to(in_dtype)
         if not self.has_skip_conv:  # scale 1: the input itself is the skip
             y = (self.WNConv_1.forward_live(y) if self.training else self.WNConv_1(y)) + x + self.image_mean
         elif self.training:

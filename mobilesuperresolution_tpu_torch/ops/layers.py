@@ -8,7 +8,11 @@ parameters change (train/checkpoint.py calls it) and keeps them as copies
 (a float32 ``.to(float32)`` is the parameter itself), so an in-place update
 of the parameters does not reach them before the next ``prepare``. Each layer's ``forward_live``
 derives them from the live parameters on every call instead,
-differentiably (training).
+differentiably (training). Built with ``quantized=True``, ``WNConv`` and
+``PlainConv`` run the int8 dynamic-range conv (ops/quant.py, kernel Q1 on
+the card) on a weight ``prepare()`` quantized once, in train mode too: the
+int8 path is for inference, and rounding has a zero gradient almost
+everywhere, as in the JAX package.
 """
 
 import torch
@@ -16,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import FusedConvPixelShuffleFn, fused_conv_pixel_shuffle
+from mobilesuperresolution_tpu_torch.ops.quant import QConvWeight
 from mobilesuperresolution_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -54,13 +59,17 @@ class WNConv(nn.Module):
     checkpoint bridge's random init (None: g = ||v||, the raw init).
 
     ``forward`` uses the weights derived by ``prepare()`` (inference);
-    ``forward_live`` derives them on every call, differentiably (training)."""
+    ``forward_live`` derives them on every call, differentiably (training).
+    ``quantized``: the JAX ``WNConv``'s int8 branch, the float32 effective
+    kernel quantized, the conv without bias, then the bias added in the
+    output's dtype."""
 
-    def __init__(self, in_features, features, kernel_size=3, g_init=1.0, groups=1):
+    def __init__(self, in_features, features, kernel_size=3, g_init=1.0, groups=1, quantized=False):
         super().__init__()
         k = kernel_size
         self.g_init = g_init
         self.groups = groups
+        self.quantized = quantized
         self.v = nn.Parameter(torch.zeros(k, k, in_features // groups, features))
         self.g = nn.Parameter(torch.zeros(features))
         self.b = nn.Parameter(torch.zeros(features))
@@ -79,23 +88,32 @@ class WNConv(nn.Module):
             self.kernel = self.effective_kernel().to(dtype)
         self._w = self.kernel.permute(3, 2, 0, 1).contiguous()
         self._b = self.b.detach().to(dtype).clone()
+        if self.quantized:
+            self._q = QConvWeight(self.effective_kernel().permute(3, 2, 0, 1))
 
     def forward(self, x):
+        if self.quantized:
+            return self._q(x) + self._b
         return conv2d_nhwc(x, self._w, self._b, padding=self.v.shape[0] // 2, groups=self.groups)
 
     def forward_live(self, x):
         """The conv on the current parameters, in x.dtype, with gradients to
-        v, g and b."""
+        v, g and b (quantized: ``forward``)."""
+        if self.quantized:
+            return self.forward(x)
         w = self.effective_kernel().to(x.dtype).permute(3, 2, 0, 1)
         return conv2d_nhwc(x, w, self.b.to(x.dtype), padding=self.v.shape[0] // 2, groups=self.groups)
 
 
 class PlainConv(nn.Module):
-    """Plain SAME conv (odd kernel) with an HWIO ``kernel`` and ``bias``."""
+    """Plain SAME conv (odd kernel) with an HWIO ``kernel`` and ``bias``.
+    ``quantized``: the JAX ``PlainConv``'s int8 branch, the float32 kernel
+    quantized and the float32 bias added inside the conv."""
 
-    def __init__(self, in_features, features, kernel_size=3):
+    def __init__(self, in_features, features, kernel_size=3, quantized=False):
         super().__init__()
         k = kernel_size
+        self.quantized = quantized
         self.kernel = nn.Parameter(torch.zeros(k, k, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.prepare()
@@ -108,13 +126,19 @@ class PlainConv(nn.Module):
         dtype = self._dtype = dtype or getattr(self, "_dtype", torch.float32)
         with torch.no_grad():
             self._w, self._b = (t.detach().clone() for t in self._weights(dtype))
+        if self.quantized:
+            self._q = QConvWeight(self.kernel.permute(3, 2, 0, 1), self.bias)
 
     def forward(self, x):
+        if self.quantized:
+            return self._q(x)
         return conv2d_nhwc(x, self._w, self._b, padding=self.kernel.shape[0] // 2)
 
     def forward_live(self, x):
         """The conv on the current parameters, in x.dtype, with gradients to
-        kernel and bias."""
+        kernel and bias (quantized: ``forward``)."""
+        if self.quantized:
+            return self.forward(x)
         return conv2d_nhwc(x, *self._weights(x.dtype), padding=self.kernel.shape[0] // 2)
 
 

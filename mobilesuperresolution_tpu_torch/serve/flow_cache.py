@@ -40,6 +40,9 @@ def make_flow_sr_fns(model, height, width, mesh=None):
     sr_fn(x, ff, fb): (S, T, H, W, C) window and time-major flows (T-1, S,
         H, W, 2) → (S, T, height, width, C), the model with SpyNet skipped.
 
+    A quantized model's SpyNet is quantized too, so flow_fn runs int8
+    convs (kernel Q1), as the JAX package's ``SpyNet(quantized=...)``.
+
     mesh: spatial sharding of the window (``--spatial_shards``) is not
     ported; passing one raises."""
     if mesh is not None:

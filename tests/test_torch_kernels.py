@@ -116,7 +116,7 @@ def test_wrappers_take_plain_path_only_on_cpu():
 def test_build_is_lazy():
     """Importing the kernel modules compiles and loads nothing."""
     assert _build._libs == {}
-    assert set(_build.SOURCES) == {"conv5x5", "fused_tail", "fused_wdsr_block", "fused_convsep"}
+    assert set(_build.SOURCES) == {"conv5x5", "fused_tail", "fused_wdsr_block", "fused_convsep", "qconv_int8"}
 
 
 def test_stale_follows_included_headers(tmp_path, monkeypatch):

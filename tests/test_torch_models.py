@@ -244,8 +244,9 @@ def test_port_imports_no_jax():
     # the NAS search slice's modules, the flow cache's, SISR training's,
     # checkpointing's and VSR training's, the VSR zoo's (all six types),
     # patch eval's and the video datasets' (REDS with motion vectors too),
-    # and the rest of NAS, the torch checkpoints', logging's and profiling's
-    # are among those checked
+    # the rest of NAS, the torch checkpoints', logging's and profiling's, and
+    # the deployment slice's (int8, Q1, export, tiled eval, the ladder) are
+    # among those checked
     rel = {os.path.relpath(f, REPO) for f in files}
     for mod in ("ops/ste", "kernels/fused_convsep", "nas/speed_estimator", "nas/speed_loss", "nas/search",
                 "nas/artifact", "models/wdsr_nas", "train/state", "train/steps", "core/utils", "cli/search",
@@ -255,7 +256,9 @@ def test_port_imports_no_jax():
                 "cli/test_vsr_by_patch", "analysis/patch_stats", "models/single_image", "models/naive_multi",
                 "data/vimeo", "data/nemo", "data/yuv", "data/frame_utils", "models/mvvsr", "models/naive_multi_v1",
                 "data/reds_with_mv", "core/msgpack_io", "nas/speed_model", "kernels/timing", "train/torch_convert",
-                "core/logging_tool", "core/profiling", "cli/prepare_dataset"):
+                "core/logging_tool", "core/profiling", "cli/prepare_dataset", "ops/quant", "kernels/qconv_int8",
+                "export/export", "cli/export", "train/eval_tiling", "analysis/approx_ladder", "core/maths",
+                "parallel/halo"):
         assert os.path.join("mobilesuperresolution_tpu_torch", mod + ".py") in rel, mod
     for script in ("torch_search_profile.py", "torch_bench.py"):
         assert os.path.join("scripts", script) in rel

@@ -163,5 +163,7 @@ def test_conv2d_exact_branch_matches_jax(rng, k):
     want = np.asarray(j_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
     got = t_conv(_t(x), _t(w).permute(3, 2, 0, 1).contiguous(), _t(b)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
-    with pytest.raises(NotImplementedError):
-        t_conv(_t(x), _t(w).permute(3, 2, 0, 1), _t(b), quantized=True)
+    # the int8 branch equals JAX's bit for bit (tests/test_torch_quant.py has the rest)
+    want_q = np.asarray(j_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), quantized=True))
+    got_q = t_conv(_t(x), _t(w).permute(3, 2, 0, 1), _t(b), quantized=True).numpy()
+    np.testing.assert_array_equal(got_q, want_q)

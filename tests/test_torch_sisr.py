@@ -243,8 +243,9 @@ def test_pretrain_eval_only_on_cpu(tmp_path):
 def test_pretrain_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """Training and resuming run (tests/test_torch_train.py,
     tests/test_torch_resume.py); the sharding and multi-process flags are
-    not parsed, the supernet does not pretrain, and --eval_tile other than 0
-    and int8 raise."""
+    not parsed, the supernet does not pretrain, and int8 raises without
+    --eval_only and for the supernet, with the JAX package's messages
+    (--eval_tile runs: tests/test_torch_export.py)."""
     base = ["--job_dir", str(tmp_path), "--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr",
             "--num_blocks", "1"]
     for flag in (["--spatial_shards", "2"], ["--distributed"]):
@@ -252,12 +253,12 @@ def test_pretrain_refuses_what_is_not_ported(tmp_path, monkeypatch):
             pretrain.main(base + ["--device", "cpu"] + flag)
     with pytest.raises(ValueError, match="BASIC_MODEL only"):
         pretrain.main(base + ["--device", "cpu", "--model_type", "NAS_MODEL"])
-    with pytest.raises(NotImplementedError, match="eval_tile"):
-        pretrain.main(base + ["--device", "cpu", "--eval_only", "--eval_tile", "64"])
+    with pytest.raises(SystemExit, match="--quantize is inference-only: add --eval_only"):
+        pretrain.main(base + ["--device", "cpu", "--quantize", "int8"])
     with pytest.raises(KeyError, match="unknown SISR model_type"):
         get_model(SimpleNamespace(model_type="WDSR_A"), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        get_model(SimpleNamespace(model_type="BASIC_MODEL", quantize="int8"), device="cpu")
+    with pytest.raises(ValueError, match="the NAS supernet trains and must stay float"):
+        get_model(SimpleNamespace(model_type="NAS_MODEL", quantize="int8"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         pretrain.main(base + ["--eval_only"])

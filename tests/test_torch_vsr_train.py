@@ -369,14 +369,16 @@ def test_vsr_entry_points_on_cpu(tmp_path, monkeypatch):
 
 
 def test_vsr_entry_points_refuse_what_is_not_ported(tmp_path, monkeypatch):
-    """Every flag whose code is not ported raises naming its queue item; the
+    """Every flag whose code is not ported raises naming its queue item, and
+    --quantize with the JAX trainer's inference-only message; the
     multi-process flags are not parsed; without a card the entry points run
     only when the CPU is asked for."""
     base = ["--job_dir", str(tmp_path), "--device", "cpu", "--dataset", "synthetic_vsr", "--eval_datasets"]
-    for flag, match in ((["--spatial_shards", "2"], "A8"),
-                        (["--chunk_data_parallel"], "A8"), (["--quantize", "int8"], "A8")):
+    for flag, match in ((["--spatial_shards", "2"], "A8"), (["--chunk_data_parallel"], "A8")):
         with pytest.raises(NotImplementedError, match=match):
             train_vsr.main(base + flag)
+    with pytest.raises(SystemExit, match="--quantize is inference-only"):
+        train_vsr.main(base + ["--quantize", "int8"])
     # the trainer initializes from an npz only, as the JAX trainer does
     with pytest.raises(ValueError, match="cli.test_vsr"):
         train_vsr.main(base + ["--eval_model", "model.pth"])
