@@ -166,15 +166,42 @@ Phases, each fatal on failure (non-zero exit, no result line):
    package's monotone properties;
 31. result.log in the job dir of every entry-point run (run_cli checks each
    as it returns), and one cli.pretrain epoch with --xla_profile_steps 2
-   writing one trace that names B3's kernel.
+   writing one trace that names B3's kernel;
+32. height-sharded SISR (parallel/halo.py): full-width WDSR-B x2 (radius 18)
+   on phase 8's two 678x1020 images at S = 2 and 3, f32 and bf16, within
+   f32_tol / bf16_tol of the full frame, 16 B3 + 1 B4 per window; ms and
+   peak memory beside the full frame's;
+33. cli.pretrain --spatial_shards 2 (parallel/spatial_train.py) at the
+   launcher's width on 96x96 LR patches: one sharded step against the plain
+   step on the same batch (loss within 1e-5 relative, every gradient within
+   1e-5 of its largest magnitude), one CLI epoch (32 B3 + 2 B4 per training
+   forward),
+   and both steady steps with their peak memory;
+34. height-sharded VSR (parallel/vsr_spatial.py): mobile BasicVSR (bf16) on
+   serving's 10-frame 426x240 window at S = 2 and 4 and basic_origin (nf
+   64, 30 blocks) at S = 2, within bf16_tol of the plain window, B1 30 and
+   B2 1 (2) per forward; ms and peak memory (also before the
+   reconstruction) beside the plain window's;
+35. cli.serve --spatial_shards 2 over phase 5's frames, plain and
+   --flow_cache, against phase 5's / 5b's streams;
+36. cli.train_vsr --spatial_shards 2 for one epoch at
+   launchers/video_train_basic.sh's width (its eval sharded too), its first
+   loss against phase 11's, then cli.test_vsr with and without
+   --spatial_shards 2 on its npz (PSNR within 1e-3 dB);
+37. --distributed: cli.pretrain and cli.train_vsr as rank 0 of a one-rank
+   NCCL group against the same runs without it (losses within 1e-5
+   relative, weights within the Adam drift bound, the chief's files written
+   once; two ranks need two cards: tests/test_torch_cuda.py's
+   test_two_nccl_ranks_match_one_process, and gloo on the CPU).
 
-Prints the kernel table as one JSON line (launches from this slice's paths,
+Prints the kernel table as one JSON line (launches from the slices' paths,
 each count set to 0 before its path: B1 and B2 from the basic VSR training
-run plus phases 16-18, 20, 21, 24 and 26-30, B3 from the pretraining run and
-phases 24 and 29, B4 from those and phase 20's 'multi_v1' runs and 28, B5
-from the search and phases 22 and 23, Q1 from phases 26, 27 and 30), the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Details go to
-chiprun_out/chip_smoke.json. Needs CUDA; imports nothing of JAX.
+run plus phases 16-18, 20, 21, 24, 26-30 and 34-37, B3 from the pretraining
+run and phases 24, 29, 32, 33 and 37, B4 from those and phase 20's
+'multi_v1' runs and 28, B5 from the search and phases 22 and 23, Q1 from
+phases 26, 27 and 30), the nvidia-smi line, and last ``{"ok": true,
+"device": {...}}``. Details go to chiprun_out/chip_smoke.json. Needs CUDA;
+imports nothing of JAX.
 """
 
 import argparse
@@ -991,7 +1018,8 @@ def phase_flow_cache(dev, model, frames, plain_out):
     return dict(launches=launches, groups=len(groups), group_samples=groups[0], pairs_computed=len(computed),
                 max_abs_err=err, wall_s=wall, sr_fn_ms=sr_ms, flow_fn_ms_per_group=flow_ms,
                 steady_window_ms=sr_ms + flow_ms, steady_fps=CHUNK / (sr_ms + flow_ms) * 1e3,
-                stream_fps_end_to_end=fps, downscale2=dict(spynet_ms=ds_flow_ms, b1_launches=ds_launches)), launches
+                stream_fps_end_to_end=fps, downscale2=dict(spynet_ms=ds_flow_ms, b1_launches=ds_launches)), \
+        launches, out
 
 
 def sisr_launches():
@@ -1127,7 +1155,7 @@ def phase_sisr_full(dev):
         log(f"  {name}: {ms:.3f} ms per {SR_HR[0]}x{SR_HR[1]} image, launches {launches}, peak {peak:.3f} GiB, "
             f"output range [{stats[name]['out_min']:.3f}, {stats[name]['out_max']:.3f}]")
         del model, outs
-    return stats, main_launches
+    return stats, main_launches, lrs
 
 
 def sisr_train_argv(job_dir):
@@ -1136,19 +1164,20 @@ def sisr_train_argv(job_dir):
             str(TRAIN_BATCH), "--lr_patch_size", str(TRAIN_PATCH), "--learning_rate", "1e-3"]
 
 
-def steady_step_ms(model, dev):
-    """Mean ms of a SISR training step (make_sisr_step, Adam) over 10 steps on
-    one fixed batch, CUDA events, after 3 warm-up steps; with the B3 and B4
-    launches per step."""
+def steady_step_ms(model, dev, patch=TRAIN_PATCH, make_step=None):
+    """Mean ms of a SISR training step (``make_step(model, optimizer)``,
+    default make_sisr_step; Adam) over 10 steps on one fixed batch of LR
+    patches of ``patch``, CUDA events, after 3 warm-up steps; with the B3
+    and B4 launches per step and the peak device memory."""
     from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters
     from mobilesuperresolution_tpu_torch.train.state import multistep_adam
     from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
 
     g = torch.Generator().manual_seed(6)
-    lr = torch.rand((TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3), generator=g).to(dev)
-    hr = torch.rand((TRAIN_BATCH, SR_SCALE * TRAIN_PATCH, SR_SCALE * TRAIN_PATCH, 3), generator=g).to(dev)
+    lr = torch.rand((TRAIN_BATCH, patch, patch, 3), generator=g).to(dev)
+    hr = torch.rand((TRAIN_BATCH, SR_SCALE * patch, SR_SCALE * patch, 3), generator=g).to(dev)
     model.train()
-    step = make_sisr_step(model, multistep_adam(jax_named_parameters(model), 1e-3, 100, 1))
+    step = (make_step or make_sisr_step)(model, multistep_adam(jax_named_parameters(model), 1e-3, 100, 1))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_sisr_launches()
@@ -2804,6 +2833,380 @@ def phase_ladder():
     return dict(res=json.loads(json.dumps(res, default=str)), wall_s=wall, launches=launches), launches
 
 
+def peak_gib_of(fn):
+    """fn()'s result and the peak device memory (GiB) while it ran."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def staged_peak_gib(model, fn):
+    """fn()'s peak device memory (GiB), and the peak reached before the VSR
+    model's reconstruction began (SpyNet and the propagation)."""
+    seen, orig = {}, model._reconstruct
+
+    def reconstruct(*a, **kw):
+        torch.cuda.synchronize()
+        seen["pre"] = torch.cuda.max_memory_allocated() / 2**30
+        return orig(*a, **kw)
+
+    model._reconstruct = reconstruct
+    try:
+        _, peak = peak_gib_of(fn)
+    finally:
+        del model._reconstruct
+    return peak, seen["pre"]
+
+
+def phase_sharded_sisr(dev, lrs):
+    """Full-width WDSR-B x2 (16 blocks, 24 units: radius 18) on phase 8's two
+    678x1020 images through parallel/halo.py's spatially_sharded_apply at S =
+    2 and 3 (678 = 2·3·113), f32 and bf16: within f32_tol / bf16_tol of the
+    full-frame forward, 16 B3 + 1 B4 per window; ms and peak memory beside
+    the full frame's."""
+    from mobilesuperresolution_tpu_torch.models import get_model
+    from mobilesuperresolution_tpu_torch.parallel.halo import receptive_radius_wdsr, spatially_sharded_apply
+    from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    radius = receptive_radius_wdsr(SR_BLOCKS)
+    stats, total = {"radius": radius}, {"B3": 0, "B4": 0}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        params = argparse.Namespace(model_type="BASIC_MODEL", num_blocks=SR_BLOCKS,
+                                    num_residual_units=SR_UNITS, scale=SR_SCALE, bf16=bf16)
+        model = get_model(params, device=dev)
+        load_params_npz(model, random_jax_params(model, seed=0))
+        tol = bf16_tol if bf16 else f32_tol
+        with torch.inference_mode():
+            wants = [model(x) for x in lrs]
+            _, peak = peak_gib_of(lambda: model(lrs[0]))
+            st = {"full": dict(ms=cuda_ms(lambda: model(lrs[0]), iters=10, warmup=2), peak_gib=peak)}
+            for n in (2, 3):
+                mesh = Mesh(n, dev)
+                reset_sisr_launches()
+                outs = [spatially_sharded_apply(model, x, mesh, radius, scale=SR_SCALE) for x in lrs]
+                torch.cuda.synchronize()
+                launches = sisr_launches()
+                want_l = {"B3": B3_PER_IMAGE * n * SR_IMAGES, "B4": B4_PER_IMAGE * n * SR_IMAGES}
+                if launches != want_l:
+                    raise AssertionError(f"sharded SISR {name} S={n}: launches {launches}, want {want_l}")
+                total = {k: total[k] + launches[k] for k in total}
+                err = max(check(f"WDSR-B {name} S={n} image {i} vs full frame", o, w, tol(w))
+                          for i, (o, w) in enumerate(zip(outs, wants)))
+                _, peak = peak_gib_of(lambda: spatially_sharded_apply(model, lrs[0], mesh, radius, scale=SR_SCALE))
+                ms = cuda_ms(lambda: spatially_sharded_apply(model, lrs[0], mesh, radius, scale=SR_SCALE), iters=10,
+                             warmup=2)
+                st[f"S{n}"] = dict(ms=ms, peak_gib=peak, max_abs_err=err, launches=launches)
+            del outs, wants
+        stats[name] = st
+        log(f"  sharded WDSR-B {name}: " + "; ".join(f"{k} {v['ms']:.3f} ms, peak {v['peak_gib']:.3f} GiB"
+                                                    for k, v in st.items()))
+        del model
+    return stats, total
+
+
+def phase_spatial_pretrain(dev, work):
+    """cli.pretrain --spatial_shards 2 for one epoch at the launcher's width
+    (x2, 16 blocks, 24 units, batch 16, lr 1e-3, float32) on LR patches of 96
+    (48 rows a shard >= 2 x radius 18): first one step of the sharded step
+    and of the plain step from the same weights on the same batch, the loss
+    within 1e-5 relative and every parameter's gradient (read after the
+    step) within 1e-5 of its largest magnitude in the plain step; then
+    the CLI epoch (2 steps, 32 B3 + 2 B4 per training forward, 16 + 1 per
+    full-frame eval image); then the steady sharded and plain steps at that
+    patch with their peak memory."""
+    from mobilesuperresolution_tpu_torch.cli import pretrain
+    from mobilesuperresolution_tpu_torch.core.device import no_tf32
+    from mobilesuperresolution_tpu_torch.models import get_model
+    from mobilesuperresolution_tpu_torch.parallel.halo import receptive_radius_wdsr
+    from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+    from mobilesuperresolution_tpu_torch.parallel.spatial_train import make_spatial_sisr_step
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters, load_params_npz
+    from mobilesuperresolution_tpu_torch.train.checkpoint import random_jax_params
+    from mobilesuperresolution_tpu_torch.train.state import multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
+
+    n, patch, radius = 2, 2 * TRAIN_PATCH, receptive_radius_wdsr(SR_BLOCKS)
+    mesh = Mesh(n, dev)
+
+    def sharded(m, opt):
+        return make_spatial_sisr_step(m, opt, mesh, radius, SR_SCALE)
+
+    params = argparse.Namespace(model_type="BASIC_MODEL", num_blocks=SR_BLOCKS, num_residual_units=SR_UNITS,
+                                scale=SR_SCALE, bf16=False)
+    init = random_jax_params(get_model(params, device=dev), seed=0)
+    g = torch.Generator().manual_seed(33)
+    batch = (torch.rand((TRAIN_BATCH, patch, patch, 3), generator=g).to(dev),
+             torch.rand((TRAIN_BATCH, SR_SCALE * patch, SR_SCALE * patch, 3), generator=g).to(dev))
+    runs = []
+    for make in (make_sisr_step, sharded):
+        m = load_params_npz(get_model(params, device=dev), init).train()
+        opt = multistep_adam(jax_named_parameters(m), 1e-3, 100, 1)
+        with no_tf32():  # as cli.pretrain trains
+            loss = float(make(m, opt)(batch)["loss"])
+        runs.append((loss, {k: p.grad.clone() for k, p in m.named_parameters()}))
+        del m, opt
+    loss_err = abs(runs[1][0] - runs[0][0])
+    # each gradient's error relative to its largest magnitude in the plain step
+    g_err = {k: float((runs[1][1][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+             for k, g in runs[0][1].items()}
+    worst = max(g_err, key=g_err.get)
+    log(f"  first step sharded vs plain: loss {runs[1][0]:.6f} vs {runs[0][0]:.6f} (err {loss_err:.3e}), "
+        f"{len(g_err)} gradients, largest relative err {g_err[worst]:.3e} ({worst})")
+    if not (loss_err <= 1e-5 * abs(runs[0][0]) and g_err[worst] <= 1e-5):
+        raise AssertionError(f"sharded first step: loss err {loss_err}, gradient {worst} relative err {g_err[worst]}")
+    del runs
+
+    job = os.path.join(work, "spatial_pretrain")
+    argv = sisr_train_argv(job) + ["--num_blocks", str(SR_BLOCKS), "--num_residual_units", str(SR_UNITS),
+                                   "--spatial_shards", str(n), "--synthetic_size", "256"]
+    argv[argv.index("--lr_patch_size") + 1] = str(patch)
+    argv[argv.index("--num_patches") + 1] = "4"  # 8 images x 4 patches / batch 16 = 2 steps
+    reset_sisr_launches()
+    t0 = time.perf_counter()
+    out = run_cli(pretrain.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sisr_launches()
+    steps = out["steps"]
+    want_l = {"B3": SR_BLOCKS * (n * out["train_forwards"] + out["eval_images"]),
+              "B4": n * out["train_forwards"] + out["eval_images"]}
+    log(f"  cli.pretrain --spatial_shards {n}: {len(steps)} steps, losses {[round(s['loss'], 5) for s in steps]}, "
+        f"{out['eval_images']} eval images, {wall:.1f} s; launches {launches}")
+    if len(steps) != 2 or not all(np.isfinite(s["loss"]) and s["skipped"] == 0 for s in steps) or launches != want_l:
+        raise AssertionError(f"spatial pretrain: steps {steps}, launches {launches}, want {want_l}")
+    stats = dict(first_step_loss_err=loss_err, first_step_grad_rel_err=g_err[worst], steps=steps,
+                 wall_s=wall, launches=launches)
+    for name, make in (("plain", None), ("sharded", sharded)):
+        m = load_params_npz(get_model(params, device=dev), init)
+        ms, per_step, peak = steady_step_ms(m, dev, patch=patch, make_step=make)
+        stats[f"step_{name}"] = dict(ms=ms, launches_per_step=per_step, peak_gib=peak)
+        log(f"  pretrain step {name} (batch {TRAIN_BATCH}, {patch}x{patch}): {ms:.3f} ms, launches per step "
+            f"{per_step}, peak {peak:.3f} GiB")
+        del m
+    return stats, launches
+
+
+def phase_sharded_vsr(dev, frames):
+    """Full-width mobile BasicVSR (nf 24, 8 blocks, bf16: rt 17, R 25 at
+    max_disp 8) on serving's 10-frame 426x240 window through
+    parallel/vsr_spatial.py at S = 2 and 4, and basic_origin (nf 64, 30
+    blocks: rt 61, R 69) at S = 2: within bf16_tol of the plain window, B1 30
+    and B2 1 (basic_origin 2) per forward; ms and peak memory beside the
+    plain window's, each peak also as reached before the reconstruction;
+    the flows' largest |dy| (the clip acts above 8)."""
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.models.basicvsr import compute_flows
+    from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+    from mobilesuperresolution_tpu_torch.parallel.vsr_spatial import spatial_basicvsr_forward
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    x = torch.from_numpy(np.stack(frames[:T_WIN])[None]).to(dev)
+    stats, total = {}, {"B1": 0, "B2": 0, "B4": 0}
+    for kind, shards, b2 in (("basic", (2, 4), 1), ("basic_origin", (2,), 2)):
+        model = get_vsr_model(kind, scale=4, compute_dtype=torch.bfloat16, device=dev)
+        load_params_npz(model, random_jax_params(model, seed=0))
+        with torch.inference_mode():
+            ff, fb = compute_flows(model.spynet, x.to(torch.bfloat16))
+            dy = max(float(ff[..., 1].abs().max()), float(fb[..., 1].abs().max()))
+            want = model(x, OH, OW)
+            peak, pre = staged_peak_gib(model, lambda: model(x, OH, OW))
+            st = {"max_abs_dy": dy, "plain": dict(ms=cuda_ms(lambda: model(x, OH, OW), iters=5, warmup=1),
+                                                  peak_gib=peak, peak_before_recon_gib=pre)}
+            for n in shards:
+                mesh = Mesh(n, dev)
+
+                def fwd():
+                    return spatial_basicvsr_forward(model, x, OH, OW, mesh, max_disp=8)
+
+                reset_vsr_launches()
+                got = fwd()
+                torch.cuda.synchronize()
+                launches = vsr_launches()
+                if launches != {"B1": B1_PER_WINDOW, "B2": b2, "B4": 0}:
+                    raise AssertionError(f"sharded {kind} S={n}: launches {launches}")
+                total = {k: total[k] + launches[k] for k in total}
+                err = check(f"{kind} bf16 window S={n} vs plain", got, want, bf16_tol(want))
+                del got
+                peak, pre = staged_peak_gib(model, fwd)
+                st[f"S{n}"] = dict(ms=cuda_ms(fwd, iters=5, warmup=1), peak_gib=peak, peak_before_recon_gib=pre,
+                                   max_abs_err=err, launches=launches)
+            del want
+        stats[kind] = st
+        log(f"  sharded {kind} window (flows' largest |dy| {dy:.3f}): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms, peak {v['peak_gib']:.3f} GiB ({v['peak_before_recon_gib']:.3f} before the "
+            "reconstruction)" for k, v in st.items() if k != "max_abs_dy"))
+        del model
+    return stats, total
+
+
+def phase_sharded_serve(work, float_out, cached_out):
+    """cli.serve --spatial_shards 2 over phase 5's 16 frames (the PNGs
+    phase 26 wrote), plain and --flow_cache, bf16, chunk 4, overlap 3: each
+    stream's PNGs within bf16_tol (+ one 8-bit level) of phase 5's / 5b's
+    float streams; B1 30 per window (cached: per flow group) and B2 1 per
+    window."""
+    import contextlib
+    import io
+
+    from mobilesuperresolution_tpu_torch.cli import serve
+
+    d = os.path.join(work, "qserve_frames")
+    out, total = {}, {"B1": 0, "B2": 0, "B4": 0}
+    windows = len(range(0, N_STREAM_FRAMES, CHUNK)) + 1  # and the warm-up window
+    for name, extra, ref in (("plain", [], float_out), ("flow_cache", ["--flow_cache"], cached_out)):
+        job = os.path.join(work, f"sserve_{name}")
+        argv = ["--job_dir", job, "--input_dir", d, "--bf16", "--chunk_frames", str(CHUNK), "--chunk_overlap",
+                str(OVERLAP), "--height", str(OH), "--width", str(OW), "--spatial_shards", "2", *extra]
+        reset_vsr_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = run_cli(serve.main, argv)
+        launches = vsr_launches()
+        got = np.stack(read_pngs(os.path.join(job, "serve"))).astype(np.float32)
+        want = np.stack([(np.clip(f, 0, 1) * 255).round() for f in ref])
+        err = float(np.abs(got - want).max())
+        tol = 255 * 2.0 ** -6 * float(np.abs(np.stack(ref)).max()) + 1
+        log(f"  cli.serve --spatial_shards 2 {name}: {stats['frames']} frames, {stats['fps_end_to_end']} frames/s end "
+            f"to end (PNG writes included), max err {err:.1f} levels (tol {tol:.1f}), launches {launches}")
+        if got.shape != (N_STREAM_FRAMES, OH, OW, 3) or not err <= tol:
+            raise AssertionError(f"sharded serve {name}: {got.shape}, err {err} > {tol}")
+        if launches["B2"] != B2_PER_WINDOW * windows or launches["B1"] % B1_PER_WINDOW or not launches["B1"]:
+            raise AssertionError(f"sharded serve {name}: launches {launches} for {windows} windows")
+        out[name] = dict(stats, max_err_levels=err, launches=launches)
+        total = {k: total[k] + launches[k] for k in total}
+    return out, total
+
+
+def phase_spatial_vsr_train(dev, work, ref_steps):
+    """cli.train_vsr --spatial_shards 2 for one epoch at
+    launchers/video_train_basic.sh's width (64x64 LR patches: 32 rows a shard
+    >= R 25) on phase 11's data, with its height-sharded eval (128 rows, 64
+    a shard): finite losses, the first step's loss within 1e-5 relative of
+    phase 11's (the same weights and batch), B1 30 and B2 1 per forward; then
+    cli.test_vsr with and without --spatial_shards 2 on its npz: PSNR within
+    1e-3 dB."""
+    from mobilesuperresolution_tpu_torch.cli import test_vsr, train_vsr
+
+    job = os.path.join(work, "spatial_vsr")
+    argv = vsr_train_argv(job) + ["--spatial_shards", "2"]
+    argv[argv.index("--epochs") + 1] = "1"
+    reset_vsr_launches()
+    t0 = time.perf_counter()
+    out = run_cli(train_vsr.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = vsr_launches()
+    steps = out["steps"]
+    forwards = out["train_forwards"] + out["eval_clips"]
+    log(f"  cli.train_vsr --spatial_shards 2: {len(steps)} steps, losses {[round(s['loss'], 6) for s in steps]} "
+        f"(unsharded first {ref_steps[0]['loss']:.6f}), eval PSNR {out['eval'][-1]['synthetic_vsr']['PSNR']:.4f}, "
+        f"{wall:.1f} s; launches {launches}")
+    if len(steps) != VSR_STEPS_PER_EPOCH or not all(np.isfinite(s["loss"]) and s["skipped"] == 0 for s in steps):
+        raise AssertionError(f"spatial train_vsr steps {steps}")
+    if not abs(steps[0]["loss"] - ref_steps[0]["loss"]) <= 1e-5 * abs(ref_steps[0]["loss"]):
+        raise AssertionError(f"spatial train_vsr first loss {steps[0]['loss']} vs {ref_steps[0]['loss']}")
+    if launches != {"B1": B1_PER_WINDOW * forwards, "B2": B2_PER_WINDOW * forwards, "B4": 0}:
+        raise AssertionError(f"spatial train_vsr launches {launches} for {forwards} forwards")
+    total = dict(launches)
+    npz = os.path.join(job, "weights", "models.npz")
+    ev = {}
+    for name, extra in (("plain", []), ("sharded", ["--spatial_shards", "2"])):
+        reset_vsr_launches()
+        res = run_cli(test_vsr.main, vsr_argv(os.path.join(job, f"eval_{name}")) + ["--eval_model", npz] + extra)
+        torch.cuda.synchronize()
+        ev[name] = dict(res["synthetic_vsr"], launches=vsr_launches())
+        total = {k: total[k] + ev[name]["launches"][k] for k in total}
+    diff = abs(ev["sharded"]["PSNR"] - ev["plain"]["PSNR"])
+    log(f"  cli.test_vsr on its npz: sharded PSNR {ev['sharded']['PSNR']:.5f}, plain {ev['plain']['PSNR']:.5f} "
+        f"(diff {diff:.2e} dB)")
+    if not diff <= 1e-3:
+        raise AssertionError(f"sharded test_vsr PSNR {ev['sharded']['PSNR']} vs {ev['plain']['PSNR']}")
+    return dict(steps=steps, eval=out["eval"], wall_s=wall, launches=launches, test_vsr=ev), total
+
+
+def phase_distributed(work):
+    """--distributed on the card: cli.pretrain (the launcher's width, 2
+    steps + 8 eval images) and cli.train_vsr (video_train_basic.sh's width,
+    one epoch of 2 steps + 4 eval clips) each run once plainly and once as
+    rank 0 of a one-rank NCCL group (RANK=0 WORLD_SIZE=1 LOCAL_RANK=0, a free
+    MASTER_PORT): every step's loss within 1e-5 relative of the plain run's,
+    the weights within the Adam drift bound of the plain run's (one rank runs
+    no collective; this bound only says how far two Adam runs can part), and
+    the chief's files (result.log, metrics.jsonl, the npz, one checkpoint
+    with run_meta's process count 1) written once. NCCL refuses two ranks on
+    one card, so the two-rank mean is proven by
+    tests/test_torch_cuda.py::test_two_nccl_ranks_match_one_process on a
+    machine with two cards, and on the CPU with gloo
+    (tests/test_torch_parallel_multiprocess.py)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mobilesuperresolution_tpu_torch.cli import pretrain, train_vsr
+    from mobilesuperresolution_tpu_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    runs = {
+        "pretrain": (pretrain.main, lambda job: sisr_train_argv(job) + [
+            "--num_blocks", str(SR_BLOCKS), "--num_residual_units", str(SR_UNITS), "--num_patches", "4"],
+            (0.9, 0.999)),
+        "train_vsr": (train_vsr.main, lambda job: vsr_train_argv(job) + ["--epochs", "1", "--num_patches", "1"],
+                      (0.9, 0.99)),
+    }
+    out, total = {}, {}
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    for name, (main, argv, betas) in runs.items():
+        res = {}
+        for mode in ("plain", "distributed"):
+            job = os.path.join(work, f"dist_{name}_{mode}")
+            reset_sisr_launches()
+            reset_vsr_launches()
+            if mode == "distributed":
+                os.environ.update(env)
+            try:
+                summary = run_cli(main, argv(job) + (["--distributed"] if mode == "distributed" else []))
+                if mode == "distributed":
+                    res["backend"], res["world"] = dist.get_backend(), distributed.process_count()
+            finally:
+                if mode == "distributed":
+                    distributed.shutdown()
+                    for k in env:
+                        os.environ.pop(k)
+            torch.cuda.synchronize()
+            launches = {**sisr_launches(), **vsr_launches()}
+            if mode == "distributed":
+                total = {k: total.get(k, 0) + v for k, v in launches.items()}
+            res[mode] = dict(losses=[s["loss"] for s in summary["steps"]], launches=launches)
+            with open(os.path.join(job, "ckpt", "run_meta.json")) as f:
+                meta = json.load(f)
+            log_text = open(os.path.join(job, "result.log")).read()
+            smooth = [json.loads(ln)["tag"] for ln in open(os.path.join(job, "metrics.jsonl"))].count(
+                "training_loss_smooth")
+            files = sorted(os.listdir(os.path.join(job, "ckpt")))
+            if (meta["process_count"], log_text.count("Finish Training"), smooth, files) != (
+                    1, 1, 1, ["1.pt", "run_meta.json"]):
+                raise AssertionError(f"{name} {mode}: run_meta {meta}, result.log's finish lines "
+                                     f"{log_text.count('Finish Training')}, smooth losses {smooth}, ckpt {files}")
+        lrs = [VSR_LR if name == "train_vsr" else 1e-3] * len(res["plain"]["losses"])
+        err = npz_diff(*(os.path.join(work, f"dist_{name}_{m}", "weights", "models.npz")
+                         for m in ("plain", "distributed")))
+        tol = adam_drift_tol(lrs, betas)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(res["distributed"]["losses"], res["plain"]["losses"]))
+        log(f"  {name} --distributed: backend {res['backend']}, world size {res['world']}, losses "
+            f"{[round(v, 6) for v in res['distributed']['losses']]} (plain {[round(v, 6) for v in res['plain']['losses']]}), "
+            f"weights max err {err:.3e} (Adam drift bound {tol:.3e}), launches {res['distributed']['launches']}")
+        if (res["backend"] != "nccl" or res["world"] != 1 or not err <= tol or not loss_err <= 1e-5
+                or len(res["distributed"]["losses"]) != len(res["plain"]["losses"])):
+            raise AssertionError(f"{name} --distributed: backend {res['backend']}, world {res['world']}, err {err}, "
+                                 f"loss err {loss_err}")
+        out[name] = dict(res, weight_err=err, weight_tol=tol, loss_rel_err=loss_err)
+    return out, total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2851,15 +3254,15 @@ def main():
         stats, launches, windows, served = phase_serving(dev)
         report["serving"] = stats
         phase("flow-cached serving at full width:")
-        report["flow_cache"], launches = phase_flow_cache(dev, *served)
-        q_frames, q_float_out = served[1], served[2]  # for the quantized stream
+        report["flow_cache"], launches, q_cached_out = phase_flow_cache(dev, *served)
+        q_frames, q_float_out = served[1], served[2]  # for the quantized and the sharded streams
         del served
         phase("small SISR parity:")
         report["tiny_sisr_parity_err"] = phase_sisr_parity(dev)
         phase("shipped SISR weights and the eval entry point:")
         report["shipped"] = phase_shipped(dev)
         phase("full-width SISR:")
-        report["sisr"], sisr_main = phase_sisr_full(dev)
+        report["sisr"], sisr_main, sisr_images = phase_sisr_full(dev)
         phase("SISR pretraining at full width:")
         report["pretrain"], train_main = phase_pretrain(dev)
         phase("searched-net retraining:")
@@ -2904,7 +3307,6 @@ def main():
         phase("quantized serving at full width:")
         report["quantized_serving"], q_serve_main = phase_quantized_serving(
             dev, work, q_frames, q_float_out, report["flow_cache"]["groups"])
-        del q_frames, q_float_out
         phase("quantized evaluation:")
         report["quantized_eval"], q_eval_main = phase_quantized_eval(dev, work, mv_root)
         phase("export:")
@@ -2915,6 +3317,20 @@ def main():
         report["ladder"], ladder_main = phase_ladder()
         phase("logging and profiling:")
         report["logging_profiling"] = phase_logging_profiling(work)
+        phase("height-sharded SISR forward:")
+        report["sharded_sisr"], p_sisr = phase_sharded_sisr(dev, sisr_images)
+        del sisr_images
+        phase("cli.pretrain --spatial_shards 2:")
+        report["spatial_pretrain"], p_pretrain = phase_spatial_pretrain(dev, work)
+        phase("height-sharded VSR forward:")
+        report["sharded_vsr"], p_vsr = phase_sharded_vsr(dev, q_frames)
+        phase("cli.serve --spatial_shards 2:")
+        report["sharded_serve"], p_serve = phase_sharded_serve(work, q_float_out, q_cached_out)
+        del q_frames, q_float_out, q_cached_out
+        phase("cli.train_vsr / cli.test_vsr --spatial_shards 2:")
+        report["spatial_vsr_train"], p_vsr_train = phase_spatial_vsr_train(dev, work, report["vsr_train"]["steps"])
+        phase("--distributed on the card:")
+        report["distributed"], p_dist = phase_distributed(work)
         phase(None)
         report["launches_sisr_eval"] = sisr_main
         report["launches_serving"] = launches
@@ -2934,8 +3350,14 @@ def main():
         q_parts = dict(quantized_serving=q_serve_main, quantized_eval=q_eval_main, export=export_main,
                        tiled_eval=tiled_main, ladder=ladder_main)
         report["launches_deployment_paths"] = q_parts
+        # the parallel layer's paths (phases 32-37), each count set to 0
+        # before its path
+        p_parts = dict(sharded_sisr=p_sisr, spatial_pretrain=p_pretrain, sharded_vsr=p_vsr, sharded_serve=p_serve,
+                       spatial_vsr_train=p_vsr_train, distributed=p_dist)
+        report["launches_parallel_paths"] = p_parts
         for key in launches:
-            launches[key] += sum(p.get(key, 0) for p in q_parts.values())
+            launches[key] += sum(p.get(key, 0) for p in q_parts.values()) + sum(p.get(key, 0)
+                                                                                for p in p_parts.values())
     except Exception:
         traceback.print_exc()
         return 1

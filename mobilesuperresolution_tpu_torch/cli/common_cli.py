@@ -1,12 +1,14 @@
 """Shared CLI plumbing (counterpart of mobilesuperresolution_tpu/cli/common_cli.py).
 
 Only flags that ported code reads are parsed; each entry point adds its own.
-Flags that only concern XLA or multi-host JAX (``--compile_cache``,
-``--distributed``, ``--coordinator_address``, ``--num_processes``,
-``--process_id``) have no counterpart here (``--distributed`` waits for
-multi-process training, ROADMAP.md queue A8). ``--xla_profile_steps`` keeps
-its name and traces with torch.profiler (core/profiling.py). ``--device``
-picks CUDA (the default) or the CPU.
+``--compile_cache`` concerns XLA alone and has no counterpart here.
+``--distributed`` (torchrun's ``env://``) and ``--coordinator_address`` with
+``--num_processes`` / ``--process_id`` (a ``tcp://`` rendezvous) join a
+process group right after parsing (parallel/distributed.py): one process per
+device, NCCL on CUDA and gloo on the CPU, each process training on its slice
+of every epoch. ``--xla_profile_steps`` keeps its name and traces with
+torch.profiler (core/profiling.py). ``--device`` picks CUDA (the default) or
+the CPU.
 """
 
 import argparse
@@ -14,14 +16,14 @@ import logging
 import os
 import time
 
-import torch
-
 import mobilesuperresolution_tpu_torch.data as data_pkg
 import mobilesuperresolution_tpu_torch.models as models_pkg
 from mobilesuperresolution_tpu_torch.core.meters import AverageMeter
 from mobilesuperresolution_tpu_torch.core.metrics_writer import MetricsWriter
 from mobilesuperresolution_tpu_torch.core.profiling import StepProfiler
 from mobilesuperresolution_tpu_torch.data import isr
+from mobilesuperresolution_tpu_torch.parallel import distributed
+from mobilesuperresolution_tpu_torch.parallel.mesh import shard_batch
 from mobilesuperresolution_tpu_torch.train import torch_convert as tc
 from mobilesuperresolution_tpu_torch.train.checkpoint import CheckpointManager, load_params_npz, save_params_npz
 from mobilesuperresolution_tpu_torch.train.preemption import PreemptionGuard, save_midepoch
@@ -30,9 +32,12 @@ log = logging.getLogger("msr_torch.train")
 
 
 def train_steps_per_epoch(n_items, batch_size):
-    """Optimizer steps per epoch: one process, batches with drop_last (the
-    LR schedule's milestones count these)."""
-    return max(n_items // batch_size, 1)
+    """Optimizer steps each process runs per epoch: its ceil(n/P) items
+    (``isr.batch_iterator``'s wrap-padded slice) in drop-last batches of
+    the per-process batch size. The LR schedule's milestones count these, so
+    counting the global items would fire them P times too late."""
+    per_process = -(-n_items // distributed.process_count())
+    return max(per_process // batch_size, 1)
 
 
 def base_parser(description):
@@ -46,6 +51,15 @@ def base_parser(description):
     parser.add_argument("--save_eval_images", action="store_true")
     parser.add_argument("--device", type=str, default=None,
                         help="'cuda' (default) or 'cpu'.")
+    parser.add_argument("--distributed", action="store_true",
+                        help="Join a process group from torchrun's environment (env://: RANK, WORLD_SIZE, "
+                        "MASTER_ADDR, MASTER_PORT, LOCAL_RANK): one process per card, NCCL (gloo with --device "
+                        "cpu); each process trains on its slice of the data.")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="host:port of process 0 for an explicit tcp:// rendezvous (with --num_processes and "
+                        "--process_id).")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     return parser
 
 
@@ -96,6 +110,9 @@ def parse_with_plugins(parser, argv=None, with_models=True):
     params = parser.parse_args(argv)
     if getattr(params, "debug", False):
         params.epochs = 1
+    # join the group before any device is touched: the process's card
+    # follows its local rank
+    distributed.initialize_from_params(params)
     os.makedirs(params.job_dir, exist_ok=True)
     return params
 
@@ -118,9 +135,9 @@ def run_epoch(params, train_ds, epoch, start_batch, step, on_step, guard, ckpt, 
     goes on. Returns None when the epoch ran to its end."""
     steps_per_epoch = train_steps_per_epoch(len(train_ds), params.train_batch_size)
     batches = isr.batch_iterator(train_ds, params.train_batch_size, shuffle=True, seed=params.seed + epoch,
-                                 drop_last=True, prefetch=2, start_batch=start_batch)
+                                 drop_last=True, prefetch=2, start_batch=start_batch, shard_by_process=True)
     for bidx, arrays in enumerate(batches, start=start_batch):
-        on_step(bidx, step(tuple(torch.from_numpy(a).to(device) for a in arrays)))
+        on_step(bidx, step(shard_batch(device, arrays)))
         if guard.step_and_should_stop():
             save_midepoch(ckpt, params.job_dir, epoch, model, optimizer, bidx + 1)
             return bidx + 1
@@ -135,7 +152,8 @@ def fit(params, model, optimizer, step, train_ds, device, evaluate, eval_key="ev
     cli/retrain_searched.py, cli/train_vsr.py), as the JAX package's: train
     ``params.epochs`` epochs of ``step`` on ``train_ds`` (``run_epoch``),
     then after each ``evaluate(epoch) -> ({set name: metrics}, items)`` on
-    freshly prepared weights, a forced full-state save and the weights npz;
+    freshly prepared weights (the chief's alone in a process group), a
+    forced full-state save and the weights npz;
     ``--resume`` first restores the latest checkpoint and re-enters a
     mid-epoch one at its batch. Losses and eval metrics go to
     metrics.jsonl. Returns a summary: per-step metrics (``steps``), per-epoch
@@ -151,8 +169,10 @@ def fit(params, model, optimizer, step, train_ds, device, evaluate, eval_key="ev
         resume_batch = resume_position(ckpt.last_extra, steps_per_epoch)
         summary["resumed"] = {"epoch": start_epoch, "batch": resume_batch}
         log.info(f"resumed from epoch {start_epoch}" + (f", batch {resume_batch}" if resume_batch else ""))
+    # every process starts from rank 0's parameters
+    distributed.broadcast_parameters(model)
     writer = MetricsWriter(params.job_dir)
-    guard = PreemptionGuard(params.max_steps_per_run)
+    guard = PreemptionGuard(params.max_steps_per_run, device=device)
     prof = StepProfiler(params.job_dir, params.xla_profile_steps)
     first_epoch = start_epoch if resume_batch else start_epoch + 1
     try:
@@ -180,14 +200,18 @@ def fit(params, model, optimizer, step, train_ds, device, evaluate, eval_key="ev
             # every optimizer step until it runs again
             model.eval()
             model.prepare()
-            results, items = evaluate(epoch)
-            for name, vals in results.items():
-                writer.scalars(vals, epoch, prefix=f"{name}/")
-            summary["eval"].append({"epoch": epoch, **results})
-            summary[eval_key] += items
-            # force: upgrade a mid-epoch save of this epoch
+            if distributed.is_primary():
+                # the chief evaluates (the parameters are equal everywhere)
+                results, items = evaluate(epoch)
+                for name, vals in results.items():
+                    writer.scalars(vals, epoch, prefix=f"{name}/")
+                summary["eval"].append({"epoch": epoch, **results})
+                summary[eval_key] += items
+            # force: upgrade a mid-epoch save of this epoch; the chief
+            # writes, and every process waits for it here
             ckpt.save(epoch, model, optimizer, force=True)
-            save_params_npz(params.job_dir, model)
+            if distributed.is_primary():
+                save_params_npz(params.job_dir, model)
     finally:
         guard.restore_handlers()
         prof.close()

@@ -22,8 +22,13 @@ the eval sets in exact overlapping T x T tiles (train/eval_tiling.py);
 ``--quantize int8`` evaluates the int8 dynamic-range model (kernel Q1 on
 the card) and needs ``--eval_only``.
 
-Not ported (argparse refuses it): ``--spatial_shards`` (ROADMAP.md, queue
-A8).
+``--spatial_shards S`` trains on the LR patch's height split into S exact
+overlap windows (parallel/spatial_train.py; H/S >= 2·radius, radius from
+``receptive_radius_wdsr``), shard ``i`` on the process's card ``i`` mod the
+visible cards. ``--distributed`` trains one process per card on its slice
+of every epoch (parallel/distributed.py), the learning rate scaled by the
+process count as in the JAX package and the reference (the global batch is
+``--train_batch_size`` times the processes); the chief evaluates and writes.
 """
 
 import logging
@@ -46,7 +51,10 @@ from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.models import get_model
+from mobilesuperresolution_tpu_torch.parallel.distributed import process_count
 from mobilesuperresolution_tpu_torch.parallel.halo import receptive_radius_wdsr
+from mobilesuperresolution_tpu_torch.parallel.mesh import make_mesh
+from mobilesuperresolution_tpu_torch.parallel.spatial_train import make_spatial_sisr_step
 from mobilesuperresolution_tpu_torch.train.checkpoint import (
     jax_named_parameters,
     load_params_npz,
@@ -107,17 +115,19 @@ def check_quantize(params):
         raise SystemExit("--quantize is inference-only: add --eval_only")
 
 
-def train_sisr(params, model, device):
-    """Train ``model`` with ``make_sisr_step`` through ``common_cli.fit``:
-    Adam with the reference's schedule over every parameter, the eval sets
+def train_sisr(params, model, device, lr_scale=1, make_step=make_sisr_step):
+    """Train ``model`` with ``make_step(model, optimizer)`` (the SISR step)
+    through ``common_cli.fit``: Adam with the reference's schedule over
+    every parameter at ``lr_scale`` times ``--learning_rate``, the eval sets
     scored after every epoch. Returns ``fit``'s summary (``eval_images``
     counts the eval images)."""
     train_ds = data_pkg.get_dataset_module(params.dataset).get_dataset(modes.TRAIN, params)
     steps_per_epoch = train_steps_per_epoch(len(train_ds), params.train_batch_size)
-    opt = multistep_adam(jax_named_parameters(model), params.learning_rate, steps_per_epoch, params.epochs)
+    opt = multistep_adam(jax_named_parameters(model), params.learning_rate * lr_scale, steps_per_epoch,
+                         params.epochs)
     eval_mods = eval_modules(params)
     n_eval_images = sum(len(mod.get_dataset(modes.EVAL, params)) for _, mod in eval_mods)
-    return fit(params, model, opt, make_sisr_step(model, opt), train_ds, device,
+    return fit(params, model, opt, make_step(model, opt), train_ds, device,
                lambda epoch: (run_evaluation(params, model, eval_mods, device), n_eval_images))
 
 
@@ -127,6 +137,10 @@ def main(argv=None):
     parser = base_parser("SISR pretraining (PyTorch/CUDA)")
     add_train_args(parser)
     add_eval_args(parser)
+    parser.add_argument("--spatial_shards", type=int, default=1,
+                        help="Train on the patch height split into this many exact overlap windows "
+                        "(parallel/spatial_train.py), shard i on the visible card (own + i) mod n "
+                        "in one process, every shard on the process's own card in a process group. 1 = whole patches.")
     params = parse_with_plugins(parser, argv)
     LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
@@ -142,7 +156,17 @@ def main(argv=None):
     with no_tf32(), torch.autograd.set_detect_anomaly(params.debug):
         if params.eval_only:
             return run_evaluation(params, model.eval(), eval_modules(params), device)
-        return train_sisr(params, model, device)
+        make_step = make_sisr_step
+        if params.spatial_shards > 1:
+            mesh = make_mesh(spatial=params.spatial_shards, device=device)
+            radius = receptive_radius_wdsr(params.num_blocks, block_kernel=3)
+
+            def make_step(m, opt):
+                return make_spatial_sisr_step(m, opt, mesh, radius, params.scale)
+
+        # linear LR scaling by the process count (the reference's
+        # pretrain.py:216-217): the global batch grows with it
+        return train_sisr(params, model, device, lr_scale=process_count(), make_step=make_step)
 
 
 if __name__ == "__main__":

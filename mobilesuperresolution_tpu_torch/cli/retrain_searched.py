@@ -13,7 +13,10 @@ seeded random weights (``--seed``) or a JAX flat-npz checkpoint
 unless ``--device cpu`` is given; checkpoints, ``--resume`` and the
 preemption flags as in cli/pretrain.py, and ``--eval_tile`` as there.
 ``--quantize int8`` evaluates the int8 dynamic-range net (kernel Q1 on the
-card) and needs ``--eval_only``.
+card) and needs ``--eval_only``. ``--distributed`` trains one process per
+card on its slice of every epoch (parallel/distributed.py), at the
+unscaled learning rate as in the JAX package; the chief evaluates and
+writes.
 """
 
 import logging

@@ -30,7 +30,9 @@ to ``<job_dir>/speed_table.npy``). ``--pretrained --pretrained_path`` copies
 a reference WDSR-B ``.pt``'s head, tail and skip into the supernet
 (train/torch_convert.py). ``--xla_profile_steps N`` traces the first N
 steps (core/profiling.py). The log goes to stdout and
-``<job_dir>/result.log``.
+``<job_dir>/result.log``. ``--distributed`` searches with one process per
+card, each on its slice of every epoch (parallel/distributed.py); the chief
+evaluates and writes every artifact.
 """
 
 import logging
@@ -58,6 +60,7 @@ from mobilesuperresolution_tpu_torch.core.profiling import StepProfiler
 from mobilesuperresolution_tpu_torch.core.utils import SpeedScheduler, attr_extractor
 from mobilesuperresolution_tpu_torch.models import get_model
 from mobilesuperresolution_tpu_torch.models.wdsr_nas import get_block_status, get_width_from_block_idx
+from mobilesuperresolution_tpu_torch.parallel import distributed
 from mobilesuperresolution_tpu_torch.nas.artifact import append_block_index
 from mobilesuperresolution_tpu_torch.nas.search import PHASES, phase_epochs, phase_lr, phase_trainable_mask
 from mobilesuperresolution_tpu_torch.kernels import timing
@@ -188,10 +191,12 @@ def _latency_table(params, device):
     u = params.num_residual_units
     if params.build_speed_table:
         table_path = os.path.join(params.job_dir, "speed_table.npy")
-        log.info("building the measured latency table on the card ...")
-        rows = timing.build_latency_table(ch_in_choices=(u,), out_path=table_path, method="loop", device=device)
+        if distributed.is_primary():  # the chief times its card; every process reads the table
+            log.info("building the measured latency table on the card ...")
+            rows = timing.build_latency_table(ch_in_choices=(u,), out_path=table_path, method="loop", device=device)
+            log.info(f"latency table ({rows.shape[0]} rows) → {table_path}")
+        distributed.barrier()
         params.speed_table = table_path
-        log.info(f"latency table ({rows.shape[0]} rows) → {table_path}")
     if params.speed_table:
         if not os.path.exists(params.speed_table):
             params.speed_table = _packaged("--speed_table", params.speed_table, packaged_table_path)
@@ -256,7 +261,8 @@ def _search(params, device):
     n_eval_images = sum(len(mod.get_dataset(modes.EVAL, params)) for _, mod in eval_mods)
     ckpt = CheckpointManager(params.job_dir)
     start_epoch, resume_batch = _resume(params, ckpt, model, steps_per_epoch, summary)
-    guard = PreemptionGuard(params.max_steps_per_run)
+    distributed.broadcast_parameters(model)
+    guard = PreemptionGuard(params.max_steps_per_run, device=device)
     prof = StepProfiler(params.job_dir, params.xla_profile_steps)
     epoch = 0
     try:
@@ -291,7 +297,8 @@ def _search(params, device):
                     prof.step()
                     if bidx % params.log_steps == 0:
                         remain_idx, remain_width = _arch(model)
-                        append_block_index(params.job_dir, remain_idx, remain_width)
+                        if distributed.is_primary():
+                            append_block_index(params.job_dir, remain_idx, remain_width)
                         log.info(
                             f"[{phase} e{epoch} b{bidx}] loss={metrics['loss']:.4e} l1={metrics['l1']:.4e} "
                             f"speed={metrics['speed']:.2f}/{target:.2f}ms blocks={len(remain_idx)}"
@@ -306,18 +313,22 @@ def _search(params, device):
                     summary["preempted"] = {"phase": phase, "epoch": epoch, "batch": stopped}
                     return summary
                 log.info(f"[{phase}] epoch {epoch}: loss={np.mean(losses):.4e} ({time.time() - t0:.1f}s)")
-                res = run_evaluation(params, model, eval_mods, device)
-                summary["eval"].append({"epoch": epoch, **res})
-                summary["eval_images"] += n_eval_images
-                # force: upgrade a mid-epoch save of this epoch
+                if distributed.is_primary():
+                    res = run_evaluation(params, model, eval_mods, device)
+                    summary["eval"].append({"epoch": epoch, **res})
+                    summary["eval_images"] += n_eval_images
+                # force: upgrade a mid-epoch save of this epoch (the chief
+                # writes, every process waits for it)
                 ckpt.save(epoch, model, opt, force=True)
-                save_params_npz(params.job_dir, model)
+                if distributed.is_primary():
+                    save_params_npz(params.job_dir, model)
     finally:
         guard.restore_handlers()
         prof.close()
 
     remain_idx, remain_width = _arch(model)
-    append_block_index(params.job_dir, remain_idx, remain_width)
+    if distributed.is_primary():
+        append_block_index(params.job_dir, remain_idx, remain_width)
     log.info(f"final arch: {len(remain_idx)} blocks, widths={remain_width}")
     summary.update(remain_idx=remain_idx, remain_width=remain_width)
     return summary

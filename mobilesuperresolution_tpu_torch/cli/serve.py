@@ -1,6 +1,5 @@
 """Streaming VSR serving entry (counterpart of
-mobilesuperresolution_tpu/cli/serve.py, without ``--spatial_shards``, which
-is not ported).
+mobilesuperresolution_tpu/cli/serve.py).
 
 Reads an ordered directory of frames, pushes them in arrival order through
 ``serve.StreamingVSR`` (windows are enqueued ahead of result fetches, outputs
@@ -14,7 +13,11 @@ BasicVSR only); ``--flow_downscale d`` runs SpyNet on 1/d-res frames.
 ``--model_type`` serves mobile BasicVSR ('basic'), the faithful BasicVSR
 ('basic_origin', also with ``--flow_cache``), the per-frame 'single' or the
 searched 'multi' / 'multi_v1' (``--model_path`` its block_index.txt).
-``--quantize int8`` serves the int8 dynamic-range model (SpyNet and the
+``--spatial_shards S`` splits each window's height into S shards with a
+halo exchange at every propagation step (parallel/vsr_spatial.py, 'basic'
+and 'basic_origin', plain or with ``--flow_cache``; flow dy clipped to
+``--spatial_max_disp``), shard ``i`` on the process's card ``i`` mod the
+visible cards. ``--quantize int8`` serves the int8 dynamic-range model (SpyNet and the
 trunks, or 'multi''s and 'single''s convs, on kernel Q1; not 'multi_v1').
 'basic_mv' is refused: it needs the codec's motion vectors beside each
 frame, and serving reads RGB frames only.
@@ -43,6 +46,8 @@ from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.io_cache import load_image, save_png
 from mobilesuperresolution_tpu_torch.models import get_vsr_model
+from mobilesuperresolution_tpu_torch.parallel.mesh import make_mesh
+from mobilesuperresolution_tpu_torch.parallel.vsr_spatial import spatial_basicvsr_forward
 from mobilesuperresolution_tpu_torch.serve import FlowCachedStreamingVSR, StreamingVSR, make_flow_sr_fns
 from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 
@@ -79,6 +84,11 @@ def build_parser():
     p.add_argument("--quantize", choices=["none", "int8"], default="none",
                    help="int8 dynamic-range inference convs (the numerics class of the reference's int8 "
                    "TFLite deployment; kernel Q1 on the card).")
+    p.add_argument("--spatial_shards", type=int, default=1,
+                   help="Split each window's height into this many shards ('basic' / 'basic_origin'), shard i on "
+                   "the visible card (own + i) mod n (one process serves).")
+    p.add_argument("--spatial_max_disp", type=int, default=8,
+                   help="Halo row budget of --spatial_shards: flow dy is clipped to +-this many rows.")
     p.add_argument("--flow_downscale", type=int, default=1,
                    help="Run SpyNet on 1/d-res frames and upsample the flow (1 = exact reference flows).")
     p.add_argument("--height", type=int, default=None,
@@ -125,12 +135,16 @@ def main(argv=None):
     out_h = params.height or h * params.scale
     out_w = params.width or w * params.scale
 
+    mesh = make_mesh(spatial=params.spatial_shards, device=device) if params.spatial_shards > 1 else None
+
     def apply_fn(x, oh, ow):
         with torch.inference_mode():
+            if mesh is not None:
+                return spatial_basicvsr_forward(model, x, oh, ow, mesh, max_disp=params.spatial_max_disp)
             return model(x, oh, ow)
 
     if params.flow_cache:
-        flow_fn, sr_fn = make_flow_sr_fns(model, out_h, out_w)
+        flow_fn, sr_fn = make_flow_sr_fns(model, out_h, out_w, mesh=mesh, max_disp=params.spatial_max_disp)
         stream = FlowCachedStreamingVSR(flow_fn, sr_fn, out_h, out_w, chunk=chunk, overlap=params.chunk_overlap,
                                         num_streams=n_streams, device=device)
     else:

@@ -6,8 +6,8 @@ the reference's test_video_superresolution.py).
 
 Scores a VSR model of any ``--model_type`` (basic_mv on 5-channel data,
 ``--dataset reds_with_mv``) on ``--eval_datasets`` as ``cli/train_vsr.py``
-does after each epoch (whole clips, ``--chunk_frames`` windows,
-``--flow_cache``), with
+does after each epoch (whole clips, height-sharded ones with
+``--spatial_shards``, ``--chunk_frames`` windows, ``--flow_cache``), with
 the weights of ``--eval_model`` (an npz in the JAX package's flat layout, as
 either package writes it, or a reference / mmedit ``.pt`` / ``.pth``
 converted per model type by ``common_cli.load_vsr_eval_params``) or,

@@ -16,8 +16,8 @@ bilinear base from the RGB channels) and saves
 the 4xN array to ``<job_dir>/run/<model_type>_<patch_h>_<patch_w>_2.npy``
 (``analysis/patch_stats.py`` reads it). Runs on CUDA unless ``--device cpu``
 is given. ``--data_parallel`` (patches over several devices) waits for
-ROADMAP.md queue A8; ``--chunk_frames`` is refused, as the patch already
-bounds the memory. ``--quantize int8`` evaluates the int8 dynamic-range
+ROADMAP.md queue A8; ``--chunk_frames`` and ``--spatial_shards`` are
+refused, as the patch already bounds the memory. ``--quantize int8`` evaluates the int8 dynamic-range
 model (kernel Q1 on the card), each patch batch quantized per sample.
 """
 
@@ -121,9 +121,10 @@ def main(argv=None):
     params = parse_with_plugins(parser, argv, with_models=False)
     LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
-    if params.chunk_frames:
-        raise ValueError("--chunk_frames applies to full-frame eval (cli.test_vsr); patch-tiled eval bounds "
-                         "memory by the patch instead")
+    if params.chunk_frames or params.spatial_shards > 1:
+        flag = "--chunk_frames" if params.chunk_frames else "--spatial_shards"
+        raise ValueError(f"{flag} applies to full-frame eval (cli.test_vsr); patch-tiled eval bounds memory by "
+                         "the patch instead")
     if params.data_parallel:
         raise NotImplementedError("--data_parallel (patches over several devices) is not ported yet "
                                   "(ROADMAP.md, queue A8)")

@@ -23,10 +23,18 @@ given; float32 in full float32 (TF32 off), ``--bf16`` in bfloat16.
 ``--xla_profile_steps N`` traces the first N steps (core/profiling.py); the
 log goes to stdout and ``<job_dir>/result.log``.
 
+``--spatial_shards S`` (``basic`` and ``basic_origin``) trains and
+evaluates with the frame height split into S shards, halo rows exchanged at
+every propagation step (parallel/vsr_spatial.py; flow dy clipped to
+``--spatial_max_disp``), shard ``i`` on the process's card ``i`` mod the
+visible cards; it excludes ``--chunk_frames``. ``--distributed`` trains one
+process per card on its slice of every epoch (parallel/distributed.py); the
+chief evaluates and writes.
+
 Not ported yet, and refused with the queue item of ROADMAP.md that brings
-them: ``--spatial_shards`` > 1 and ``--chunk_data_parallel`` (A8).
-``--quantize int8`` is inference-only (cli.test_vsr, cli.test_vsr_by_patch,
-cli.serve) and refused here, as by the JAX trainer.
+it: ``--chunk_data_parallel`` (A8). ``--quantize int8`` is inference-only
+(cli.test_vsr, cli.test_vsr_by_patch, cli.serve) and refused here, as by the
+JAX trainer.
 """
 
 import logging
@@ -51,7 +59,9 @@ from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.models import get_vsr_model
+from mobilesuperresolution_tpu_torch.parallel.mesh import make_mesh
 from mobilesuperresolution_tpu_torch.parallel.temporal import chunked_vsr_apply
+from mobilesuperresolution_tpu_torch.parallel.vsr_spatial import make_spatial_vsr_step, spatial_basicvsr_forward
 from mobilesuperresolution_tpu_torch.serve.flow_cache import FlowCachedStreamingVSR, make_flow_sr_fns
 from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters, load_params_npz, random_jax_params
 from mobilesuperresolution_tpu_torch.train.evaluate import evaluate
@@ -81,8 +91,13 @@ def add_vsr_args(parser):
                         help="With --chunk_frames: compute each SpyNet pair flow once and reuse it across "
                         "overlapping windows (serve/flow_cache.py; 'basic' and 'basic_origin').")
     parser.add_argument("--spatial_shards", type=int, default=1,
-                        help="Shard frame height over devices (not ported yet: > 1 raises).")
-    parser.add_argument("--spatial_max_disp", type=int, default=8)
+                        help="Split the frame height into this many shards with a halo exchange at every "
+                        "propagation step ('basic' / 'basic_origin'; each shard needs >= trunk radius + "
+                        "--spatial_max_disp rows: 17 + 8 for basic, 61 + 8 for basic_origin), shard i on the "
+                        "visible card (own + i) mod n in one process, every shard on the process's own card in a "
+                        "process group. Excludes --chunk_frames.")
+    parser.add_argument("--spatial_max_disp", type=int, default=8,
+                        help="Halo row budget of --spatial_shards: flow dy is clipped to +-this many rows.")
     parser.add_argument("--flow_downscale", type=int, default=1,
                         help="Run SpyNet on 1/d-res frames and upsample the flow (1 = the reference's flows).")
     parser.add_argument("--remat", action="store_true",
@@ -93,10 +108,16 @@ def add_vsr_args(parser):
                         "cli.test_vsr_by_patch and cli.serve; the trainer refuses it.")
 
 
-def check_vsr_args(params):
-    """Raise for the flags whose code is not ported yet, naming its queue."""
+def check_vsr_args(params, training=False):
+    """Refuse what the JAX package refuses, and the flags whose code is not
+    ported yet, naming its queue."""
     if params.spatial_shards > 1:
-        raise NotImplementedError("--spatial_shards (height-sharded VSR) is not ported yet (ROADMAP.md, queue A8)")
+        if training and params.model_type not in ("basic", "basic_origin"):
+            raise SystemExit("--spatial_shards training supports model_type=basic/basic_origin (the halo-sharded "
+                             "recurrent forward, parallel/vsr_spatial.py)")
+        if params.chunk_frames:
+            raise SystemExit("--spatial_shards and --chunk_frames are mutually exclusive (height sharding already "
+                             "bounds per-device memory)")
     if params.chunk_data_parallel:
         raise NotImplementedError("--chunk_data_parallel (windows over devices) is not ported yet "
                                   "(ROADMAP.md, queue A8)")
@@ -140,17 +161,24 @@ def build_vsr_model(params, device, spynet_weights=None):
 
 def run_vsr_evaluation(params, model, eval_mods, epoch, device):
     """Score ``model`` (eval mode, prepared weights) on every eval set:
-    whole clips, or with ``--chunk_frames`` windows of it
-    (``chunked_vsr_apply``), or with ``--flow_cache`` too the flow-cached
-    stream; clips that fit one window run un-windowed. Returns {set name:
-    metrics}."""
+    whole clips (height-sharded with ``--spatial_shards``), or with
+    ``--chunk_frames`` windows of it (``chunked_vsr_apply``), or with
+    ``--flow_cache`` too the flow-cached stream; clips that fit one window
+    run un-windowed. Returns {set name: metrics}."""
 
     def base_fwd(lr_clip, oh, ow):
         with torch.inference_mode():
             return model(lr_clip, oh, ow)
 
     fwd = base_fwd
-    if params.chunk_frames and params.flow_cache:
+    if getattr(params, "spatial_shards", 1) > 1:
+        mesh = make_mesh(spatial=params.spatial_shards, device=device)
+
+        def fwd(lr_clip, oh, ow):
+            with torch.inference_mode():
+                return spatial_basicvsr_forward(model, lr_clip, oh, ow, mesh, max_disp=params.spatial_max_disp)
+
+    elif params.chunk_frames and params.flow_cache:
         window = params.chunk_frames + 2 * params.chunk_overlap
         fns = {}
 
@@ -199,7 +227,12 @@ def train_vsr(params, model, device):
     out = params.lr_patch_size * params.scale
     eval_mods = eval_modules(params)
     n_clips = sum(len(mod.get_dataset(modes.EVAL, params)) for _, mod in eval_mods)
-    return fit(params, model, opt, make_vsr_step(model, opt, (out, out)), train_ds, device,
+    if params.spatial_shards > 1:
+        mesh = make_mesh(spatial=params.spatial_shards, device=device)
+        step = make_spatial_vsr_step(model, opt, mesh, (out, out), max_disp=params.spatial_max_disp)
+    else:
+        step = make_vsr_step(model, opt, (out, out))
+    return fit(params, model, opt, step, train_ds, device,
                lambda epoch: (run_vsr_evaluation(params, model, eval_mods, epoch, device), n_clips),
                eval_key="eval_clips")
 
@@ -218,7 +251,7 @@ def main(argv=None):
     if params.quantize != "none":
         raise SystemExit("--quantize is inference-only (use test_vsr / serve); training runs the exact float "
                          "path like the reference")
-    check_vsr_args(params)
+    check_vsr_args(params, training=not params.eval_only)
     if params.eval_model and params.eval_model.endswith((".pt", ".pth")):
         # the JAX trainer initializes from an npz only; cli.test_vsr
         # evaluates torch checkpoints

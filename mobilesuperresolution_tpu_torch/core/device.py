@@ -4,10 +4,13 @@ import contextlib
 
 import torch
 
+from mobilesuperresolution_tpu_torch.parallel.distributed import is_initialized
+
 
 def resolve_device(device=None):
-    """``None`` or ``"cuda"`` → the CUDA device, raising if there is none;
-    ``"cpu"`` only when the caller asks for it. The port never falls back to
+    """``None`` or ``"cuda"`` → the CUDA device (in a process group, this
+    process's card), raising if there is none; ``"cpu"`` only when the
+    caller asks for it. The port never falls back to
     the CPU on its own."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -17,6 +20,10 @@ def resolve_device(device=None):
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None and is_initialized():
+        # one process per card: parallel.distributed.initialize made this
+        # process's card the current one
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -4,8 +4,9 @@ mobilesuperresolution_tpu/core/logging_tool.py).
 ``LoggingTool(job_dir)`` routes the port's loggers (``msr_torch.*``) to
 stdout and to ``<job_dir>/result.log``, each line ``<asctime> <LEVEL>
 <message>`` as the JAX package writes it, on the chief process only: the
-process index is the environment's ``RANK`` (torch.distributed's launchers
-set it), else 0. The entry points log through ``logging.getLogger(
+process index is the process group's rank (parallel/distributed.py), else
+the environment's ``RANK`` (torchrun sets it before the group exists),
+else 0. The entry points log through ``logging.getLogger(
 "msr_torch.<name>")``; a new tool replaces the handlers of the one before,
 so a process that runs several entry points writes each job's log to its
 own directory.
@@ -15,12 +16,15 @@ import logging
 import os
 import sys
 
+from mobilesuperresolution_tpu_torch.parallel.distributed import is_initialized, process_index
+
 _FORMAT = "%(asctime)s %(levelname)s %(message)s"
 
 
 class LoggingTool:
     def __init__(self, job_dir=None):
-        self.is_chief = int(os.environ.get("RANK", "0")) == 0
+        rank = process_index() if is_initialized() else int(os.environ.get("RANK", "0"))
+        self.is_chief = rank == 0
         self.logger = logging.getLogger("msr_torch")
         self.logger.setLevel(logging.INFO)
         self.logger.propagate = False

@@ -1,10 +1,12 @@
 """Training metrics as an append-only ``<job_dir>/metrics.jsonl`` (own copy
 of the JSON-lines half of mobilesuperresolution_tpu/core/metrics_writer.py;
-one process, no TensorBoard files)."""
+no TensorBoard files). In a process group only the chief writes."""
 
 import json
 import os
 import time
+
+from mobilesuperresolution_tpu_torch.parallel.distributed import is_primary
 
 
 class MetricsWriter:
@@ -15,6 +17,8 @@ class MetricsWriter:
         self.path = os.path.join(job_dir, "metrics.jsonl")
 
     def scalar(self, tag, value, step):
+        if not is_primary():
+            return
         rec = {"tag": tag, "value": float(value), "step": int(step), "ts": time.time()}
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")

@@ -1,5 +1,5 @@
 """Image super-resolution datasets (counterpart of
-mobilesuperresolution_tpu/data/isr.py; one process, so no per-host sharding):
+mobilesuperresolution_tpu/data/isr.py):
 
 - TRAIN: index virtualization (``index // num_patches``, length = files x
   num_patches); paired files give a random LR-grid patch inside the ignored
@@ -15,7 +15,9 @@ there and reads the decoded arrays after. Arrays are HWC uint8 until the
 final conversion to float32 [0, 1] (the reference's to_tensor). Output layout is NHWC. ``batch_iterator`` draws
 every TRAIN item from a random stream that depends only on (seed, index),
 so the batches are a function of its arguments alone, and a resumed epoch
-(``start_batch``) replays the rest of its batches exactly.
+(``start_batch``) replays the rest of its batches exactly. With
+``shard_by_process`` each process of a group (parallel/distributed.py) takes
+its slice of the one shuffled order, as DistributedSampler does.
 """
 
 import os
@@ -25,6 +27,7 @@ import numpy as np
 from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.data.imresize import imresize_np
 from mobilesuperresolution_tpu_torch.data.io_cache import ArrayCache, load_image
+from mobilesuperresolution_tpu_torch.parallel.distributed import process_count, process_index
 
 
 def update_argparser(parser):
@@ -146,13 +149,22 @@ class ImageSRBicubicDataset(ImageSRDataset):
         return imresize_np(hr, scalar_scale=1.0 / s), hr
 
 
-def _batches(dataset, batch_size, shuffle, seed, drop_last, start_batch=0):
+def _batches(dataset, batch_size, shuffle, seed, drop_last, start_batch=0, shard_by_process=False):
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
+    if shard_by_process:
+        # every process shuffles alike (same seed), wrap-pads the order to a
+        # multiple of the process count (DistributedSampler's padding: every
+        # process must run the same number of steps, each a collective) and
+        # takes its slice
+        p = process_count()
+        if len(order) % p:
+            order = np.concatenate([order, order[: p - len(order) % p]])
+        order = order[process_index() :: p]
     for bidx, start in enumerate(range(0, len(order), batch_size)):
         idx = order[start : start + batch_size]
-        if drop_last and len(idx) < batch_size:
+        if len(idx) == 0 or (drop_last and len(idx) < batch_size):
             return
         if bidx < start_batch:
             continue  # a resumed epoch: the consumed batches sample nothing
@@ -165,15 +177,17 @@ def _batches(dataset, batch_size, shuffle, seed, drop_last, start_batch=0):
             yield np.stack([it[0] for it in items]), np.stack([it[1] for it in items])
 
 
-def batch_iterator(dataset, batch_size=1, shuffle=False, seed=0, drop_last=False, prefetch=0, start_batch=0):
+def batch_iterator(dataset, batch_size=1, shuffle=False, seed=0, drop_last=False, prefetch=0, start_batch=0,
+                   shard_by_process=False):
     """TRAIN items stacked to (lr (B, h, w, C), hr (B, H, W, C)), or (B, T,
     ...) for video; EVAL items as (name, lr (1, ...), hr (1, ...)), the
     reference's eval batch of 1. ``prefetch`` > 0 makes the batches in a
     background thread, that many ahead, so patch sampling and the bicubic
     overlap the device step; a dataset error re-raises in the consumer.
     ``start_batch`` skips the first batches of the order (a resumed epoch):
-    the rest are the same arrays as in the full stream."""
-    gen = _batches(dataset, batch_size, shuffle, seed, drop_last, start_batch)
+    the rest are the same arrays as in the full stream. ``shard_by_process``
+    yields this process's slice of every epoch (the trainers pass it)."""
+    gen = _batches(dataset, batch_size, shuffle, seed, drop_last, start_batch, shard_by_process)
     if prefetch <= 0:
         yield from gen
         return

@@ -98,17 +98,19 @@ class _DualTrunk(nn.Module):
         if self.quantized:
             self._q = {name: QConvWeight(*self._w[name]) for name in self._names}
 
-    def _conv(self, y, name):
+    def _conv(self, y, name, row_mask):
         if self.quantized:
-            return self._q[name](y)
-        w, b = self._dual(name, y.dtype) if self.training else self._w[name]
-        return conv2d_maybe_quantized(y, w, b)
+            out = self._q[name](y)
+        else:
+            w, b = self._dual(name, y.dtype) if self.training else self._w[name]
+            out = conv2d_maybe_quantized(y, w, b)
+        return out if row_mask is None else out * row_mask.to(out.dtype)
 
-    def forward(self, y):
-        y = lrelu(self._conv(y, "conv0"))
+    def forward(self, y, row_mask=None):
+        y = lrelu(self._conv(y, "conv0", row_mask))
         for i in range(self.num_block):
-            z = F.relu(self._conv(y, f"block{i}_conv1"))
-            y = y + self._conv(z, f"block{i}_conv2")
+            z = F.relu(self._conv(y, f"block{i}_conv1", row_mask))
+            y = y + self._conv(z, f"block{i}_conv2", row_mask)
         return y
 
 
@@ -214,6 +216,21 @@ class BasicVSRBase(nn.Module):
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.training):
             return compute_flows(self.spynet, x, self.flow_downscale)
 
+    def forward(self, x, height=1080, width=1920, flows=None):
+        """x: (B, T, H, W, C) → (B, T, height, width, C) in x.dtype.
+        flows: optional precomputed (flows_forward, flows_backward), each
+        (T-1, B, H, W, 2) time-major; SpyNet is then skipped."""
+        in_dtype = x.dtype
+        x = x.to(self.compute_dtype)
+        ff, fb = self._flows(x, flows)
+        return self._reconstruct(x, *self._propagate(x, ff, fb), height, width).to(in_dtype)
+
+    def _reconstruct(self, x, out_b, out_f, height, width):
+        """The per-frame reconstruction of the (B, T, H, W, nf) features of
+        both legs, batched over B·T: (B, T, height, width, C) in the compute
+        dtype (the subclass's head)."""
+        raise NotImplementedError
+
     def _propagate(self, x, flows_forward, flows_backward):
         """Step j >= 1 of the backward leg processes frame T-1-j with
         flows_backward[T-1-j]. Returns (out_b, out_f), each (B, T, H, W, nf)
@@ -249,18 +266,7 @@ class BasicVSR(BasicVSRBase):
         self.fusion.prepare(self.compute_dtype)
         self.conv_last.prepare(self.compute_dtype)
 
-    def forward(self, x, height=1080, width=1920, flows=None):
-        """x: (B, T, H, W, C) → (B, T, height, width, C) in x.dtype.
-        flows: optional precomputed (flows_forward, flows_backward), each
-        (T-1, B, H, W, 2) time-major; SpyNet is then skipped."""
-        in_dtype = x.dtype
-        x = x.to(self.compute_dtype)
-        ff, fb = self._flows(x, flows)
-        return self._reconstruct(x, *self._propagate(x, ff, fb), height, width).to(in_dtype)
-
     def _reconstruct(self, x, out_b, out_f, height, width):
-        """The per-frame reconstruction, batched over B·T: (B, T, height,
-        width, C) in the compute dtype."""
         b, t, h, w, c = x.shape
         feats = torch.cat([out_b, out_f], dim=-1).reshape(b * t, h, w, 2 * self.num_feat)
         fusion, conv_last = (self.fusion.forward_live, self.conv_last.forward_live) if self.training else (
@@ -271,7 +277,7 @@ class BasicVSR(BasicVSRBase):
 
 
 class BasicVSROrigin(BasicVSRBase):
-    """Faithful BasicVSR (x4 only): fusion 1x1 (2nf→nf) → lrelu → upconv1
+    """Faithful BasicVSR (x4 only), reconstructing as: fusion 1x1 (2nf→nf) → lrelu → upconv1
     (3x3 nf→4nf, depth_to_space(2), lrelu) → upconv2 (3x3 nf→256,
     depth_to_space(2), lrelu) → conv_hr (3x3 64→64) → lrelu → conv_last
     (3x3 64→3) → + the 4x bilinear base → bilinear resize to (height,
@@ -296,14 +302,8 @@ class BasicVSROrigin(BasicVSRBase):
         for conv in self._convs():
             conv.prepare(self.compute_dtype)
 
-    def forward(self, x, height=1080, width=1920, flows=None):
-        """x: (B, T, H, W, C) → (B, T, height, width, C) in x.dtype; flows as
-        ``BasicVSR.forward``'s."""
-        in_dtype = x.dtype
-        x = x.to(self.compute_dtype)
+    def _reconstruct(self, x, out_b, out_f, height, width):
         b, t, h, w, c = x.shape
-        ff, fb = self._flows(x, flows)
-        out_b, out_f = self._propagate(x, ff, fb)
         feats = torch.cat([out_b, out_f], dim=-1).reshape(b * t, h, w, 2 * self.num_feat)
         fusion, up1, up2, conv_hr, conv_last = (
             (m.forward_live for m in self._convs()) if self.training else self._convs())
@@ -311,4 +311,4 @@ class BasicVSROrigin(BasicVSRBase):
         out = conv_last(lrelu(conv_hr(out)))
         out = out + resize_bilinear(x.reshape(b * t, h, w, c), (4 * h, 4 * w))
         out = resize_bilinear(out, (height, width))
-        return out.reshape(b, t, height, width, c).to(in_dtype)
+        return out.reshape(b, t, height, width, c)

@@ -14,10 +14,14 @@ import numpy as np
 import torch
 
 
-def chunked_vsr_apply(apply_fn, lr, height, width, chunk, overlap=4):
+def chunked_vsr_apply(apply_fn, lr, height, width, chunk, overlap=4, mesh=None):
     """apply_fn: ``(lr_window, out_h, out_w) -> sr_window`` over
     (B, T_win, H, W, C) tensors; lr: (B, T, H, W, C). Returns
-    (B, T, height, width, C')."""
+    (B, T, height, width, C'). ``mesh`` (groups of windows over the
+    process's cards) is not ported yet and raises."""
+    if mesh is not None:
+        raise NotImplementedError("chunked_vsr_apply(mesh=) (windows over several devices) is not ported yet "
+                                  "(ROADMAP.md, queue A8)")
     if chunk <= 0:
         raise ValueError("chunk must be positive")
     if overlap < 0:

@@ -26,10 +26,11 @@ import torch
 
 from mobilesuperresolution_tpu_torch.models.spynet import flow_downscale_hw, upsample_flow
 from mobilesuperresolution_tpu_torch.ops.resize import resize_bilinear
+from mobilesuperresolution_tpu_torch.parallel.vsr_spatial import spatial_basicvsr_forward
 from mobilesuperresolution_tpu_torch.serve.streaming import StreamingVSR
 
 
-def make_flow_sr_fns(model, height, width, mesh=None):
+def make_flow_sr_fns(model, height, width, mesh=None, max_disp=8):
     """Split a BasicVSR ('basic' or 'basic_origin') into (flow_fn, sr_fn) for
     flow reuse. 'basic_mv' takes its flows from the bitstream and has no
     SpyNet, so it is refused, as are the models without this split.
@@ -43,11 +44,10 @@ def make_flow_sr_fns(model, height, width, mesh=None):
     A quantized model's SpyNet is quantized too, so flow_fn runs int8
     convs (kernel Q1), as the JAX package's ``SpyNet(quantized=...)``.
 
-    mesh: spatial sharding of the window (``--spatial_shards``) is not
-    ported; passing one raises."""
-    if mesh is not None:
-        raise NotImplementedError("flow reuse over a spatial mesh (--spatial_shards) is not ported yet "
-                                  "(ROADMAP.md, queue A8)")
+    mesh: height-shard the window (``serve --flow_cache --spatial_shards``):
+    sr_fn runs ``parallel.vsr_spatial.spatial_basicvsr_forward`` on the
+    cached flows (its dy clip to ``max_disp`` applies); flow_fn stays one
+    SpyNet call on the pair batch."""
     if not hasattr(model, "spynet"):
         raise ValueError(f"flow reuse needs a SpyNet-based model (BasicVSR family); got {type(model).__name__}, "
                          "which has no spynet")
@@ -64,6 +64,8 @@ def make_flow_sr_fns(model, height, width, mesh=None):
 
     def sr_fn(x, ff, fb):
         with torch.inference_mode():
+            if mesh is not None:
+                return spatial_basicvsr_forward(model, x, height, width, mesh, max_disp=max_disp, flows=(ff, fb))
             return model(x, height, width, flows=(ff, fb))
 
     return flow_fn, sr_fn

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from mobilesuperresolution_tpu_torch.ops.layers import PlainConv, SubpixelConvTranspose, WNConv
+from mobilesuperresolution_tpu_torch.parallel.distributed import barrier, is_primary, process_count
 
 
 def _entries(model):
@@ -158,11 +159,15 @@ class CheckpointManager:
     (``MultiStepAdam.state_dict``), ``step`` (training steps taken),
     ``epoch`` and an optional ``extra`` dict (``batches_done`` of a
     mid-epoch save). Keeps the ``max_to_keep`` latest epochs; saves are
-    atomic. ``run_meta.json`` pins the process count (always 1 here), and
-    ``restore`` refuses a checkpoint written by another count, as the JAX
-    package's manager does."""
+    atomic. ``run_meta.json`` pins the process count of the group
+    (parallel/distributed.py), and ``restore`` refuses a checkpoint written
+    by another count, as the JAX package's manager does. In a process group
+    the states are equal, so the chief alone writes and every process
+    waits for it at a barrier; every process reads."""
 
-    process_count = 1
+    @property
+    def process_count(self):
+        return process_count()
 
     def __init__(self, job_dir, max_to_keep=3):
         self.job_dir = job_dir
@@ -217,6 +222,11 @@ class CheckpointManager:
         final = self._file(epoch)
         if os.path.exists(final) and not force:
             raise FileExistsError(f"a checkpoint of epoch {epoch} exists: {final}")
+        if is_primary():
+            self._write(final, epoch, model, optimizer, extra)
+        barrier()
+
+    def _write(self, final, epoch, model, optimizer, extra):
         payload = {
             "params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
             "optimizer": optimizer.state_dict(),

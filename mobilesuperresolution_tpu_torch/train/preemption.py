@@ -1,5 +1,5 @@
 """Preemption-safe training (counterpart of
-mobilesuperresolution_tpu/train/preemption.py, one process).
+mobilesuperresolution_tpu/train/preemption.py).
 
 ``PreemptionGuard`` turns two stop sources into one decision per optimizer
 step: SIGTERM (the handler only sets a flag; the loop polls it at step
@@ -11,13 +11,15 @@ Mid-epoch checkpoints are exact: patch sampling is a function of (epoch
 seed, item index) alone (data/isr.py ``_batches``), so a resumed process
 replays the remaining batches of the interrupted epoch bit for bit.
 
-The JAX package also OR-reduces the signal flag over the processes of a
-multi-host job; the port runs one process until ``--distributed`` lands
-(ROADMAP.md, queue A8), so the flag is read as it is.
+In a process group the signal flag is OR-ed over the processes every
+``sync_every`` steps (an all-reduce MAX, parallel/distributed.py), so a
+SIGTERM that reaches one process stops all of them at the same step; the
+step budget counts the same steps everywhere and needs no exchange.
 """
 
 import signal as _signal
 
+from mobilesuperresolution_tpu_torch.parallel.distributed import any_process, is_primary, process_count
 from mobilesuperresolution_tpu_torch.train.checkpoint import save_params_npz
 
 
@@ -25,21 +27,27 @@ def save_midepoch(ckpt, job_dir, epoch, model, optimizer, batches_done):
     """One mid-epoch full-state save, on a stop or a periodic
     ``--checkpoint_every_steps`` save: the batch position goes into the
     checkpoint's ``extra``, so ``--resume`` replays the rest of the epoch,
-    and the weights npz is refreshed (atomically)."""
+    and the weights npz is refreshed (atomically); by the chief alone."""
     ckpt.save(epoch, model, optimizer, extra={"batches_done": batches_done}, force=True)
-    save_params_npz(job_dir, model)
+    if is_primary():
+        save_params_npz(job_dir, model)
 
 
 class PreemptionGuard:
     """Stops after ``max_steps`` optimizer steps (0 = no budget) or at the
-    first step boundary after a SIGTERM. Off the main thread, where Python
-    cannot install a handler, it is budget-only. ``restore_handlers`` puts
-    the previous handler back."""
+    first step boundary after a SIGTERM (in a process group: at the first
+    exchange, every ``sync_every`` steps, after a SIGTERM on any process;
+    the exchange's tensor lives on ``device``, which NCCL needs on the
+    card). Off the main thread, where Python cannot install a handler, it
+    is budget-only. ``restore_handlers`` puts the previous handler back."""
 
-    def __init__(self, max_steps=0):
+    def __init__(self, max_steps=0, sync_every=16, device="cpu"):
         self.max_steps = int(max_steps or 0)
+        self.sync_every = max(1, int(sync_every))
+        self.device = device
         self.steps = 0
         self._signaled = False
+        self._synced_stop = False
         self._prev = None
         try:
             self._prev = _signal.signal(_signal.SIGTERM, self._handler)
@@ -59,4 +67,8 @@ class PreemptionGuard:
         self.steps += 1
         if self.max_steps and self.steps >= self.max_steps:
             return True
-        return self._signaled
+        if process_count() == 1:
+            return self._signaled
+        if self.steps % self.sync_every == 0:
+            self._synced_stop = any_process(self._signaled, self.device)
+        return self._synced_stop

@@ -764,3 +764,162 @@ def test_quantized_tiny_basic_matches_cpu(cuda):
     top = float(outs[0].abs().max())
     diff = (outs[1] - outs[0]).abs()
     assert float(diff.max()) <= 1e-2 * top and float(diff.mean()) <= 1e-3 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatially_sharded_wdsr_matches_full_frame_on_card(cuda, dtype):
+    """Height-sharded WDSR-B (4 blocks, 24 units: radius 6) at S = 2 and 3 on
+    the card against its full-frame forward: 4 B3 + 1 B4 per window."""
+    from mobilesuperresolution_tpu_torch.models.wdsr_basic import BasicModel
+    from mobilesuperresolution_tpu_torch.parallel.halo import receptive_radius_wdsr, spatially_sharded_apply
+    from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    m = BasicModel(num_blocks=4, num_residual_units=24, scale=2, compute_dtype=dtype).to(cuda)
+    load_params_npz(m, random_jax_params(m, 3))
+    m.eval()
+    x = torch.rand((1, 48, 40, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    with torch.inference_mode():
+        want = m(x)
+        for n in (2, 3):
+            b3, b4 = fused_wdsr_block.launches, fused_conv_pixel_shuffle_skip.launches
+            got = spatially_sharded_apply(m, x, Mesh(n, cuda), receptive_radius_wdsr(4), scale=2)
+            assert (fused_wdsr_block.launches - b3, fused_conv_pixel_shuffle_skip.launches - b4) == (4 * n, n)
+            assert float((got.float() - want.float()).abs().max()) <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("kind", ["basic", "basic_origin"])
+def test_spatial_basicvsr_matches_full_frame_on_card(cuda, kind):
+    """Height-sharded BasicVSR / BasicVSROrigin (nf 8, 1 block) at S = 2 and
+    4 on the card against the plain forward: B1 30 and B2 once (twice for
+    basic_origin) per forward."""
+    from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR, BasicVSROrigin
+    from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+    from mobilesuperresolution_tpu_torch.parallel.vsr_spatial import spatial_basicvsr_forward
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    m = (BasicVSR if kind == "basic" else BasicVSROrigin)(num_feat=8, num_block=1).to(cuda)
+    load_params_npz(m, random_jax_params(m, 2))
+    m.eval()
+    x = torch.rand((1, 3, 64, 64, 3), generator=torch.Generator().manual_seed(2)).to(cuda)
+    with torch.inference_mode():
+        want = m(x, 256, 256)
+        for n in (2, 4):
+            b1, b2 = conv5x5_same.launches, fused_conv_pixel_shuffle.launches
+            got = spatial_basicvsr_forward(m, x, 256, 256, Mesh(n, cuda), max_disp=8)
+            assert conv5x5_same.launches - b1 == 30
+            assert fused_conv_pixel_shuffle.launches - b2 == (1 if kind == "basic" else 2)
+            assert float((got - want).abs().max()) <= _tol(want, torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["sisr", "vsr"])
+def test_spatial_training_step_matches_plain_on_card(cuda, kind):
+    """One height-sharded training step (S = 2; on a machine with several
+    cards, shard 1 runs on the next card through a differentiable copy of
+    the parameters, and its gradients flow back across cards) against the
+    plain step: the loss within 1e-5 relative, and every parameter's
+    gradient, read after the step, within 1e-5 of that gradient's largest
+    magnitude in the plain step (f32, TF32 off: only summation order
+    differs)."""
+    from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
+    from mobilesuperresolution_tpu_torch.models.wdsr_basic import BasicModel
+    from mobilesuperresolution_tpu_torch.parallel.halo import receptive_radius_wdsr
+    from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+    from mobilesuperresolution_tpu_torch.parallel.spatial_train import make_spatial_sisr_step
+    from mobilesuperresolution_tpu_torch.parallel.vsr_spatial import make_spatial_vsr_step
+    from mobilesuperresolution_tpu_torch.train.checkpoint import jax_named_parameters, load_params_npz
+    from mobilesuperresolution_tpu_torch.train.checkpoint import random_jax_params
+    from mobilesuperresolution_tpu_torch.train.state import multistep_adam
+    from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step, make_vsr_step
+
+    g = torch.Generator().manual_seed(4)
+    if kind == "sisr":
+        batch = (torch.rand((2, 48, 40, 3), generator=g), torch.rand((2, 96, 80, 3), generator=g))
+    else:
+        batch = (torch.rand((1, 3, 64, 64, 3), generator=g), torch.rand((1, 3, 256, 256, 3), generator=g))
+    batch = tuple(t.to(cuda) for t in batch)
+    runs = []
+    for sharded in (False, True):
+        m = BasicModel(num_blocks=4, num_residual_units=24, scale=2) if kind == "sisr" else BasicVSR(8, 1, 4)
+        m = m.to(cuda)
+        load_params_npz(m, random_jax_params(m, 5))
+        m.train()
+        opt = multistep_adam(jax_named_parameters(m), 1e-3, 10, 1)
+        mesh = Mesh(2, cuda)
+        if kind == "sisr":
+            step = (make_spatial_sisr_step(m, opt, mesh, receptive_radius_wdsr(4), 2) if sharded
+                    else make_sisr_step(m, opt))
+        else:
+            step = make_spatial_vsr_step(m, opt, mesh, (256, 256)) if sharded else make_vsr_step(m, opt, (256, 256))
+        loss = float(step(batch)["loss"])
+        runs.append((loss, {k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None}))
+    assert abs(runs[1][0] - runs[0][0]) <= 1e-5 * abs(runs[0][0])
+    assert runs[0][1] and runs[1][1].keys() == runs[0][1].keys()
+    for k, want in runs[0][1].items():
+        assert float((runs[1][1][k] - want).abs().max()) <= 1e-5 * float(want.abs().max()), k
+
+
+def test_two_nccl_ranks_match_one_process(cuda, tmp_path):
+    """Two NCCL ranks on cards 0 and 1 (tests/helpers/torch_parallel_worker.py:
+    tcp:// for cli.pretrain, then env:// with torchrun's variables for
+    cli.train_vsr and cli.search) against one process with the global batch
+    on card 0: the pretrain losses within 1e-5 relative and the weights
+    within 1e-5; the group-mean gradients of one step on half batches within
+    1e-5 of each gradient's largest magnitude (f32, TF32 off); the chief
+    alone evaluates and writes; a rank-1 NaN batch skips the update on both;
+    a SIGTERM on rank 0 stops both at the same step with one checkpoint; the
+    VSR and search losses within 1e-5 relative. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    import json
+
+    from mobilesuperresolution_tpu_torch.cli import pretrain, search, train_vsr
+    from mobilesuperresolution_tpu_torch.kernels import _build
+    from mobilesuperresolution_tpu_torch.train.steps import make_sisr_step
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "helpers"))
+    import torch_parallel_worker as worker
+
+    _build.build()  # before the ranks start, so that neither builds
+    jobs, wait = worker.start(str(tmp_path), device="cuda", timeout=600)
+    try:
+        one = pretrain.main(["--job_dir", str(tmp_path / "one"), "--num_patches", "2", "--learning_rate", "1e-3"]
+                            + worker.sisr_args("cuda:0", batch=4))
+        m, opt = worker.tiny_sisr_model(cuda)
+        make_sisr_step(m, opt)(tuple(torch.from_numpy(a).to(cuda) for a in worker.global_batch()))
+        want_grads = {k: p.grad.cpu().numpy() for k, p in m.named_parameters()}
+        vsr = train_vsr.main(["--job_dir", str(tmp_path / "vsr"), "--device", "cuda:0", "--dataset",
+                              "synthetic_vsr", "--eval_datasets", "synthetic_vsr", "--epochs", "1",
+                              "--synthetic_frames", "2", "--image_batch", "2", "--train_batch_size", "2",
+                              "--lr_patch_size", "12"])
+        nas = search.main(["--job_dir", str(tmp_path / "search"), "--device", "cuda:0", "--dataset",
+                           "synthetic_isr", "--eval_datasets", "synthetic_isr", "--num_blocks", "2",
+                           "--num_residual_units", "8", "--width_epochs", "1", "--epochs", "0", "--kernel_epochs",
+                           "0", "--lr_patch_size", "8", "--train_batch_size", "4", "--num_patches", "1"])
+    finally:
+        outs = wait()
+    sisr = [r["sisr"] for r in outs]
+    assert [r["world"] for r in sisr] == [2, 2] and [r["device"] for r in sisr] == ["cuda:0", "cuda:1"]
+    want = [s["loss"] for s in one["steps"]]
+    for r in sisr:
+        np.testing.assert_allclose(r["losses"], want, rtol=1e-5)
+        assert r["nan_step"] == {"skipped": 1.0, "steps": 1, "unchanged": True}
+        assert r["stop"] == {"preempted": {"epoch": 1, "batch": 16}, "steps": 16, "ckpt": ["1.pt", "run_meta.json"]}
+    assert sisr[0]["eval"] and not sisr[1]["eval"]
+    for r in range(2):
+        got = np.load(os.path.join(jobs, f"grads{r}.npz"))
+        assert set(got.files) == set(want_grads)
+        for k, g in want_grads.items():
+            assert float(np.abs(got[k] - g).max()) <= 1e-5 * float(np.abs(g).max()), (r, k)
+    a = np.load(tmp_path / "one" / "weights" / "models.npz")
+    b = np.load(os.path.join(jobs, "train", "weights", "models.npz"))
+    for key in a:
+        np.testing.assert_allclose(b[key], a[key], atol=1e-5, err_msg=key)
+    tags = [json.loads(ln)["tag"] for ln in open(os.path.join(jobs, "train", "metrics.jsonl"))]
+    assert tags.count("training_loss_smooth") == 1
+    assert sorted(os.listdir(os.path.join(jobs, "train", "ckpt"))) == ["1.pt", "run_meta.json"]
+    for r in (o["vsr"] for o in outs):
+        assert r["world"] == 2
+        np.testing.assert_allclose(r["vsr_losses"], [s["loss"] for s in vsr["steps"]], rtol=1e-5)
+        np.testing.assert_allclose(r["search_losses"], [s["loss"] for s in nas["steps"]], rtol=1e-5)
+    assert outs[0]["vsr"]["vsr_eval"] and not outs[1]["vsr"]["vsr_eval"]

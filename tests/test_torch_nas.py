@@ -589,9 +589,10 @@ def test_search_cli_on_cpu(tmp_path, monkeypatch):
     with torch.no_grad():
         np.testing.assert_allclose(m(_t(x))[0].numpy(), np.asarray(jm.apply({"params": jp}, jnp.asarray(x))[0]),
                                    atol=1e-5)
-    for flag in (["--distributed"], ["--eval_tile", "64"]):
-        with pytest.raises(SystemExit):
-            search.main(argv[:2] + ["--device", "cpu"] + flag)
+    with pytest.raises(SystemExit):
+        search.main(argv[:2] + ["--device", "cpu", "--eval_tile", "64"])
+    with pytest.raises(ValueError, match="requires --num_processes and --process_id"):
+        search.main(argv[:2] + ["--device", "cpu", "--coordinator_address", "localhost:1"])
     with pytest.raises(SystemExit, match="not a packaged table name"):
         search.main(argv[:-1] + ["huawei_p31_cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -192,8 +192,11 @@ def test_flow_downscale_matches_jax(rng):
     assert get_vsr_model("basic", device="cpu", flow_downscale=2).flow_downscale == 2
     with pytest.raises(ValueError, match="flow_downscale"):
         get_vsr_model("basic", device="cpu", flow_downscale=0)
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_flow_sr_fns(tm, OH, OW, mesh=object())
+    # the height-sharded split (tests/test_torch_parallel.py) checks its shards first
+    _, sr_fn = make_flow_sr_fns(tm, OH, OW, mesh=3)
+    f = torch.zeros(1, 1, H, W, 2)
+    with pytest.raises(ValueError, match="not divisible by 3 spatial shards"):
+        sr_fn(torch.zeros(1, 2, H, W, 3), f, f)
 
 
 def _frames(tmp_path, rng, name, t):

@@ -242,14 +242,16 @@ def test_pretrain_eval_only_on_cpu(tmp_path):
 
 def test_pretrain_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """Training and resuming run (tests/test_torch_train.py,
-    tests/test_torch_resume.py); the sharding and multi-process flags are
-    not parsed, the supernet does not pretrain, and int8 raises without
+    tests/test_torch_resume.py; --spatial_shards and the process group:
+    tests/test_torch_parallel*.py); an explicit rendezvous needs its size
+    and rank, the supernet does not pretrain, and int8 raises without
     --eval_only and for the supernet, with the JAX package's messages
     (--eval_tile runs: tests/test_torch_export.py)."""
     base = ["--job_dir", str(tmp_path), "--dataset", "synthetic_isr", "--eval_datasets", "synthetic_isr",
             "--num_blocks", "1"]
-    for flag in (["--spatial_shards", "2"], ["--distributed"]):
-        with pytest.raises(SystemExit):
+    for flag in (["--coordinator_address", "localhost:1"], ["--coordinator_address", "localhost:1",
+                                                          "--num_processes", "2"]):
+        with pytest.raises(ValueError, match="requires --num_processes and --process_id"):
             pretrain.main(base + ["--device", "cpu"] + flag)
     with pytest.raises(ValueError, match="BASIC_MODEL only"):
         pretrain.main(base + ["--device", "cpu", "--model_type", "NAS_MODEL"])

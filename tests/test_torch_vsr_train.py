@@ -369,21 +369,23 @@ def test_vsr_entry_points_on_cpu(tmp_path, monkeypatch):
 
 
 def test_vsr_entry_points_refuse_what_is_not_ported(tmp_path, monkeypatch):
-    """Every flag whose code is not ported raises naming its queue item, and
-    --quantize with the JAX trainer's inference-only message; the
-    multi-process flags are not parsed; without a card the entry points run
-    only when the CPU is asked for."""
+    """Every flag whose code is not ported raises naming its queue item,
+    --quantize with the JAX trainer's inference-only message and
+    --spatial_shards training of a model without the sharded forward with
+    the JAX trainer's; an explicit rendezvous needs its size and rank;
+    without a card the entry points run only when the CPU is asked for."""
     base = ["--job_dir", str(tmp_path), "--device", "cpu", "--dataset", "synthetic_vsr", "--eval_datasets"]
-    for flag, match in ((["--spatial_shards", "2"], "A8"), (["--chunk_data_parallel"], "A8")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_vsr.main(base + flag)
+    with pytest.raises(NotImplementedError, match="A8"):
+        train_vsr.main(base + ["--chunk_data_parallel"])
+    with pytest.raises(SystemExit, match="supports model_type=basic/basic_origin"):
+        train_vsr.main(base + ["--spatial_shards", "2", "--model_type", "multi"])
     with pytest.raises(SystemExit, match="--quantize is inference-only"):
         train_vsr.main(base + ["--quantize", "int8"])
     # the trainer initializes from an npz only, as the JAX trainer does
     with pytest.raises(ValueError, match="cli.test_vsr"):
         train_vsr.main(base + ["--eval_model", "model.pth"])
-    with pytest.raises(SystemExit):
-        train_vsr.main(base + ["--distributed"])
+    with pytest.raises(ValueError, match="requires --num_processes and --process_id"):
+        train_vsr.main(base + ["--coordinator_address", "localhost:1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main in (train_vsr.main, test_vsr.main):
         with pytest.raises(RuntimeError, match="CUDA"):
