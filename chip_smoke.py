@@ -192,14 +192,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    NCCL group against the same runs without it (losses within 1e-5
    relative, weights within the Adam drift bound, the chief's files written
    once; two ranks need two cards: tests/test_torch_cuda.py's
-   test_two_nccl_ranks_match_one_process, and gloo on the CPU).
+   test_two_nccl_ranks_match_one_process, and gloo on the CPU);
+38. the in-process data axis on phase 11's npz: cli.test_vsr --chunk_frames
+   4 --chunk_overlap 2 with and without --chunk_data_parallel, and
+   cli.test_vsr_by_patch at phase 17's settings with and without
+   --data_parallel, each equal to its run without the flag (one card: a
+   group is one window, a patch batch one patch), B1 30 and B2 1 per window
+   or patch batch;
+39. the native data cores (native/libloader.so, native/libimresize.so)
+   loaded on this host, not the numpy path, each bit-equal to the numpy
+   path at DIV2K's and 1080p's sizes, both timed;
+40. cli.search --speed_predictor auto: this card's packaged predictor, B5
+   12 per forward at 4 blocks;
+41. cli.serve --quantize int8 --spatial_shards 2 over phase 26's frames,
+   within the int8 bound of phase 26's unsharded int8 stream (each shard's
+   trunk window has its own per-sample scale), with Q1's launches.
 
 Prints the kernel table as one JSON line (launches from the slices' paths,
 each count set to 0 before its path: B1 and B2 from the basic VSR training
-run plus phases 16-18, 20, 21, 24, 26-30 and 34-37, B3 from the pretraining
-run and phases 24, 29, 32, 33 and 37, B4 from those and phase 20's
-'multi_v1' runs and 28, B5 from the search and phases 22 and 23, Q1 from
-phases 26, 27 and 30), the nvidia-smi line, and last ``{"ok": true,
+run plus phases 16-18, 20, 21, 24, 26-30, 34-38 and 41, B3 from the
+pretraining run and phases 24, 29, 32, 33 and 37, B4 from those and phase
+20's 'multi_v1' runs and 28, B5 from the search and phases 22, 23 and 40,
+Q1 from phases 26, 27, 30 and 41), the nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``. Details go to chiprun_out/chip_smoke.json. Needs CUDA;
 imports nothing of JAX.
 """
@@ -1949,6 +1963,16 @@ def phase_zoo_train(dev, work, kinds, mv_root=None):
     return stats, total, npzs
 
 
+def patch_argv(job, npz):
+    """cli.test_vsr_by_patch at launchers/video_test_patch.sh's settings on
+    one synthetic 10-frame clip at REDS's frame size."""
+    return ["--job_dir", job, "--dataset", "synthetic_vsr", "--eval_datasets", "synthetic_vsr", "--model_type",
+            "basic", "--scale", str(VSR_SCALE), "--image_batch", str(VSR_T), "--patch_h", str(PATCH), "--patch_w",
+            str(PATCH), "--overlap_h", str(PATCH_OVERLAP[0]), "--overlap_w", str(PATCH_OVERLAP[1]),
+            "--synthetic_frames", str(VSR_T), "--synthetic_clips", "1", "--synthetic_size",
+            f"{PATCH_HR[0]}x{PATCH_HR[1]}", "--eval_model", npz]
+
+
 def phase_patch_eval(dev, work, npz):
     """cli.test_vsr_by_patch at launchers/video_test_patch.sh's settings on
     phase_vsr_train's basic npz: the .npy's shape (4 rows x 10 patches x 10
@@ -1965,10 +1989,7 @@ def phase_patch_eval(dev, work, npz):
 
     job = os.path.join(work, "patch")
     size = f"{PATCH_HR[0]}x{PATCH_HR[1]}"
-    argv = ["--job_dir", job, "--dataset", "synthetic_vsr", "--eval_datasets", "synthetic_vsr", "--model_type",
-            "basic", "--scale", str(VSR_SCALE), "--image_batch", str(VSR_T), "--patch_h", str(PATCH), "--patch_w",
-            str(PATCH), "--overlap_h", str(PATCH_OVERLAP[0]), "--overlap_w", str(PATCH_OVERLAP[1]),
-            "--synthetic_frames", str(VSR_T), "--synthetic_clips", "1", "--synthetic_size", size, "--eval_model", npz]
+    argv = patch_argv(job, npz)
     reset_vsr_launches()
     t0 = time.perf_counter()
     res = run_cli(test_vsr_by_patch.main, argv)["synthetic_vsr"]
@@ -3207,6 +3228,172 @@ def phase_distributed(work):
     return out, total
 
 
+def phase_data_axis(work, job):
+    """The in-process data axis on phase 11's npz: cli.test_vsr (bf16,
+    --chunk_frames 4 --chunk_overlap 2: 3 windows per 10-frame clip) with
+    and without --chunk_data_parallel, and cli.test_vsr_by_patch at phase
+    17's settings with and without --data_parallel. Each run with the flag
+    equals its run without it (one card: a group is one window, a patch
+    batch one patch), B1 30 and B2 1 per window or patch batch; the data
+    slots and each run's wall seconds. Returns (stats, launches)."""
+    from mobilesuperresolution_tpu_torch.cli import test_vsr, test_vsr_by_patch
+    from mobilesuperresolution_tpu_torch.parallel.mesh import make_mesh
+
+    npz = os.path.join(job, "weights", "models.npz")
+    slots = [str(d) for d in make_mesh(spatial=1, device="cuda").data_devices]
+    chunk, overlap = 4, 2
+    windows = VSR_CLIPS * len(range(0, VSR_T, chunk))
+    out, total, results = {"data_slots": slots}, {"B1": 0, "B2": 0, "B4": 0}, {}
+    runs = (("windows", [], windows), ("windows_data_parallel", ["--chunk_data_parallel"], windows),
+            ("patches", [], N_PATCHES), ("patches_data_parallel", ["--data_parallel"], N_PATCHES))
+    for name, flag, per in runs:
+        sub = os.path.join(work, f"data_axis_{name}")
+        if name.startswith("windows"):
+            main, argv = test_vsr.main, vsr_argv(sub) + ["--eval_model", npz, "--bf16", "--chunk_frames", str(chunk),
+                                                         "--chunk_overlap", str(overlap), *flag]
+        else:
+            main, argv = test_vsr_by_patch.main, patch_argv(sub, npz) + flag
+        reset_vsr_launches()
+        t0 = time.perf_counter()
+        res = run_cli(main, argv)["synthetic_vsr"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = vsr_launches()
+        out[name] = dict(wall_s=wall, launches=launches,
+                         result=res if isinstance(res, dict) else dict(psnr=float(res[2].mean()), shape=res.shape))
+        log(f"  {' '.join(flag) or 'plain'} ({name.split('_')[0]}): {wall:.2f} s, launches {launches}, "
+            f"{out[name]['result']}")
+        if launches != {"B1": B1_PER_WINDOW * per, "B2": B2_PER_WINDOW * per, "B4": 0}:
+            raise AssertionError(f"{name}: launches {launches} for {per} windows or patch batches")
+        results[name] = res
+        total = {k: total[k] + launches[k] for k in total}
+    if results["windows"] != results["windows_data_parallel"]:
+        raise AssertionError(f"--chunk_data_parallel {results['windows_data_parallel']} != the plain windows "
+                             f"{results['windows']}")
+    if not np.array_equal(results["patches"], results["patches_data_parallel"]):
+        raise AssertionError("--data_parallel's patch array differs from the plain run's")
+    log(f"  data slots {slots}: each run with the flag equals its run without it")
+    return out, total
+
+
+def phase_native_cores(work):
+    """The native data cores on the card machine's host: the committed
+    native/libloader.so and native/libimresize.so load (not the numpy path),
+    and each binding is bit-equal to the port's numpy path with both timed
+    (host ms, mean of 3 after one warm-up): the SISR degrade (a 1356x2040
+    DIV2K-sized image to x1/2), YUV420 to RGB of a 1080x1920 frame, and a
+    NEMO window of 10 raw 1080x1920 frames."""
+    from mobilesuperresolution_tpu_torch.data import native_imresize, native_loader
+    from mobilesuperresolution_tpu_torch.data.imresize import imresize_np
+    from mobilesuperresolution_tpu_torch.data.yuv import yuv420_to_rgb
+
+    if not (native_loader.native_available() and native_imresize.native_available()):
+        raise AssertionError("the committed native libraries did not load here: the numpy path would run")
+    rng = np.random.default_rng(39)
+
+    def host_ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            res = fn()
+        return (time.perf_counter() - t0) / 3 * 1e3, res
+
+    img = rng.integers(0, 256, SR_HR + (3,), dtype=np.uint8)
+    h, w = 1080, 1920
+    y = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    u, v = (rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8) for _ in range(2))
+    d = os.path.join(work, "raw_window")
+    os.makedirs(d)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(T_WIN)]
+    paths = [os.path.join(d, f"{i:04d}.raw") for i in range(T_WIN)]
+    for f, p in zip(frames, paths):
+        f.tofile(p)
+    cases = {
+        "imresize_1356x2040_x0.5": (lambda: native_imresize.imresize_u8(img, scalar_scale=0.5),
+                                    lambda: imresize_np(img, scalar_scale=0.5)),
+        "yuv420_to_rgb_1080x1920": (lambda: native_loader.yuv420_to_rgb(y, u, v), lambda: yuv420_to_rgb(y, u, v)),
+        "raw_window_10x1080x1920": (lambda: native_loader.load_raw_window(paths, (h, w, 3)),
+                                    lambda: np.stack([np.fromfile(p, np.uint8).reshape(h, w, 3) for p in paths])),
+    }
+    out = {}
+    for name, (native, numpy_path) in cases.items():
+        native_ms, got = host_ms(native)
+        numpy_ms, want = host_ms(numpy_path)
+        if got is None or got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"native {name} differs from the numpy path")
+        out[name] = dict(native_ms=native_ms, numpy_ms=numpy_ms, speedup=numpy_ms / native_ms)
+        log(f"  {name}: native {native_ms:.2f} ms, numpy {numpy_ms:.2f} ms (x{numpy_ms / native_ms:.1f}), "
+            "bit-equal")
+    return out
+
+
+def phase_predictor_auto(work):
+    """cli.search --speed_predictor auto at 4 blocks (the width phase, one
+    epoch): it loads this card's packaged predictor
+    (nas/speed_tables/<device kind>_predictor.msgpack), B5 12 per forward."""
+    from mobilesuperresolution_tpu_torch.cli import search
+    from mobilesuperresolution_tpu_torch.kernels.fused_convsep import fused_convsep
+    from mobilesuperresolution_tpu_torch.nas.speed_model import packaged_predictor_path
+
+    own = packaged_predictor_path()
+    job = os.path.join(work, "search_predictor_auto")
+    fused_convsep.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(search.main, nas_argv(job, 4) + ["--speed_predictor", "auto"])
+    wall = time.perf_counter() - t0
+    text = open(os.path.join(job, "result.log")).read()
+    speed = float(re.search(r"Supernet Speed: ([\d.]+) ms", text).group(1))
+    forwards = out["train_forwards"] + out["eval_images"]
+    log(f"  --speed_predictor auto → {own}: supernet speed {speed} ms, {len(out['steps'])} steps, {wall:.1f} s, B5 "
+        f"launches {fused_convsep.launches} ({forwards} forwards)")
+    if own is None or f"MLP latency predictor from {own}" not in text:
+        raise AssertionError(f"--speed_predictor auto resolved to {own!r}")
+    if fused_convsep.launches != 3 * 4 * forwards or not all(np.isfinite(s["loss"]) for s in out["steps"]):
+        raise AssertionError(f"--speed_predictor auto: launches {fused_convsep.launches}, steps {out['steps']}")
+    return dict(predictor=own, supernet_speed_ms=speed, wall_s=wall, launches=fused_convsep.launches), \
+        {"B5": fused_convsep.launches}
+
+
+def phase_sharded_int8_serve(work):
+    """cli.serve --quantize int8 --spatial_shards 2 over phase 26's 16
+    frames (bf16, chunk 4, overlap 3): each shard's trunk window takes its
+    own per-sample int8 scale, so the stream is held to phase 26's unsharded
+    int8 stream within the int8 bound (1e-2 of the largest output, + one
+    8-bit level), not bit for bit; Q1 30 (SpyNet, whole frames) + 17 per
+    trunk call per step, one call per card the shards sit on, B1 0, B2 1 per
+    window."""
+    import contextlib
+    import io
+
+    from mobilesuperresolution_tpu_torch.cli import serve
+    from mobilesuperresolution_tpu_torch.parallel.mesh import make_mesh
+
+    d = os.path.join(work, "qserve_frames")
+    job = os.path.join(work, "qserve_sharded")
+    argv = ["--job_dir", job, "--input_dir", d, "--bf16", "--chunk_frames", str(CHUNK), "--chunk_overlap",
+            str(OVERLAP), "--height", str(OH), "--width", str(OW), "--quantize", "int8", "--spatial_shards", "2"]
+    windows = len(range(0, N_STREAM_FRAMES, CHUNK)) + 1  # and the warm-up window
+    cards = len(set(make_mesh(spatial=2, device="cuda").devices))
+    want_q1 = (B1_PER_WINDOW + 17 * T_WIN * cards) * windows
+    reset_q1_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = run_cli(serve.main, argv)
+    launches = q1_counts()
+    got = np.stack(read_pngs(os.path.join(job, "serve"))).astype(np.float32)
+    want = np.stack(read_pngs(os.path.join(work, "qserve_plain", "serve"))).astype(np.float32)
+    err = float(np.abs(got - want).max())
+    tol = 1e-2 * float(want.max()) + 1
+    log(f"  cli.serve --quantize int8 --spatial_shards 2: {stats['frames']} frames, {stats['fps_end_to_end']} "
+        f"frames/s end to end, max err {err:.1f} levels against the unsharded int8 stream (tol {tol:.2f}), "
+        f"agreement {psnr_u8(got, want):.2f} dB, launches {launches}")
+    if got.shape != want.shape or not err <= tol:
+        raise AssertionError(f"sharded int8 serve: {got.shape} vs {want.shape}, err {err} > {tol}")
+    if (launches["Q1"], launches["B1"], launches["B2"]) != (want_q1, 0, B2_PER_WINDOW * windows):
+        raise AssertionError(f"sharded int8 serve: launches {launches}, want Q1 {want_q1}, B1 0, B2 {windows}")
+    return dict(stats, max_err_levels=err, tol_levels=tol, agreement_db=psnr_u8(got, want), launches=launches), \
+        {k: launches[k] for k in ("Q1", "B2")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3331,6 +3518,14 @@ def main():
         report["spatial_vsr_train"], p_vsr_train = phase_spatial_vsr_train(dev, work, report["vsr_train"]["steps"])
         phase("--distributed on the card:")
         report["distributed"], p_dist = phase_distributed(work)
+        phase("the in-process data axis:")
+        report["data_axis"], a_data = phase_data_axis(work, vsr_job)
+        phase("the native data cores:")
+        report["native_cores"] = phase_native_cores(work)
+        phase("cli.search --speed_predictor auto:")
+        report["predictor_auto"], a_pred = phase_predictor_auto(work)
+        phase("cli.serve --quantize int8 --spatial_shards 2:")
+        report["sharded_int8_serve"], a_qshard = phase_sharded_int8_serve(work)
         phase(None)
         report["launches_sisr_eval"] = sisr_main
         report["launches_serving"] = launches
@@ -3355,9 +3550,12 @@ def main():
         p_parts = dict(sharded_sisr=p_sisr, spatial_pretrain=p_pretrain, sharded_vsr=p_vsr, sharded_serve=p_serve,
                        spatial_vsr_train=p_vsr_train, distributed=p_dist)
         report["launches_parallel_paths"] = p_parts
+        # the data axis, the predictor and sharded int8 serving (phases
+        # 38-41), each count set to 0 before its path
+        a_parts = dict(data_axis=a_data, predictor_auto=a_pred, sharded_int8_serve=a_qshard)
+        report["launches_queue_a_paths"] = a_parts
         for key in launches:
-            launches[key] += sum(p.get(key, 0) for p in q_parts.values()) + sum(p.get(key, 0)
-                                                                                for p in p_parts.values())
+            launches[key] += sum(p.get(key, 0) for parts in (q_parts, p_parts, a_parts) for p in parts.values())
     except Exception:
         traceback.print_exc()
         return 1

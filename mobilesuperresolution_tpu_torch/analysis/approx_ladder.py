@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
-from mobilesuperresolution_tpu_torch.data.imresize import imresize_np
+from mobilesuperresolution_tpu_torch.data.native_imresize import imresize_u8
 from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR, BasicVSROrigin
 from mobilesuperresolution_tpu_torch.models.spynet import upsample_flow
 from mobilesuperresolution_tpu_torch.ops.warp import flow_warp
@@ -66,7 +66,7 @@ def make_translating_video(seed, t, h, w, scale=4, dy=2, dx=3, lr_noise=0.0):
         y0, x0 = i * abs(dy), i * abs(dx)
         frame = rgb_u8[y0 : y0 + hh, x0 : x0 + ww]
         hrs.append(frame)
-        lrs.append(imresize_np(frame, scalar_scale=1.0 / scale))
+        lrs.append(imresize_u8(frame, scalar_scale=1.0 / scale))
     hr = np.stack(hrs)[None].astype(np.float32) / 255.0
     lr = np.stack(lrs)[None].astype(np.float32) / 255.0
     if lr_noise > 0:

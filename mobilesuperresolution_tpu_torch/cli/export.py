@@ -14,7 +14,12 @@ random ones (``--seed``). ``--format pt2`` (the default; ``stablehlo``, the
 JAX package's default, is taken as its alias) writes ``<out>.pt2``: the
 forward traced by ``torch.export`` on the CPU, ATen ops only
 (export/export.py). ``onnx`` (``result`` only) needs the ``onnx`` package
-and ``tflite`` tensorflow; each raises naming what is missing.
+and raises naming it. ``tflite`` (``result`` only: the VSR types are refused,
+ROADMAP.md queue A8g) writes ``<out>.tflite``, the searched net in TF ops
+converted by tensorflow's converter (dynamic-range int8 with
+``--quantize``), and checks it in ``tf.lite.Interpreter`` on the CPU against
+the port's CPU forward: within ``check_tolerance`` in float, within 1e-2 of
+the largest output with ``--quantize``; it needs tensorflow.
 
 After a ``pt2`` export the artifact is checked: loaded, moved to
 ``--device`` (default the card; ``cpu`` runs it there) and run on one
@@ -33,7 +38,15 @@ import numpy as np
 import torch
 
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
-from mobilesuperresolution_tpu_torch.export import FixedSizeForward, export_onnx, export_pt2, export_tflite, load_pt2
+from mobilesuperresolution_tpu_torch.export import (
+    FixedSizeForward,
+    export_onnx,
+    export_pt2,
+    export_tflite,
+    load_pt2,
+    refuse_tflite,
+    run_tflite,
+)
 from mobilesuperresolution_tpu_torch.models import ResultNet, get_vsr_model
 from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 
@@ -43,6 +56,22 @@ def check_tolerance(ref):
     port's kernels sum in other orders, and BasicVSR's warps carry a flow
     difference on through its recurrence."""
     return 1e-4 + 1e-4 * float(ref.abs().max())
+
+
+def tflite_tolerance(ref, quantize):
+    """Float: as ``check_tolerance`` (TF's convs sum in another order).
+    Dynamic-range int8 rounds weights and activations to 8 bits: 1e-2 of the
+    largest output, the bound the port's int8 models are held to."""
+    return 1e-2 * float(ref.abs().max()) if quantize else check_tolerance(ref)
+
+
+def check_tflite(path, model, x, quantize):
+    """Run the ``.tflite`` at ``path`` in the interpreter and ``model`` on
+    the CPU on ``x``; returns {"max_abs_err", "tol"}."""
+    got = torch.from_numpy(run_tflite(path, x.numpy()))
+    with no_tf32(), torch.inference_mode():
+        want = model(x)
+    return {"max_abs_err": float((got - want).abs().max()), "tol": tflite_tolerance(want, quantize)}
 
 
 def build_parser():
@@ -58,7 +87,8 @@ def build_parser():
     parser.add_argument("--seed", type=int, default=0, help="Seeded random weights when --params is not given.")
     parser.add_argument("--format", nargs="+", default=["pt2"], choices=["pt2", "stablehlo", "tflite", "onnx"],
                         help="pt2 (torch.export; 'stablehlo', the JAX package's name, is its alias), onnx, tflite.")
-    parser.add_argument("--quantize", action="store_true", help="int8 dynamic-range quantization for tflite.")
+    parser.add_argument("--quantize", action="store_true",
+                        help="int8 dynamic-range quantization for tflite (TFLite's own, Optimize.DEFAULT).")
     parser.add_argument("--height", type=int, default=360)
     parser.add_argument("--width", type=int, default=540)
     parser.add_argument("--frames", type=int, default=10, help="clip length for VSR exports")
@@ -128,13 +158,16 @@ def check_artifact(path, model, module, x, device, time_iters=0):
 
 def main(argv=None):
     """Export; returns {"paths": {format: path}, "export_s": s, "check":
-    ``check_artifact``'s dict} (check only for pt2)."""
+    ``check_artifact``'s dict (pt2), "tflite_check": ``check_tflite``'s
+    dict (tflite)}."""
     parser = build_parser()
     args = parser.parse_args(argv)
     formats = list(dict.fromkeys("pt2" if f == "stablehlo" else f for f in args.format))
     if "onnx" in formats and args.model_type != "result":
         parser.error("--format onnx exports the searched SISR net (--model_type result) — the reference's ONNX "
-                     "artifact (export_onnx.py:117-141); use pt2/tflite for the VSR types")
+                     "artifact (export_onnx.py:117-141); use pt2 for the VSR types")
+    if "tflite" in formats and args.model_type != "result":
+        refuse_tflite(f"--model_type {args.model_type}")
     device = resolve_device(args.device) if "pt2" in formats else None
     model, x, module = build_export_model(args, parser)
     out = {"paths": {}}
@@ -146,7 +179,12 @@ def main(argv=None):
         elif fmt == "onnx":
             p = export_onnx(model, tuple(x.shape), args.out + ".onnx")
         else:
-            p = export_tflite(module, tuple(x.shape), args.out + ".tflite", quantize=args.quantize)
+            p = export_tflite(model, tuple(x.shape), args.out + ".tflite", quantize=args.quantize)
+            out["tflite_check"] = check = check_tflite(p, model, x, args.quantize)
+            print(json.dumps({"tflite_check": check}))
+            if not check["max_abs_err"] <= check["tol"]:
+                raise AssertionError(f"the .tflite disagrees with the port's CPU forward: "
+                                     f"{check['max_abs_err']} > {check['tol']}")
         out["paths"][fmt] = p
         print(f"exported {fmt} → {p}")
     if "pt2" in formats:

@@ -112,6 +112,9 @@ def add_search_args(parser):
                         help="Time the blocks on this card first (kernels/timing.py) and use the table, "
                         "written to <job_dir>/speed_table.npy.")
     parser.add_argument("--log_steps", type=int, default=100)
+    parser.add_argument("--eval_tile", type=int, default=0,
+                        help="Accepted as the JAX search accepts it, and read nowhere: the supernet's eval runs "
+                        "whole images.")
 
 
 def _arch(model):

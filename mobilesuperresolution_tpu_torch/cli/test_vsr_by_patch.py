@@ -15,8 +15,11 @@ variations over every input channel, motion vectors too for basic_mv; the
 bilinear base from the RGB channels) and saves
 the 4xN array to ``<job_dir>/run/<model_type>_<patch_h>_<patch_w>_2.npy``
 (``analysis/patch_stats.py`` reads it). Runs on CUDA unless ``--device cpu``
-is given. ``--data_parallel`` (patches over several devices) waits for
-ROADMAP.md queue A8; ``--chunk_frames`` and ``--spatial_shards`` are
+is given. ``--data_parallel`` splits each patch batch over the data slots
+of the process (parallel/mesh.py: the visible cards of a one-process job,
+slot ``i`` on card ``(own + i) mod n``; one slot in a process group or on
+the CPU), ``--patch_batch`` rounded up to a multiple of them and by default
+equal to their number; ``--chunk_frames`` and ``--spatial_shards`` are
 refused, as the patch already bounds the memory. ``--quantize int8`` evaluates the int8 dynamic-range
 model (kernel Q1 on the card), each patch batch quantized per sample.
 """
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from mobilesuperresolution_tpu_torch.cli.common_cli import base_parser, eval_modules, parse_with_plugins
-from mobilesuperresolution_tpu_torch.cli.train_vsr import add_vsr_args, build_vsr_model, check_vsr_args
+from mobilesuperresolution_tpu_torch.cli.train_vsr import add_vsr_args, build_vsr_model, check_vsr_args, replica_forward
 from mobilesuperresolution_tpu_torch.core import modes
 from mobilesuperresolution_tpu_torch.core.device import no_tf32, resolve_device
 from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
@@ -36,6 +39,7 @@ from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.isr import batch_iterator
 from mobilesuperresolution_tpu_torch.metrics import psnr
 from mobilesuperresolution_tpu_torch.ops.resize import resize_bilinear
+from mobilesuperresolution_tpu_torch.parallel.mesh import make_mesh
 
 log = logging.getLogger("msr_torch.test_vsr_by_patch")
 
@@ -69,15 +73,21 @@ def patch_positions(h, w, patch, overlap):
     return [(sh, sw) for sh in range(0, h - ph + 1, ph - oh) for sw in range(0, w - pw + 1, pw - ow)]
 
 
-def evaluate_by_patch(forward_fn, batches, scale, patch=(64, 64), overlap=(4, 0), patch_batch=None, device=None):
+def evaluate_by_patch(forward_fn, batches, scale, patch=(64, 64), overlap=(4, 0), patch_batch=None, device=None,
+                      mesh=None):
     """forward_fn(x (P·B, T, ph, pw, C), out_h, out_w) → (P·B, T, out_h,
-    out_w, C). ``batches`` yields (name, lr (B, T, h, w, C), hr (B, T, s·h,
-    s·w, C)), numpy or tensors, moved to ``device`` (default: where they
-    are). ``patch_batch`` patches go through one forward (default 1, the
-    reference's order). Returns the (4, N) float64 array of [spatial TV,
-    temporal TV, PSNR, bilinear PSNR], one column per patch-frame."""
+    out_w, C), run on whichever device x lies on. ``batches`` yields (name,
+    lr (B, T, h, w, C), hr (B, T, s·h, s·w, C)), numpy or tensors, moved to
+    ``device`` (default: where they are). ``patch_batch`` patches go through
+    one forward (default 1, the reference's order); with a ``mesh`` each
+    patch batch is split in equal parts over its data slots
+    (``Mesh.map_data``), ``patch_batch`` rounded up to a multiple of their
+    number and by default equal to it. Returns the (4, N) float64 array of
+    [spatial TV, temporal TV, PSNR, bilinear PSNR], one column per
+    patch-frame."""
     ph, pw = patch
-    pb = patch_batch or 1
+    nd = 1 if mesh is None else len(mesh.data_devices)
+    pb = -(-(patch_batch or nd) // nd) * nd
     rows = {"space": [], "time": [], "psnr": [], "bilinear": []}
     for _, lr_clip, hr_clip in batches:
         lr_clip = torch.as_tensor(lr_clip, device=device)
@@ -89,7 +99,10 @@ def evaluate_by_patch(forward_fn, batches, scale, patch=(64, 64), overlap=(4, 0)
         for i in range(0, len(lps), pb):
             chunk = lps[i : i + pb]
             xs = torch.cat(chunk + [chunk[-1]] * (pb - len(chunk)), dim=0).contiguous()
-            srs = forward_fn(xs, ph * scale, pw * scale)
+            if mesh is None:
+                srs = forward_fn(xs, ph * scale, pw * scale)
+            else:
+                srs = torch.cat(mesh.map_data(lambda x: forward_fn(x, ph * scale, pw * scale), xs.chunk(nd)))
             srs = srs.reshape(pb, b, *srs.shape[1:])[: len(chunk)]
             for (sh, sw), lp, sr in zip(positions[i : i + pb], chunk, srs):
                 hp = hr_clip[:, :, sh * scale : (sh + ph) * scale, sw * scale : (sw + pw) * scale]
@@ -116,8 +129,10 @@ def main(argv=None):
     parser.add_argument("--overlap_h", type=int, default=4)
     parser.add_argument("--overlap_w", type=int, default=0)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="Patches over several devices (not ported yet: raises).")
-    parser.add_argument("--patch_batch", type=int, default=None, help="Patches per forward (default 1).")
+                        help="Split each patch batch over the process's data slots (the visible cards of a "
+                        "one-process job).")
+    parser.add_argument("--patch_batch", type=int, default=None,
+                        help="Patches per forward (default: the data slots with --data_parallel, else 1).")
     params = parse_with_plugins(parser, argv, with_models=False)
     LoggingTool(params.job_dir)
     log.info(attr_extractor(params))
@@ -125,16 +140,14 @@ def main(argv=None):
         flag = "--chunk_frames" if params.chunk_frames else "--spatial_shards"
         raise ValueError(f"{flag} applies to full-frame eval (cli.test_vsr); patch-tiled eval bounds memory by "
                          "the patch instead")
-    if params.data_parallel:
-        raise NotImplementedError("--data_parallel (patches over several devices) is not ported yet "
-                                  "(ROADMAP.md, queue A8)")
     check_vsr_args(params)
     device = resolve_device(params.device)
     model = build_vsr_model(params, device)
-
-    def fwd(x, oh, ow):
-        with torch.inference_mode():
-            return model(x, oh, ow)
+    mesh = None
+    if params.data_parallel:
+        mesh = make_mesh(spatial=1, device=device)
+        log.info(f"patch eval over the data slots {[str(d) for d in mesh.data_devices]}")
+    fwd = replica_forward(model, mesh)
 
     results = {}
     out_dir = os.path.join(params.job_dir, "run")
@@ -144,7 +157,7 @@ def main(argv=None):
             ds = mod.get_dataset(modes.EVAL, params)
             result = evaluate_by_patch(fwd, batch_iterator(ds), params.scale, patch=(params.patch_h, params.patch_w),
                                        overlap=(params.overlap_h, params.overlap_w), patch_batch=params.patch_batch,
-                                       device=device)
+                                       device=device, mesh=mesh)
             out = os.path.join(out_dir, f"{params.model_type}_{params.patch_h}_{params.patch_w}_2.npy")
             np.save(out, result)
             log.info(f"{name}: patches={result.shape[1]} psnr={result[2].mean():.3f} "

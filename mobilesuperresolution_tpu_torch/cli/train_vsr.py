@@ -1,5 +1,5 @@
 """VSR training entry (counterpart of mobilesuperresolution_tpu/cli/train_vsr.py,
-the reference's train_video_superresolution.py), one device.
+the reference's train_video_superresolution.py).
 
     python -m mobilesuperresolution_tpu_torch.cli.train_vsr --job_dir runs/vsr \\
         --dataset reds --model_type basic --scale 4 --image_batch 10 --epochs 30 \\
@@ -31,8 +31,11 @@ visible cards; it excludes ``--chunk_frames``. ``--distributed`` trains one
 process per card on its slice of every epoch (parallel/distributed.py); the
 chief evaluates and writes.
 
-Not ported yet, and refused with the queue item of ROADMAP.md that brings
-it: ``--chunk_data_parallel`` (A8). ``--quantize int8`` is inference-only
+``--chunk_data_parallel`` evaluates the ``--chunk_frames`` windows in
+groups over the process's data slots (parallel/mesh.py: the visible cards
+of a one-process job, window ``i`` of a group on card ``(own + i) mod n``;
+one slot in a process group or on the CPU); with ``--flow_cache`` it is
+refused, as by the JAX trainer. ``--quantize int8`` is inference-only
 (cli.test_vsr, cli.test_vsr_by_patch, cli.serve) and refused here, as by the
 JAX trainer.
 """
@@ -86,7 +89,8 @@ def add_vsr_args(parser):
                         "clip); propagation is truncated at window edges, so PSNR can differ slightly.")
     parser.add_argument("--chunk_overlap", type=int, default=4, help="Context frames on each side of a chunk window.")
     parser.add_argument("--chunk_data_parallel", action="store_true",
-                        help="Windows over several devices (not ported yet: raises).")
+                        help="With --chunk_frames: run the windows in groups over the process's data slots (the "
+                        "visible cards of a one-process job).")
     parser.add_argument("--flow_cache", action="store_true",
                         help="With --chunk_frames: compute each SpyNet pair flow once and reuse it across "
                         "overlapping windows (serve/flow_cache.py; 'basic' and 'basic_origin').")
@@ -109,8 +113,7 @@ def add_vsr_args(parser):
 
 
 def check_vsr_args(params, training=False):
-    """Refuse what the JAX package refuses, and the flags whose code is not
-    ported yet, naming its queue."""
+    """Refuse what the JAX package refuses."""
     if params.spatial_shards > 1:
         if training and params.model_type not in ("basic", "basic_origin"):
             raise SystemExit("--spatial_shards training supports model_type=basic/basic_origin (the halo-sharded "
@@ -118,9 +121,9 @@ def check_vsr_args(params, training=False):
         if params.chunk_frames:
             raise SystemExit("--spatial_shards and --chunk_frames are mutually exclusive (height sharding already "
                              "bounds per-device memory)")
-    if params.chunk_data_parallel:
-        raise NotImplementedError("--chunk_data_parallel (windows over devices) is not ported yet "
-                                  "(ROADMAP.md, queue A8)")
+    if params.chunk_frames and params.flow_cache and params.chunk_data_parallel:
+        raise SystemExit("--flow_cache and --chunk_data_parallel are mutually exclusive (the pair-flow cache is a "
+                         "per-host stream)")
 
 
 def _spynet_params(path):
@@ -159,17 +162,27 @@ def build_vsr_model(params, device, spynet_weights=None):
     return model
 
 
+def replica_forward(model, mesh=None):
+    """``(x, oh, ow) -> model(x, oh, ow)`` under inference mode; with a
+    ``mesh``, run by the model's copy on x's device, one of the mesh's data
+    slots (``Mesh.replicas``: eval copies refreshed now)."""
+    reps = None if mesh is None else mesh.replicas(model, mesh.data_devices)
+
+    def fwd(x, oh, ow):
+        with torch.inference_mode():
+            return (model if reps is None else reps[x.device])(x, oh, ow)
+
+    return fwd
+
+
 def run_vsr_evaluation(params, model, eval_mods, epoch, device):
     """Score ``model`` (eval mode, prepared weights) on every eval set:
     whole clips (height-sharded with ``--spatial_shards``), or with
-    ``--chunk_frames`` windows of it (``chunked_vsr_apply``), or with
-    ``--flow_cache`` too the flow-cached stream; clips that fit one window
-    run un-windowed. Returns {set name: metrics}."""
-
-    def base_fwd(lr_clip, oh, ow):
-        with torch.inference_mode():
-            return model(lr_clip, oh, ow)
-
+    ``--chunk_frames`` windows of it (``chunked_vsr_apply``, in groups over
+    the data slots with ``--chunk_data_parallel``), or with ``--flow_cache``
+    too the flow-cached stream; clips that fit one window run un-windowed.
+    Returns {set name: metrics}."""
+    base_fwd = replica_forward(model)
     fwd = base_fwd
     if getattr(params, "spatial_shards", 1) > 1:
         mesh = make_mesh(spatial=params.spatial_shards, device=device)
@@ -199,10 +212,15 @@ def run_vsr_evaluation(params, model, eval_mods, epoch, device):
             return torch.from_numpy(sr[None] if b == 1 else np.moveaxis(sr, 0, 1)).to(lr_clip.device)
 
     elif params.chunk_frames:
+        chunk_mesh = None
+        if params.chunk_data_parallel:
+            chunk_mesh = make_mesh(spatial=1, device=device)
+            log.info(f"windows over the data slots {[str(d) for d in chunk_mesh.data_devices]}")
+        window_fwd = replica_forward(model, chunk_mesh)
 
         def fwd(lr_clip, oh, ow):
-            return chunked_vsr_apply(base_fwd, lr_clip, oh, ow, chunk=params.chunk_frames,
-                                     overlap=params.chunk_overlap)
+            return chunked_vsr_apply(window_fwd, lr_clip, oh, ow, chunk=params.chunk_frames,
+                                     overlap=params.chunk_overlap, mesh=chunk_mesh)
 
     results = {}
     for name, mod in eval_mods:

@@ -27,7 +27,12 @@ _DATASET_MODULES = {
 
 
 def update_argparser(parser):
-    """Base flags shared by every dataset."""
+    """Base flags shared by every dataset. ``--eval_batch_size`` and
+    ``--num_data_threads`` are parsed as the JAX package parses them, and,
+    as there, read nowhere: evaluation runs one clip or image per forward
+    and the loaders read in the calling thread."""
+    parser.add_argument("--eval_batch_size", type=int, default=32)
+    parser.add_argument("--num_data_threads", type=int, default=8)
     parser.add_argument("--data_dir", type=str, default="data")
     parser.add_argument("--cache_dir", type=str, default="data/cache",
                         help="Decoded-image cache of the file-backed sets ('' = none).")

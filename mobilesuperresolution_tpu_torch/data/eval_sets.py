@@ -28,7 +28,7 @@ def list_image_files(d):
 
 def _div2k_argparser(parser):
     _isr.update_argparser(parser)
-    parser.set_defaults(num_patches=100, train_batch_size=16)
+    parser.set_defaults(num_patches=100, train_batch_size=16, eval_batch_size=1)
 
 
 def bind(name):

@@ -1,7 +1,8 @@
 """MATLAB-exact bicubic resize (antialiased), numpy/float64: the degradation
 model of the SISR data (own copy of the numpy half of
-mobilesuperresolution_tpu/data/imresize.py, whose module imports JAX; the
-native C++ core there is bit-identical to this path and is not ported).
+mobilesuperresolution_tpu/data/imresize.py, whose module imports JAX). The
+native C++ core, bit-identical to this path, runs the uint8 resize where its
+library is built (data/native_imresize.py).
 
 Algorithm (MATLAB ``imresize``): cubic kernel a = -0.5, widened by 1/scale
 on downscale (antialiasing); sample positions u = (x+1)/scale +

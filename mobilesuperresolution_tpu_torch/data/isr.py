@@ -25,8 +25,11 @@ import os
 import numpy as np
 
 from mobilesuperresolution_tpu_torch.core import modes
-from mobilesuperresolution_tpu_torch.data.imresize import imresize_np
 from mobilesuperresolution_tpu_torch.data.io_cache import ArrayCache, load_image
+
+# the degradation: the native core (bit-identical to data/imresize.py's
+# numpy path, which runs where the library is missing)
+from mobilesuperresolution_tpu_torch.data.native_imresize import imresize_u8 as imresize_np
 from mobilesuperresolution_tpu_torch.parallel.distributed import process_count, process_index
 
 
@@ -35,7 +38,7 @@ def update_argparser(parser):
 
     data_pkg.update_argparser(parser)
     parser.add_argument("--scale", default=2, type=int)
-    parser.set_defaults(train_batch_size=16)
+    parser.set_defaults(train_batch_size=16, eval_batch_size=1)
 
 
 def add_train_args(parser):

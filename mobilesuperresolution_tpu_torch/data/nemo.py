@@ -9,8 +9,10 @@ RGB; ``--raw_order bgr`` for the reference converter's BGR files): LR
 name holds '_' are skipped. Windows of ``image_batch`` frames
 (``val_image_batch`` for eval) start every 25 frames in TRAIN and every
 window length in EVAL; each split's LR and HR window lists are written to
-``<job_dir>/{lr,hr}_{train,eval}.csv``. Frames are read with numpy, one file
-at a time (the JAX package's optional native reader is not ported).
+``<job_dir>/{lr,hr}_{train,eval}.csv``. A window of ``.raw`` frames is read
+whole by the native core (data/native_loader.py: one parallel read into one
+array, channels reversed there for ``bgr``); where the library is missing or
+a frame fails, frame by frame with numpy, which raises the precise error.
 """
 
 import csv
@@ -19,6 +21,7 @@ import os
 import numpy as np
 
 from mobilesuperresolution_tpu_torch.core import modes
+from mobilesuperresolution_tpu_torch.data import native_loader
 from mobilesuperresolution_tpu_torch.data import vsr as _vsr
 
 LR_SHAPE = (240, 426, 3)
@@ -31,7 +34,7 @@ def update_argparser(parser):
     parser.add_argument("--raw_order", default="rgb", choices=["rgb", "bgr"],
                         help="Channel order of .raw frames: 'rgb' for data/yuv.py output, 'bgr' for the "
                         "reference converter's rawfiles.")
-    parser.set_defaults(num_patches=1000, train_batch_size=16)
+    parser.set_defaults(num_patches=1000, train_batch_size=16, eval_batch_size=1)
 
 
 def list_raw_windows(d, mode, image_batch):
@@ -71,6 +74,18 @@ class NemoDataset(_vsr.VideoSRDataset):
             arr = np.fromfile(path, dtype=np.uint8).reshape(self._raw_shape(path))
             return arr[..., ::-1] if self.raw_order == "bgr" else arr
         return super()._load_frame(key, path)
+
+    def _load_window(self, window):
+        paths = [p for _, p in window]
+        if all(p.endswith(".raw") for p in paths):
+            frames = native_loader.load_raw_window(paths, self._raw_shape(paths[0]),
+                                                   flip_bgr=self.raw_order == "bgr")
+            if frames is not None:
+                return list(frames)
+        return [self._load_frame(k, p) for k, p in window]
+
+    def _load_item(self, index):
+        return self._load_window(self.lr_windows[index]), self._load_window(self.hr_windows[index])
 
 
 def get_dataset(mode, params):

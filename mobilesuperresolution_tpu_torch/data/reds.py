@@ -19,7 +19,7 @@ from mobilesuperresolution_tpu_torch.data import vsr as _vsr
 def update_argparser(parser):
     _vsr.update_argparser(parser)
     parser.add_argument("--val_image_batch", default=100, type=int)
-    parser.set_defaults(num_patches=1000, train_batch_size=16)
+    parser.set_defaults(num_patches=1000, train_batch_size=16, eval_batch_size=1)
 
 
 def list_clip_windows(d, image_batch):

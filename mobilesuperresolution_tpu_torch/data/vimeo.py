@@ -18,7 +18,7 @@ from mobilesuperresolution_tpu_torch.data import vsr as _vsr
 def update_argparser(parser):
     _vsr.update_argparser(parser)
     parser.add_argument("--val_image_batch", default=7, type=int)
-    parser.set_defaults(num_patches=100, train_batch_size=16)
+    parser.set_defaults(num_patches=100, train_batch_size=16, eval_batch_size=1)
 
 
 def list_sequence_windows(d, tag=None):

@@ -39,7 +39,7 @@ def update_argparser(parser):
     parser.add_argument("--train_sample_patch", type=lambda v: str(v).lower() != "false", default=True,
                         help="False = train on whole frames, no patch crop.")
     # the TRAIN flags are the training entry points' (data/isr.py::add_train_args)
-    parser.set_defaults(train_batch_size=16, lr_patch_size=48, num_patches=100)
+    parser.set_defaults(train_batch_size=16, lr_patch_size=48, num_patches=100, eval_batch_size=1)
 
 
 class VideoSRDataset:

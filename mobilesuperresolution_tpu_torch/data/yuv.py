@@ -1,5 +1,5 @@
 """YUV420 planar → RGB for the NEMO raw-frame pipeline (own copy of
-mobilesuperresolution_tpu/data/yuv.py, numpy only).
+mobilesuperresolution_tpu/data/yuv.py).
 
 The reference's recipe (datasets/yuv420_to_bgr.py): cv2.resize the chroma
 planes 2x (INTER_LINEAR), merge (y, v, u) as YCrCb, cv2.COLOR_YCrCb2BGR.
@@ -9,12 +9,16 @@ Reproduced bit-exactly in integer numpy:
 - the colour conversion replicates cvtColor's 14-bit fixed point
   (Cr·22987, Cr·-11698 + Cb·-5636, Cb·29049, rounded (x + 2^13) >> 14).
 Frames are stored in RGB order (the reference's BGR rawfiles are flipped on
-read, data/nemo.py ``--raw_order bgr``).
+read, data/nemo.py ``--raw_order bgr``). ``convert_yuv_dir`` converts through
+the native multithreaded core (data/native_loader.py), bit-identical to this
+numpy path, which runs where the library is missing.
 """
 
 import os
 
 import numpy as np
+
+from mobilesuperresolution_tpu_torch.data import native_loader
 
 
 def _up2_cv2_linear(src, out_h, out_w):
@@ -57,7 +61,7 @@ def yuv420_to_rgb(y, u, v):
 def convert_yuv_dir(src_dir, dst_dir, hw):
     """Convert per-frame ``.y`` / ``.u`` / ``.v`` planar files of (H, W) =
     ``hw`` frames into interleaved RGB ``.raw`` files (the reference's
-    converter). Returns the number of frames."""
+    converter) through the native core. Returns the number of frames."""
     h, w = hw
     os.makedirs(dst_dir, exist_ok=True)
     names = sorted(os.path.splitext(f)[0] for f in os.listdir(src_dir) if f.endswith(".y"))
@@ -65,5 +69,5 @@ def convert_yuv_dir(src_dir, dst_dir, hw):
         y = np.fromfile(os.path.join(src_dir, name + ".y"), np.uint8).reshape(h, w)
         u = np.fromfile(os.path.join(src_dir, name + ".u"), np.uint8).reshape(h // 2, w // 2)
         v = np.fromfile(os.path.join(src_dir, name + ".v"), np.uint8).reshape(h // 2, w // 2)
-        yuv420_to_rgb(y, u, v).tofile(os.path.join(dst_dir, name + ".raw"))
+        native_loader.yuv420_to_rgb(y, u, v).tofile(os.path.join(dst_dir, name + ".raw"))
     return len(names)

@@ -7,6 +7,13 @@ Torch has no virtual devices, so the JAX mesh's two axes split:
   each process loads its slice of the global batch (data/isr.py
   ``shard_by_process``) and the train steps average loss and gradients over
   the group;
+- in one process the ``data`` axis also has slots (``Mesh.data_devices``):
+  the visible cards, card ``(own + i) mod n`` for slot ``i``, in a
+  one-process job; the process's own device alone in a process group and
+  on the CPU. Groups of windows (``parallel/temporal.py``) and patch
+  batches (``cli/test_vsr_by_patch.py``) put member ``i`` on slot ``i``
+  (``Mesh.map_data``), and their outputs come back to the process's device
+  in order;
 - ``spatial`` is carried by the height shards of one process. In a
   one-process job shard ``i`` goes to the visible card ``(own + i) mod n``,
   own being the process's card (card ``i mod n`` when own is card 0), and
@@ -33,11 +40,13 @@ from mobilesuperresolution_tpu_torch.parallel.distributed import process_count
 
 
 class Mesh:
-    """``data``: the processes of the group; ``spatial``: this process's
-    height shards, on ``devices`` (one per shard); ``device``: the process's
-    own device, where the unsharded stages and the outputs live."""
+    """``data``: the processes of the group; ``data_devices``: this
+    process's data slots; ``spatial``: its height shards, on ``devices``
+    (one per shard); ``device``: the process's own device, where the
+    unsharded stages and the outputs live. ``slots`` (tests) gives the data
+    axis that many slots of ``device``, so grouping runs on the CPU."""
 
-    def __init__(self, spatial=1, device=None):
+    def __init__(self, spatial=1, device=None, slots=None):
         if spatial < 1:
             raise ValueError(f"spatial={spatial} must be >= 1")
         device = torch.device(device or "cuda")
@@ -45,10 +54,14 @@ class Mesh:
         if device.type == "cuda":
             own = torch.cuda.current_device() if device.index is None else device.index
             device = torch.device("cuda", own)
+        if device.type == "cuda" and self.data == 1:
             n = torch.cuda.device_count()
-            self.devices = [torch.device("cuda", (own + i) % n) for i in range(spatial)]
-        if device.type != "cuda" or self.data > 1:
-            self.devices = [device] * spatial
+            cards = [torch.device("cuda", (own + i) % n) for i in range(max(n, spatial))]
+            self.devices, self.data_devices = cards[:spatial], cards[:n]
+        else:
+            self.devices, self.data_devices = [device] * spatial, [device]
+        if slots is not None:
+            self.data_devices = [device] * slots
         self.device = device
         self.spatial = spatial
         self._copies = {}
@@ -57,12 +70,13 @@ class Mesh:
     def shape(self):
         return {"data": self.data, "spatial": self.spatial}
 
-    def replicas(self, module):
-        """{shard device: callable running ``module`` there}; call it once
-        per sharded forward (an eval copy is refreshed on each call)."""
+    def replicas(self, module, devices=None):
+        """{device: callable running ``module`` there} for the shards'
+        devices (or ``devices``, e.g. ``data_devices``); call it once per
+        sharded forward (an eval copy is refreshed on each call)."""
         home = next(module.parameters()).device
         out = {}
-        for dev in dict.fromkeys(self.devices):
+        for dev in dict.fromkeys(devices or self.devices):
             if dev == home:
                 out[dev] = module
             elif module.training and torch.is_grad_enabled():
@@ -81,6 +95,19 @@ class Mesh:
                         rep.prepare()
                 out[dev] = rep
         return out
+
+    def map_data(self, fn, xs):
+        """``fn(x)`` for member ``i`` of the group ``xs`` (at most one per
+        data slot) on slot ``i``'s device, made current; the outputs on the
+        process's device, in order. Members on other cards are launched
+        before any output is copied back, so the cards work side by side."""
+        if len(xs) > len(self.data_devices):
+            raise ValueError(f"a group of {len(xs)} members on {len(self.data_devices)} data slots")
+        outs = []
+        for x, dev in zip(xs, self.data_devices):
+            with on_device(dev):
+                outs.append(fn(x.to(dev)))
+        return [o.to(self.device) for o in outs]
 
 
 def on_device(device):

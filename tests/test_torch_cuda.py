@@ -859,6 +859,52 @@ def test_spatial_training_step_matches_plain_on_card(cuda, kind):
         assert float((runs[1][1][k] - want).abs().max()) <= 1e-5 * float(want.abs().max()), k
 
 
+def test_data_axis_places_windows_and_patches_on_two_cards(cuda):
+    """The in-process data axis over the visible cards: a tiny BasicVSR's
+    windows (``chunked_vsr_apply(mesh=)``, 10 frames in 5 windows) and patch
+    batches (``evaluate_by_patch(mesh=)``) run with group member i on card
+    i, through the model's eval copies (``cli.train_vsr.replica_forward``),
+    each output on its input's card; the results, back on card 0, against
+    the plain path on card 0 within 1e-5 of the largest output (f32, TF32
+    off), the patch statistics within 1e-4. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    from mobilesuperresolution_tpu_torch.cli.test_vsr_by_patch import evaluate_by_patch
+    from mobilesuperresolution_tpu_torch.cli.train_vsr import replica_forward
+    from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
+    from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+    from mobilesuperresolution_tpu_torch.parallel.temporal import chunked_vsr_apply
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    home = torch.device("cuda", 0)
+    model = BasicVSR(num_feat=8, num_block=1, scale=4).to(home)
+    load_params_npz(model, random_jax_params(model, seed=3))
+    model.eval()
+    mesh = Mesh(1, home)
+    assert mesh.data_devices[:2] == [home, torch.device("cuda", 1)]
+    data_fwd, plain_fwd = replica_forward(model, mesh), replica_forward(model)
+    seen = []
+
+    def fwd(x, oh, ow):
+        y = data_fwd(x, oh, ow)
+        assert y.device == x.device
+        seen.append(y.device)
+        return y
+
+    lr = torch.from_numpy(np.random.default_rng(3).random((1, 10, 32, 48, 3), dtype=np.float32)).to(home)
+    got = chunked_vsr_apply(fwd, lr, 128, 192, chunk=2, overlap=1, mesh=mesh)
+    want = chunked_vsr_apply(plain_fwd, lr, 128, 192, chunk=2, overlap=1)
+    assert got.device == home and torch.device("cuda", 1) in seen and home in seen
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    seen.clear()
+    hr = torch.rand(1, 3, 4 * 32, 4 * 48, 3, device=home)
+    clips = [("c", lr[:, :3], hr)]
+    got = evaluate_by_patch(fwd, iter(clips), 4, (16, 16), (4, 0), mesh=mesh)
+    want = evaluate_by_patch(plain_fwd, iter(clips), 4, (16, 16), (4, 0), len(mesh.data_devices))
+    assert torch.device("cuda", 1) in seen and home in seen
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
 def test_two_nccl_ranks_match_one_process(cuda, tmp_path):
     """Two NCCL ranks on cards 0 and 1 (tests/helpers/torch_parallel_worker.py:
     tcp:// for cli.pretrain, then env:// with torchrun's variables for

@@ -20,6 +20,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from helpers.jax_compile import unoptimized_xla  # noqa: F401 (a fixture)
+
 from mobilesuperresolution_tpu.analysis.approx_ladder import make_translating_video as j_make_translating_video
 from mobilesuperresolution_tpu.core.maths import softmax2 as j_softmax2
 from mobilesuperresolution_tpu.models.basicvsr import BasicVSR as JBasicVSR
@@ -55,7 +57,7 @@ def _tree(flat):
 
 
 @pytest.mark.parametrize("kind", ["result", "basic"])
-def test_pt2_round_trip_matches_jax(tmp_path, kind):
+def test_pt2_round_trip_matches_jax(tmp_path, kind, unoptimized_xla):
     """A .pt2 of a tiny ResultNet and of a 2-frame BasicVSR, saved and
     loaded, equals the port's eager forward exactly and JAX's forward within
     1e-5 of the largest output."""
@@ -96,6 +98,40 @@ def test_export_cli_and_refused_formats(tmp_path, monkeypatch, capsys):
     monkeypatch.setitem(sys.modules, "tensorflow", None)  # as on a machine without it
     with pytest.raises(RuntimeError, match="tensorflow unavailable"):
         export_tflite(net, (1, 12, 14, 3), str(tmp_path / "r.tflite"))
+
+
+def test_tflite_export_of_the_searched_net(tmp_path, capsys):
+    """The searched ResultNet (the artifact's 16 blocks of 21 channels, x2,
+    seeded weights) as .tflite at 16x16, run in tf.lite.Interpreter: float
+    within 1e-4 of the port's CPU forward, --quantize (TFLite's dynamic-range
+    int8) within 1e-2 of the largest output, the bound of
+    tests/test_torch_quant.py's MODEL_TOL; then cli.export --format tflite
+    --quantize with its interpreter check, and the VSR types refused naming
+    queue A8g. One function, so tensorflow is imported once."""
+    pytest.importorskip("tensorflow")
+    from mobilesuperresolution_tpu_torch.export import run_tflite
+
+    m = ResultNet.from_artifact(ARTIFACT, scale=2)
+    load_params_npz(m, random_jax_params(m, 4)).eval()
+    x = np.random.default_rng(4).random((1, 16, 16, 3), dtype=np.float32)
+    with torch.inference_mode():
+        want = m(torch.from_numpy(x)).numpy()
+    top = np.abs(want).max()
+    for quantize, tol in ((False, 1e-4), (True, 1e-2 * top)):
+        path = export_tflite(m, x.shape, str(tmp_path / f"r{int(quantize)}.tflite"), quantize=quantize)
+        got = run_tflite(path, x)
+        assert got.shape == want.shape == (1, 32, 32, 3) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    assert os.path.getsize(tmp_path / "r1.tflite") < os.path.getsize(tmp_path / "r0.tflite") / 2  # int8 weights
+    out = export_cli.main(["--block_index", ARTIFACT, "--out", str(tmp_path / "c"), "--height", "16", "--width", "16",
+                           "--format", "tflite", "--quantize"])
+    assert out["paths"] == {"tflite": str(tmp_path / "c.tflite")}
+    assert out["tflite_check"]["max_abs_err"] <= out["tflite_check"]["tol"]
+    assert '"tflite_check"' in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="A8g"):
+        export_cli.main(["--model_type", "basic", "--out", str(tmp_path / "b"), "--format", "tflite"])
+    with pytest.raises(NotImplementedError, match="A8g"):
+        export_tflite(FixedSizeForward(BasicVSR(num_feat=8, num_block=1), 8, 8), (1, 2, 2, 2, 3), str(tmp_path / "v"))
 
 
 def test_tile_starts_and_radius_match_jax():

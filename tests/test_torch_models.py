@@ -245,8 +245,8 @@ def test_port_imports_no_jax():
     # checkpointing's and VSR training's, the VSR zoo's (all six types),
     # patch eval's and the video datasets' (REDS with motion vectors too),
     # the rest of NAS, the torch checkpoints', logging's and profiling's, and
-    # the deployment slice's (int8, Q1, export, tiled eval, the ladder) are
-    # among those checked
+    # the deployment slice's (int8, Q1, export, tiled eval, the ladder), the
+    # parallel layer's and the native data cores' are among those checked
     rel = {os.path.relpath(f, REPO) for f in files}
     for mod in ("ops/ste", "kernels/fused_convsep", "nas/speed_estimator", "nas/speed_loss", "nas/search",
                 "nas/artifact", "models/wdsr_nas", "train/state", "train/steps", "core/utils", "cli/search",
@@ -258,9 +258,11 @@ def test_port_imports_no_jax():
                 "data/reds_with_mv", "core/msgpack_io", "nas/speed_model", "kernels/timing", "train/torch_convert",
                 "core/logging_tool", "core/profiling", "cli/prepare_dataset", "ops/quant", "kernels/qconv_int8",
                 "export/export", "cli/export", "train/eval_tiling", "analysis/approx_ladder", "core/maths",
-                "parallel/halo"):
+                "parallel/halo", "parallel/mesh", "parallel/temporal", "core/native_path", "data/native_loader",
+                "data/native_imresize"):
         assert os.path.join("mobilesuperresolution_tpu_torch", mod + ".py") in rel, mod
-    for script in ("torch_search_profile.py", "torch_bench.py"):
+    for script in ("torch_search_profile.py", "torch_bench.py", "torch_train_h100_predictor.py",
+                   "torch_repeat_first_phases.py"):
         assert os.path.join("scripts", script) in rel
     for path in files:
         for mod in _imports(path):

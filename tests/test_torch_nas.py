@@ -445,7 +445,7 @@ def test_search_lockstep_matches_jax(phase):
     ori = jse.get_ori_speed(nb, r)
     target = 0.6 * ori
     tx = j_multistep_adam(lr, spe, epochs, trainable_mask=j_phase_mask(params, phase))
-    state = TrainState(step=0, params=params, opt_state=tx.init(params), tx=tx, apply_fn=jm.apply)
+    state = TrainState(step=0, params=params, opt_state=jax.jit(tx.init)(params), tx=tx, apply_fn=jm.apply)
     jstep = j_make_search_step(state, JSpeedLoss(scale=ori - target))
 
     m = _port_supernet(flat, nb, r)
@@ -562,15 +562,17 @@ def test_search_cli_on_cpu(tmp_path, monkeypatch):
     """cli.search end to end on the CPU at a tiny size: three phases, finite
     metrics at every step, a block_index.txt that the JAX reader parses and a
     weights npz that loads into a JAX NASModel and gives the port's output;
-    flags of parts not ported and an unknown table name are refused, and
-    without a card it runs only when the CPU is asked for."""
+    the JAX command line's --eval_tile, --eval_batch_size and
+    --num_data_threads are accepted and change nothing, an unknown table
+    name is refused, and without a card it runs only when the CPU is asked
+    for."""
     argv = ["--job_dir", str(tmp_path), "--device", "cpu", "--dataset", "synthetic_isr",
             "--eval_datasets", "synthetic_isr", "--num_blocks", "2", "--num_residual_units", "8",
             "--width_epochs", "1", "--epochs", "1", "--kernel_epochs", "1", "--lr_patch_size", "8",
             "--train_batch_size", "4", "--num_patches", "1", "--log_steps", "1", "--speed_target", "10",
             "--speed_table", P30_TABLE]
     tf32 = torch.backends.cudnn.allow_tf32
-    out = search.main(argv)
+    out = search.main(argv + ["--eval_tile", "64", "--eval_batch_size", "32", "--num_data_threads", "4"])
     assert torch.backends.cudnn.allow_tf32 == tf32
     assert [s["phase"] for s in out["steps"]] == ["width"] * 2 + ["length"] * 2 + ["kernel"] * 2
     assert all(np.isfinite([s[k] for k in ("loss", "l1", "speed", "speed_loss")]).all() for s in out["steps"])
@@ -589,8 +591,6 @@ def test_search_cli_on_cpu(tmp_path, monkeypatch):
     with torch.no_grad():
         np.testing.assert_allclose(m(_t(x))[0].numpy(), np.asarray(jm.apply({"params": jp}, jnp.asarray(x))[0]),
                                    atol=1e-5)
-    with pytest.raises(SystemExit):
-        search.main(argv[:2] + ["--device", "cpu", "--eval_tile", "64"])
     with pytest.raises(ValueError, match="requires --num_processes and --process_id"):
         search.main(argv[:2] + ["--device", "cpu", "--coordinator_address", "localhost:1"])
     with pytest.raises(SystemExit, match="not a packaged table name"):

@@ -136,18 +136,24 @@ def test_spatial_vsr_forward_matches_plain(cls, n):
         assert spatial_basicvsr_forward(mb, x, 128, 64, n, max_disp=4).dtype == torch.float32
 
 
-def test_spatial_vsr_forward_matches_jax_with_flow_clip():
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
+def test_spatial_vsr_forward_matches_jax_with_flow_clip(quantized):
     """The port's sharded forward against JAX's on a 2-device mesh, both fed
     the same precomputed flows whose dy reaches 3x max_disp, so both clip;
-    the plain forward on those flows differs."""
-    tm = BasicVSR(num_feat=8, num_block=1)
+    the plain forward on those flows differs. int8: both quantize each
+    shard's trunk window with its own per-sample scale (JAX's trunk runs
+    inside shard_map), so the reference is JAX's sharded int8 forward, held
+    within 1e-2 of the largest output (tests/test_torch_quant.py's
+    MODEL_TOL); the sharded int8 forward is held to the port's unsharded
+    int8 one, on flows that the clip leaves alone, only within that bound."""
+    tm = BasicVSR(num_feat=8, num_block=1, quantized=quantized)
     flat = random_jax_params(tm, 2)
     load_params_npz(tm, flat)
     tm.eval()
     rng = np.random.default_rng(7)
     x = rng.random((1, 3, 32, 16, 3)).astype(np.float32)
     ff, fb = ((rng.random((2, 1, 32, 16, 2)).astype(np.float32) - 0.5) * 24 for _ in range(2))
-    jm = jb.BasicVSR(num_feat=8, num_block=1, scale=4)
+    jm = jb.BasicVSR(num_feat=8, num_block=1, scale=4, quantized=quantized)
     mesh = spatial_mesh(jax.devices(), 2)
     want = np.asarray(jax.jit(lambda p, a, f, g: j_spatial_basicvsr_forward(
         jm, p, a, 128, 64, mesh, max_disp=4, flows=(f, g)))(_tree(flat), x, ff, fb))
@@ -155,8 +161,16 @@ def test_spatial_vsr_forward_matches_jax_with_flow_clip():
     with torch.inference_mode():
         got = spatial_basicvsr_forward(tm, torch.from_numpy(x), 128, 64, Mesh(2, "cpu"), max_disp=4, flows=flows)
         plain = tm(torch.from_numpy(x), 128, 64, flows=flows)
-    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-2 * np.abs(want).max() if quantized else 2e-5)
     assert float((plain - got).abs().max()) > 1e-3
+    if quantized:
+        assert np.abs(got.numpy() - want).mean() < 1e-3 * np.abs(want).max()  # rounding flips are rare
+        small = tuple(f / 12 for f in flows)  # |dy| <= 1 <= max_disp: the clip does nothing
+        with torch.inference_mode():
+            sharded = spatial_basicvsr_forward(tm, torch.from_numpy(x), 128, 64, Mesh(2, "cpu"), max_disp=4,
+                                               flows=small)
+            whole = tm(torch.from_numpy(x), 128, 64, flows=small)
+        np.testing.assert_allclose(sharded.numpy(), whole.numpy(), atol=1e-2 * float(whole.abs().max()))
 
 
 def test_spatial_vsr_step_matches_plain():
@@ -252,8 +266,11 @@ def test_mesh_and_refusals(tmp_path):
         test_vsr_by_patch.main(base + ["--spatial_shards", "2"])
     with pytest.raises(ValueError, match="requires --num_processes and --process_id"):
         pretrain.main(base[:2] + ["--device", "cpu", "--coordinator_address", "localhost:1"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        chunked_vsr_apply(None, torch.zeros(1, 9, 4, 4, 3), 8, 8, 2, 1, mesh=mesh)
+    clip = torch.from_numpy(np.random.default_rng(0).random((1, 9, 4, 4, 3), np.float32))
+    assert mesh.data_devices == [torch.device("cpu")]
+    assert torch.equal(chunked_vsr_apply(lambda a, h, w: a * 2, clip, 4, 4, 2, 1, mesh=mesh), clip * 2)
+    with pytest.raises(ValueError, match="a group of 2 members on 1 data slots"):
+        mesh.map_data(lambda a: a, [clip, clip])
 
 
 def test_spatial_shards_sisr_entry_point(tmp_path):

@@ -188,12 +188,14 @@ def test_initialize_from_params_agrees_with_jax(flags):
 @pytest.mark.parametrize("cards,own,spatial", [(1, 0, 1), (1, 0, 4), (2, 0, 2), (2, 1, 2), (4, 0, 4), (4, 3, 2),
                                                (4, 2, 8), (8, 5, 3)])
 def test_mesh_places_shard_i_on_card_own_plus_i(monkeypatch, cards, own, spatial):
-    """Shard i goes to the process's visible card (own + i) mod n; the
-    process's own card keeps the unsharded stages. No card is touched."""
+    """Shard i goes to the process's visible card (own + i) mod n, and so
+    does data slot i of the n slots; the process's own card keeps the
+    unsharded stages. No card is touched."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     m = mesh.Mesh(spatial, f"cuda:{own}")
     assert m.device == torch.device("cuda", own)
     assert m.devices == [torch.device("cuda", (own + i) % cards) for i in range(spatial)]
+    assert m.data_devices == [torch.device("cuda", (own + i) % cards) for i in range(cards)]
     assert m.shape == {"data": 1, "spatial": spatial}
 
 
@@ -201,10 +203,12 @@ def test_mesh_places_shard_i_on_card_own_plus_i(monkeypatch, cards, own, spatial
                                                      (4, 1, 4, 2), (8, 5, 3, 8)])
 def test_mesh_keeps_every_shard_on_the_process_card_in_a_group(monkeypatch, cards, own, spatial, world):
     """In a process group each process owns one card: every one of its
-    shards stays there, none on another rank's card. No card is touched."""
+    shards and its one data slot stay there, none on another rank's card.
+    No card is touched."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     monkeypatch.setattr(mesh, "process_count", lambda: world)
     m = mesh.Mesh(spatial, f"cuda:{own}")
     assert m.device == torch.device("cuda", own)
     assert m.devices == [torch.device("cuda", own)] * spatial
+    assert m.data_devices == [torch.device("cuda", own)]
     assert m.shape == {"data": world, "spatial": spatial}

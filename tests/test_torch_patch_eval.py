@@ -1,5 +1,8 @@
 """Port parity for patch-tiled VSR eval (cli/test_vsr_by_patch.py) and its
-analysis (analysis/patch_stats.py) against the JAX package's.
+analysis (analysis/patch_stats.py) against the JAX package's, and the data
+axis of both (``evaluate_by_patch(mesh=)``, ``chunked_vsr_apply(mesh=)``):
+the port's mesh of 8 CPU slots against JAX's ``make_mesh(spatial=1)`` over
+its 8 virtual CPU devices, and against the port's own path without a mesh.
 
 Both ``evaluate_by_patch``s take a forward function: both get the same cheap
 one (a bilinear x4 upscale with a seeded per-channel gain), so no model is
@@ -7,7 +10,9 @@ compiled; the JAX side's metric, resize and variation statistics run under
 jax.jit, compiled once per module and shape. float32 on the CPU.
 
 Tolerances: the variation statistics 1e-5 relative (float32 sums in another
-order), the PSNRs 1e-4 dB; patch order, padding and counts exact.
+order), the PSNRs 1e-4 dB; patch order, padding and counts exact; the data
+axis's SR outputs (windows' frames, patches) against JAX within 1e-6 (the
+same resize in float32), and against the port's own plain path exactly.
 """
 
 import numpy as np
@@ -20,9 +25,13 @@ import jax.numpy as jnp
 from mobilesuperresolution_tpu.analysis import patch_stats as j_patch_stats
 from mobilesuperresolution_tpu.cli import test_vsr_by_patch as j_patch
 from mobilesuperresolution_tpu.ops.resize import resize_bilinear as j_resize_bilinear
+from mobilesuperresolution_tpu.parallel.mesh import make_mesh as j_make_mesh
+from mobilesuperresolution_tpu.parallel.temporal import chunked_vsr_apply as j_chunked_vsr_apply
 from mobilesuperresolution_tpu_torch.analysis import patch_stats
 from mobilesuperresolution_tpu_torch.cli import test_vsr_by_patch
 from mobilesuperresolution_tpu_torch.ops.resize import resize_bilinear
+from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+from mobilesuperresolution_tpu_torch.parallel.temporal import chunked_vsr_apply
 
 torch.set_num_threads(2)
 S = 4
@@ -65,6 +74,91 @@ def _j_up(x):
 
 def _j_forward(x, oh, ow):
     return _j_up(x)
+
+
+def _t_mixed(x, oh, ow):
+    """The windows' forward: the upscale, then a running mean over the
+    window's frames, so each output frame depends on where its window
+    starts."""
+    up = _t_forward(x, oh, ow)
+    n = torch.arange(1, up.shape[1] + 1, dtype=up.dtype).view(1, -1, 1, 1, 1)
+    return torch.cumsum(up, dim=1) / n
+
+
+@jax.jit
+def _j_mixed_up(x):
+    up = _j_up(x)
+    return jnp.cumsum(up, axis=1) / jnp.arange(1, up.shape[1] + 1, dtype=up.dtype).reshape(1, -1, 1, 1, 1)
+
+
+def _j_mixed(x, oh, ow):
+    return _j_mixed_up(x)
+
+
+@pytest.fixture(scope="module")
+def j_mesh():
+    mesh = j_make_mesh(spatial=1)
+    assert mesh.shape["data"] == 8
+    return mesh
+
+
+@pytest.mark.parametrize("t", [7, 16, 21, 5])
+def test_chunked_windows_over_the_data_axis_match_jax(j_mesh, t):
+    """Windows of 2 frames with 2 of context on each side, in groups over 8
+    data slots, against JAX's over its 8-device mesh: 4 windows (one group,
+    padded in JAX), 8 (one full group), 11 (a full group and a padded one),
+    and a clip that fits one window; 3 slots against the plain path too."""
+    chunk, overlap = 2, 2
+    lr = np.random.default_rng(t).random((2, t, 6, 5, 3), np.float32)
+    got = chunked_vsr_apply(_t_mixed, torch.from_numpy(lr), S * 6, S * 5, chunk, overlap, mesh=Mesh(1, "cpu", slots=8))
+    want = np.asarray(j_chunked_vsr_apply(_j_mixed, jnp.asarray(lr), S * 6, S * 5, chunk, overlap, mesh=j_mesh))
+    assert got.shape == want.shape == (2, t, S * 6, S * 5, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    plain = chunked_vsr_apply(_t_mixed, torch.from_numpy(lr), S * 6, S * 5, chunk, overlap)
+    assert torch.equal(got, plain)
+    calls = []
+
+    def counted(x, oh, ow):
+        calls.append(x.shape[1])
+        return _t_mixed(x, oh, ow)
+
+    three = chunked_vsr_apply(counted, torch.from_numpy(lr), S * 6, S * 5, chunk, overlap,
+                              mesh=Mesh(1, "cpu", slots=3))
+    assert torch.equal(three, plain)
+    assert len(calls) == (-(-t // chunk) if t > chunk + 2 * overlap else 1)
+
+
+@pytest.mark.parametrize("hw,patch_batch", [((40, 44), None), ((28, 64), None), ((40, 64), 3)])
+def test_patch_batches_over_the_data_axis_match_jax(jax_jitted, j_mesh, hw, patch_batch):
+    """Patch batches split over 8 data slots against JAX's over its
+    8-device mesh: 6 patches (one batch of 8, padded), 8 (one full batch)
+    and 12 with patch_batch 3 rounded up to 8 (a full batch and a padded
+    one). Every patch's SR output, slot by slot, within 1e-6 of JAX's batch
+    output, the statistics within the tolerances above; and the array
+    equal to the port's path without a mesh at that batch."""
+    batches = _clips(4, 1, 2, *hw)
+    mesh = Mesh(1, "cpu", slots=8)
+    t_out, j_out = [], []
+
+    def fwd(x, oh, ow):
+        t_out.append(_t_forward(x, oh, ow))
+        return t_out[-1]
+
+    def j_fwd(x, oh, ow):
+        j_out.append(_j_forward(x, oh, ow))
+        return j_out[-1]
+
+    got = test_vsr_by_patch.evaluate_by_patch(fwd, iter(batches), S, (16, 16), (4, 0), patch_batch, mesh=mesh)
+    want = j_patch.evaluate_by_patch(j_fwd, iter(batches), S, (16, 16), (4, 0), mesh=j_mesh, patch_batch=patch_batch)
+    n = len(test_vsr_by_patch.patch_positions(*hw, (16, 16), (4, 0)))
+    assert got.shape == want.shape == (4, n * 2)
+    assert [t.shape[0] for t in t_out] == [1] * 8 * -(-n // 8)  # one patch a slot
+    np.testing.assert_allclose(torch.cat(t_out).numpy(), np.concatenate([np.asarray(j) for j in j_out]),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got[:2], want[:2], rtol=1e-5)
+    np.testing.assert_allclose(got[2:], want[2:], rtol=0, atol=1e-4)
+    plain = test_vsr_by_patch.evaluate_by_patch(_t_forward, iter(batches), S, (16, 16), (4, 0), 8)
+    np.testing.assert_array_equal(got, plain)
 
 
 @pytest.mark.parametrize("t", [1, 3])
@@ -133,10 +227,13 @@ def test_patch_stats_match_jax(tmp_path):
 
 def test_patch_eval_cli_refusals(tmp_path):
     """--chunk_frames raises ValueError as the JAX CLI does; --data_parallel
-    names queue A8."""
+    runs on the CPU's one data slot, equal to the run without it."""
     base = ["--job_dir", str(tmp_path), "--device", "cpu", "--dataset", "synthetic_vsr", "--eval_datasets",
             "synthetic_vsr"]
     with pytest.raises(ValueError, match="chunk_frames"):
         test_vsr_by_patch.main(base + ["--chunk_frames", "2"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        test_vsr_by_patch.main(base + ["--data_parallel"])
+    small = base + ["--synthetic_clips", "1", "--synthetic_frames", "2", "--synthetic_size", "64", "--patch_h",
+                    "16", "--patch_w", "16", "--overlap_h", "0"]
+    got = test_vsr_by_patch.main(small + ["--data_parallel"])["synthetic_vsr"]
+    assert got.shape == (4, 2) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, test_vsr_by_patch.main(small)["synthetic_vsr"])

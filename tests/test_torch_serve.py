@@ -17,6 +17,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from helpers.jax_compile import unoptimized_xla  # noqa: F401 (a fixture)
+
 from mobilesuperresolution_tpu.models.basicvsr import BasicVSR as JBasicVSR
 from mobilesuperresolution_tpu.serve import StreamingVSR as JStreamingVSR
 from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
@@ -179,7 +181,7 @@ def test_flow_cached_computes_each_pair_once(pair, rng, monkeypatch):
     assert not stream._pair_flows
 
 
-def test_flow_downscale_matches_jax(rng):
+def test_flow_downscale_matches_jax(rng, unoptimized_xla):
     """BasicVSR with SpyNet on half-size frames (flow_downscale 2) against the
     JAX model on the same weights; and get_vsr_model's check of the value."""
     j_apply, tm = _models(flow_downscale=2)

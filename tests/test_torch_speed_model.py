@@ -180,6 +180,28 @@ def test_packaged_tables_and_predictors_resolve(monkeypatch, tmp_path):
         tse.packaged_table_path("tpu_v5_lite")
 
 
+# the mean relative error of the shipped H100 predictor over the 72 rows of
+# its table, as scripts/torch_train_h100_predictor.py prints it (PERF.md §6)
+H100_PREDICTOR_REL_ERR = 0.13239669799804688
+
+
+def test_h100_predictor_ships_and_auto_resolves_it(monkeypatch):
+    """The shipped H100 predictor loads, predicts its table's 72 rows within
+    the reported mean relative error, and is what --speed_predictor auto
+    resolves to on that card."""
+    path = os.path.join(tse.SPEED_TABLE_DIR, "nvidia_h100_80gb_hbm3_predictor.msgpack")
+    model = tsm.load_predictor(path)
+    rows = np.load(os.path.join(tse.SPEED_TABLE_DIR, "nvidia_h100_80gb_hbm3.npy"))
+    with torch.no_grad():
+        pred = model(torch.from_numpy(rows[:, :3].astype(np.float32)))[:, 0].numpy()
+    err = float(np.mean(np.abs(pred - rows[:, 3]) / rows[:, 3]))
+    assert err <= H100_PREDICTOR_REL_ERR + 1e-6, err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    assert tse.device_kind() == "nvidia_h100_80gb_hbm3"
+    assert search._packaged("--speed_predictor", "auto", tsm.packaged_predictor_path) == path
+
+
 def test_build_latency_table_grid_on_cpu(monkeypatch):
     """The port's table at 8x8 on the CPU has the JAX harness's grid, in its
     row order (read off the JAX function with its timers stubbed), and

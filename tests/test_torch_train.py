@@ -144,7 +144,7 @@ def test_sisr_lockstep_matches_jax(kind):
     m.train()
     params = _tree(flat)
     tx = j_multistep_adam(lr, spe, epochs)
-    state = TrainState(step=0, params=params, opt_state=tx.init(params), tx=tx, apply_fn=jm.apply)
+    state = TrainState(step=0, params=params, opt_state=jax.jit(tx.init)(params), tx=tx, apply_fn=jm.apply)
     jstep = j_make_sisr_step(state)
     opt = multistep_adam(jax_named_parameters(m), lr, spe, epochs)
     tstep = make_sisr_step(m, opt)

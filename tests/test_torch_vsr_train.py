@@ -25,6 +25,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from helpers.jax_compile import unoptimized_xla  # noqa: F401 (a fixture)
+
 from mobilesuperresolution_tpu.cli.train_vsr import run_vsr_evaluation as j_run_vsr_evaluation
 from mobilesuperresolution_tpu.cli.train_vsr import spynet_frozen_mask as j_spynet_frozen_mask
 from mobilesuperresolution_tpu.core import modes as jmodes
@@ -165,7 +167,7 @@ def test_vsr_multistep_adam_schedule_matches_jax(epochs):
     assert {id(p) for p in opt.params} == {id(p) for k, p in named.items() if not k.startswith("spynet/")}
 
 
-def test_vsr_lockstep_matches_jax():
+def test_vsr_lockstep_matches_jax(unoptimized_xla):
     """Six VSR steps against the JAX step with vsr_multistep_adam and the
     frozen-SpyNet mask, crossing both milestones (one step per epoch, 5
     epochs: counts 2 and 4); the fourth batch holds a NaN, which both sides
@@ -182,7 +184,7 @@ def test_vsr_lockstep_matches_jax():
     jm = JBasicVSR(num_feat=NF, num_block=NB, scale=S, stop_flow_grad=True)
     params = _tree(flat)
     tx = j_vsr_multistep_adam(lr_rate, spe, epochs, trainable_mask=j_spynet_frozen_mask(params))
-    state = TrainState(step=0, params=params, opt_state=tx.init(params), tx=tx, apply_fn=jm.apply)
+    state = TrainState(step=0, params=params, opt_state=jax.jit(tx.init)(params), tx=tx, apply_fn=jm.apply)
     jstep = j_make_vsr_step(state, (S * HW, S * HW))
     named = jax_named_parameters(m)
     opt = vsr_multistep_adam(named, lr_rate, spe, epochs, spynet_frozen_mask(named))
@@ -322,7 +324,7 @@ def _jax_eval(job, npz, flat_shapes, monkeypatch):
     return j_run_vsr_evaluation(params, state, jm, [("synthetic_vsr", mod)], log, 0)["synthetic_vsr"]
 
 
-def test_vsr_entry_points_on_cpu(tmp_path, monkeypatch):
+def test_vsr_entry_points_on_cpu(tmp_path, monkeypatch, unoptimized_xla):
     """cli.train_vsr on synthetic_vsr (2 clips of 4 frames) on the CPU: one
     epoch (2 steps) with eval, finite losses, a weights npz in the JAX layout
     whose SpyNet equals the --spynet_weights npz, and --max_steps_per_run /
@@ -369,14 +371,14 @@ def test_vsr_entry_points_on_cpu(tmp_path, monkeypatch):
 
 
 def test_vsr_entry_points_refuse_what_is_not_ported(tmp_path, monkeypatch):
-    """Every flag whose code is not ported raises naming its queue item,
-    --quantize with the JAX trainer's inference-only message and
+    """--flow_cache with --chunk_data_parallel raises the JAX trainer's
+    SystemExit, --quantize its inference-only message and
     --spatial_shards training of a model without the sharded forward with
     the JAX trainer's; an explicit rendezvous needs its size and rank;
     without a card the entry points run only when the CPU is asked for."""
     base = ["--job_dir", str(tmp_path), "--device", "cpu", "--dataset", "synthetic_vsr", "--eval_datasets"]
-    with pytest.raises(NotImplementedError, match="A8"):
-        train_vsr.main(base + ["--chunk_data_parallel"])
+    with pytest.raises(SystemExit, match="--flow_cache and --chunk_data_parallel are mutually exclusive"):
+        train_vsr.main(base + ["--chunk_frames", "2", "--flow_cache", "--chunk_data_parallel"])
     with pytest.raises(SystemExit, match="supports model_type=basic/basic_origin"):
         train_vsr.main(base + ["--spatial_shards", "2", "--model_type", "multi"])
     with pytest.raises(SystemExit, match="--quantize is inference-only"):

@@ -30,6 +30,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from helpers.jax_compile import unoptimized_xla  # noqa: F401 (a fixture)
+
 from mobilesuperresolution_tpu.cli.train_vsr import spynet_frozen_mask as j_spynet_frozen_mask
 from mobilesuperresolution_tpu.models import get_vsr_model as j_get_vsr_model
 from mobilesuperresolution_tpu.models.naive_multi import NaiveMultiModel as JNaiveMultiModel
@@ -102,7 +104,7 @@ def tiny(request):
     return kind, make, flat, jm
 
 
-def test_zoo_forward_matches_jax(tiny):
+def test_zoo_forward_matches_jax(tiny, unoptimized_xla):
     """The f32 forward of the port equals the JAX model's within 1e-5 of the
     largest output, on the same weights."""
     kind, make, flat, jm = tiny
@@ -144,7 +146,7 @@ def _adam_drift(lrs, b1=0.9, b2=0.99):
     return 2 * (1 - b1) / np.sqrt(1 - b2) / np.sqrt(1 - b1 * b1 / b2) * sum(lrs)
 
 
-def test_zoo_lockstep_matches_jax(tiny):
+def test_zoo_lockstep_matches_jax(tiny, unoptimized_xla):
     """Three VSR steps of the port's make_vsr_step + vsr_multistep_adam with
     the frozen-SpyNet mask against the JAX package's, crossing both
     milestones (one step per epoch, 3 epochs), on 2-frame clips: per-step
@@ -155,7 +157,7 @@ def test_zoo_lockstep_matches_jax(tiny):
     m = load_params_npz(make(), flat).train()
     params = _tree(flat)
     tx = j_vsr_multistep_adam(lr_rate, spe, epochs, trainable_mask=j_spynet_frozen_mask(params))
-    state = TrainState(step=0, params=params, opt_state=tx.init(params), tx=tx, apply_fn=jm.apply)
+    state = TrainState(step=0, params=params, opt_state=jax.jit(tx.init)(params), tx=tx, apply_fn=jm.apply)
     jstep = j_make_vsr_step(state, (OUT, OUT))
     named = jax_named_parameters(m)
     mask = spynet_frozen_mask(named)

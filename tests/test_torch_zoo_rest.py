@@ -34,6 +34,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from helpers.jax_compile import unoptimized_xla  # noqa: F401 (a fixture)
+
 from mobilesuperresolution_tpu.cli.train_vsr import spynet_frozen_mask as j_spynet_frozen_mask
 from mobilesuperresolution_tpu.core import modes as jmodes
 from mobilesuperresolution_tpu.data import isr as jisr
@@ -130,7 +132,7 @@ def tiny(request):
     return kind, make, flat, jm
 
 
-def test_zoo_rest_forward_matches_jax(tiny):
+def test_zoo_rest_forward_matches_jax(tiny, unoptimized_xla):
     """The f32 forward of the port equals the JAX model's within 1e-5 of the
     largest output, on the same weights."""
     kind, make, flat, jm = tiny
@@ -171,7 +173,7 @@ def _adam_drift(lrs, b1=0.9, b2=0.99):
     return 2 * (1 - b1) / np.sqrt(1 - b2) / np.sqrt(1 - b1 * b1 / b2) * sum(lrs)
 
 
-def test_zoo_rest_lockstep_matches_jax(tiny):
+def test_zoo_rest_lockstep_matches_jax(tiny, unoptimized_xla):
     """Three VSR steps of the port's make_vsr_step + vsr_multistep_adam with
     the frozen-SpyNet mask against the JAX package's, crossing both
     milestones (one step per epoch, 3 epochs), on 2-frame clips: per-step
@@ -183,7 +185,7 @@ def test_zoo_rest_lockstep_matches_jax(tiny):
     m = load_params_npz(make(), flat).train()
     params = _tree(flat)
     tx = j_vsr_multistep_adam(lr_rate, spe, epochs, trainable_mask=j_spynet_frozen_mask(params))
-    state = TrainState(step=0, params=params, opt_state=tx.init(params), tx=tx, apply_fn=jm.apply)
+    state = TrainState(step=0, params=params, opt_state=jax.jit(tx.init)(params), tx=tx, apply_fn=jm.apply)
     forward = None
     if kind == "multi_v1":
         # the JAX model has no stop_flow_grad: stop the frozen flownet's
