@@ -206,14 +206,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    12 per forward at 4 blocks;
 41. cli.serve --quantize int8 --spatial_shards 2 over phase 26's frames,
    within the int8 bound of phase 26's unsharded int8 stream (each shard's
-   trunk window has its own per-sample scale), with Q1's launches.
+   trunk window has its own per-sample scale), with Q1's launches;
+42. serving's data groups (parallel/mesh.py): mobile BasicVSR x4 (bf16)
+   serves 4 lockstep streams of 8 426x240 frames at S = 2 through
+   cli.serve's stream, plain and flow-cached, in the seam's D = 2 groups on
+   the one card (``Mesh(slots=4)``): bit-equal to one group serving each
+   half, within bf16_tol of one group serving all four streams (B1's tile
+   choice follows the batch, so SpyNet's flows at half the batch round
+   otherwise), B1 and B2 per window (each group runs its own SpyNet and
+   reconstruction) and each stream's frames/s.
 
 Prints the kernel table as one JSON line (launches from the slices' paths,
 each count set to 0 before its path: B1 and B2 from the basic VSR training
 run plus phases 16-18, 20, 21, 24, 26-30, 34-38 and 41, B3 from the
 pretraining run and phases 24, 29, 32, 33 and 37, B4 from those and phase
 20's 'multi_v1' runs and 28, B5 from the search and phases 22, 23 and 40,
-Q1 from phases 26, 27, 30 and 41), the nvidia-smi line, and last ``{"ok": true,
+Q1 from phases 26, 27, 30 and 41; B1 and B2 also from phase 42), the
+nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``. Details go to chiprun_out/chip_smoke.json. Needs CUDA;
 imports nothing of JAX.
 """
@@ -293,6 +302,9 @@ MV_SHIFT = (2, 1)
 # 2 rows x 5 columns of patches)
 PATCH_HR, PATCH, PATCH_OVERLAP = (720, 1280), 64, (4, 0)
 N_PATCHES = 2 * 5
+# serving's data groups: 4 lockstep streams of 8 frames, S = 2 shards, D = 2
+# groups (the mesh's seam on one card)
+GROUP_STREAMS, GROUP_FRAMES, GROUP_SHARDS = 4, 8, 2
 # the on-card latency table: the JAX harness's grid (6 ch_in x 4 splits x k
 # 3/5/7) at the NEMO protocol's LR size
 LATENCY_HW = (240, 426)
@@ -3394,6 +3406,81 @@ def phase_sharded_int8_serve(work):
         {k: launches[k] for k in ("Q1", "B2")}
 
 
+def phase_data_groups(dev):
+    """Serving's data groups: mobile BasicVSR x4 (bf16, seeded weights)
+    serves GROUP_STREAMS lockstep streams of GROUP_FRAMES 426x240 frames at
+    S = 2 through cli.serve's stream (``make_stream``), plain and
+    flow-cached. With the seam (``Mesh(2, card, slots=4)``: D = 2 groups on
+    the one card) group g serves streams 2g and 2g + 1, SpyNet, the sharded
+    trunk and the reconstruction on its own; the result must equal one
+    group serving each half bit for bit, and one group serving all four
+    within bf16_tol: B1 picks its tile from the grid size, which follows
+    the batch, so SpyNet's flows at half the batch may round otherwise (one
+    bf16 ulp of the output on an H100 80GB HBM3). B1 and B2 per window
+    (grouped: each group's 30 and 1; flow-cached B1 per flow group) and
+    every run's frames/s end to end (host copies included, the warm-up
+    window not). Returns (stats, launches)."""
+    from mobilesuperresolution_tpu_torch.cli.serve import make_stream
+    from mobilesuperresolution_tpu_torch.models import get_vsr_model
+    from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    model = get_vsr_model("basic", scale=4, compute_dtype=torch.bfloat16, device=dev)
+    load_params_npz(model, random_jax_params(model, seed=0))
+    streams = [synthetic_stream(GROUP_FRAMES, H_LR, W_LR, seed=42 + k) for k in range(GROUP_STREAMS)]
+    frames = [np.stack([s[i] for s in streams]) for i in range(GROUP_FRAMES)]
+    windows = len(range(0, GROUP_FRAMES, CHUNK))
+    half = GROUP_STREAMS // 2
+    stats = {}
+    reset_vsr_launches()
+    for name, flow_cache in (("plain", False), ("flow_cache", True)):
+        grouped = None
+        for label, mesh, sel in (("grouped", Mesh(GROUP_SHARDS, dev, slots=2 * GROUP_SHARDS), slice(None)),
+                                 ("one_group", Mesh(GROUP_SHARDS, dev), slice(None)),
+                                 ("half0", Mesh(GROUP_SHARDS, dev), slice(0, half)),
+                                 ("half1", Mesh(GROUP_SHARDS, dev), slice(half, None))):
+            n = len(range(GROUP_STREAMS)[sel])
+            stream = make_stream(model, mesh, OH, OW, CHUNK, OVERLAP, n, dev, flow_cache=flow_cache)
+            stream.warmup((H_LR, W_LR, 3))
+            before = vsr_launches()
+            out, wall = run_stream(stream, [f[sel] for f in frames])
+            launches = {k: v - before[k] for k, v in vsr_launches().items()}
+            got = np.stack(out, 1)
+            if got.shape != (n, GROUP_FRAMES, OH, OW, 3) or not np.isfinite(got).all():
+                raise AssertionError(f"data groups {name} {label}: shape {got.shape} or non-finite frames")
+            row = {"groups": len(mesh.groups), "streams": n, "wall_s": wall, "fps_end_to_end": n * GROUP_FRAMES / wall,
+                   "launches": launches, "B1_per_window": launches["B1"] / windows,
+                   "B2_per_window": launches["B2"] / windows}
+            if grouped is None:
+                grouped = got
+            else:
+                row["max_abs_err_vs_grouped"] = err = float(np.abs(grouped[sel] - got).max())
+                row["bit_equal"] = bool(np.array_equal(grouped[sel], got))
+                row["tol"] = bf16_tol(torch.from_numpy(got))
+            log(f"  {name} {label}: {len(mesh.groups)} group(s), {n} streams, {row['fps_end_to_end']:.2f} frames/s "
+                f"end to end, B1 {row['B1_per_window']:.0f} / B2 {row['B2_per_window']:.0f} per window"
+                + (f", max |grouped - this| {err}" if label != "grouped" else ""))
+            stats[f"{name}_{label}"] = row
+            del got, out
+        groups_b2 = stats[f"{name}_grouped"]["launches"]["B2"]
+        if groups_b2 != 2 * B2_PER_WINDOW * windows or stats[f"{name}_grouped"]["launches"]["B1"] % (
+                2 * B1_PER_WINDOW) or not stats[f"{name}_grouped"]["launches"]["B1"]:
+            raise AssertionError(f"data groups {name}: grouped launches {stats[f'{name}_grouped']['launches']} for "
+                                 f"{windows} windows of 2 groups")
+        for label in ("half0", "half1"):
+            if not stats[f"{name}_{label}"]["bit_equal"]:
+                raise AssertionError(f"data groups {name}: the grouped stream differs from {label} by "
+                                     f"{stats[f'{name}_{label}']['max_abs_err_vs_grouped']}")
+        whole = stats[f"{name}_one_group"]
+        if not whole["max_abs_err_vs_grouped"] <= whole["tol"]:
+            raise AssertionError(f"data groups {name}: the grouped stream differs from one group by "
+                                 f"{whole['max_abs_err_vs_grouped']} > {whole['tol']}")
+        del grouped
+    del model
+    torch.cuda.empty_cache()
+    return stats, vsr_launches()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3526,6 +3613,8 @@ def main():
         report["predictor_auto"], a_pred = phase_predictor_auto(work)
         phase("cli.serve --quantize int8 --spatial_shards 2:")
         report["sharded_int8_serve"], a_qshard = phase_sharded_int8_serve(work)
+        phase("serving's data groups:")
+        report["data_groups"], g_groups = phase_data_groups(dev)
         phase(None)
         report["launches_sisr_eval"] = sisr_main
         report["launches_serving"] = launches
@@ -3554,8 +3643,12 @@ def main():
         # 38-41), each count set to 0 before its path
         a_parts = dict(data_axis=a_data, predictor_auto=a_pred, sharded_int8_serve=a_qshard)
         report["launches_queue_a_paths"] = a_parts
+        # serving's data groups (phase 42), its counts set to 0 before it
+        g_parts = dict(data_groups=g_groups)
+        report["launches_data_group_paths"] = g_parts
         for key in launches:
-            launches[key] += sum(p.get(key, 0) for parts in (q_parts, p_parts, a_parts) for p in parts.values())
+            launches[key] += sum(p.get(key, 0) for parts in (q_parts, p_parts, a_parts, g_parts)
+                                 for p in parts.values())
     except Exception:
         traceback.print_exc()
         return 1

@@ -14,12 +14,15 @@ random ones (``--seed``). ``--format pt2`` (the default; ``stablehlo``, the
 JAX package's default, is taken as its alias) writes ``<out>.pt2``: the
 forward traced by ``torch.export`` on the CPU, ATen ops only
 (export/export.py). ``onnx`` (``result`` only) needs the ``onnx`` package
-and raises naming it. ``tflite`` (``result`` only: the VSR types are refused,
-ROADMAP.md queue A8g) writes ``<out>.tflite``, the searched net in TF ops
-converted by tensorflow's converter (dynamic-range int8 with
-``--quantize``), and checks it in ``tf.lite.Interpreter`` on the CPU against
-the port's CPU forward: within ``check_tolerance`` in float, within 1e-2 of
-the largest output with ``--quantize``; it needs tensorflow.
+and raises naming it. ``tflite`` writes ``<out>.tflite``, the forward
+rebuilt in TF ops from the port's weights (the searched net, or a VSR
+type's whole recurrent forward of ``--frames`` frames: SpyNet as direct
+7x7 convs, the flow warp as a gather, the recurrence unrolled; export/
+tflite_vsr.py) and converted by tensorflow's converter (dynamic-range int8
+with ``--quantize``), and checks it in ``tf.lite.Interpreter`` on the CPU
+against the port's CPU forward: within ``check_tolerance`` in float, within
+1e-2 of the largest output with ``--quantize``; it needs tensorflow.
+``basic_origin`` is x4 only (``--scale 4``).
 
 After a ``pt2`` export the artifact is checked: loaded, moved to
 ``--device`` (default the card; ``cpu`` runs it there) and run on one
@@ -44,7 +47,6 @@ from mobilesuperresolution_tpu_torch.export import (
     export_pt2,
     export_tflite,
     load_pt2,
-    refuse_tflite,
     run_tflite,
 )
 from mobilesuperresolution_tpu_torch.models import ResultNet, get_vsr_model
@@ -65,12 +67,12 @@ def tflite_tolerance(ref, quantize):
     return 1e-2 * float(ref.abs().max()) if quantize else check_tolerance(ref)
 
 
-def check_tflite(path, model, x, quantize):
-    """Run the ``.tflite`` at ``path`` in the interpreter and ``model`` on
+def check_tflite(path, module, x, quantize):
+    """Run the ``.tflite`` at ``path`` in the interpreter and ``module`` on
     the CPU on ``x``; returns {"max_abs_err", "tol"}."""
     got = torch.from_numpy(run_tflite(path, x.numpy()))
     with no_tf32(), torch.inference_mode():
-        want = model(x)
+        want = module(x)
     return {"max_abs_err": float((got - want).abs().max()), "tol": tflite_tolerance(want, quantize)}
 
 
@@ -166,8 +168,6 @@ def main(argv=None):
     if "onnx" in formats and args.model_type != "result":
         parser.error("--format onnx exports the searched SISR net (--model_type result) — the reference's ONNX "
                      "artifact (export_onnx.py:117-141); use pt2 for the VSR types")
-    if "tflite" in formats and args.model_type != "result":
-        refuse_tflite(f"--model_type {args.model_type}")
     device = resolve_device(args.device) if "pt2" in formats else None
     model, x, module = build_export_model(args, parser)
     out = {"paths": {}}
@@ -179,8 +179,9 @@ def main(argv=None):
         elif fmt == "onnx":
             p = export_onnx(model, tuple(x.shape), args.out + ".onnx")
         else:
-            p = export_tflite(model, tuple(x.shape), args.out + ".tflite", quantize=args.quantize)
-            out["tflite_check"] = check = check_tflite(p, model, x, args.quantize)
+            p = export_tflite(module, tuple(x.shape), args.out + ".tflite", quantize=args.quantize)
+            out["export_tflite_s"] = time.perf_counter() - t0
+            out["tflite_check"] = check = check_tflite(p, module, x, args.quantize)
             print(json.dumps({"tflite_check": check}))
             if not check["max_abs_err"] <= check["tol"]:
                 raise AssertionError(f"the .tflite disagrees with the port's CPU forward: "

@@ -16,8 +16,13 @@ searched 'multi' / 'multi_v1' (``--model_path`` its block_index.txt).
 ``--spatial_shards S`` splits each window's height into S shards with a
 halo exchange at every propagation step (parallel/vsr_spatial.py, 'basic'
 and 'basic_origin', plain or with ``--flow_cache``; flow dy clipped to
-``--spatial_max_disp``), shard ``i`` on the process's card ``i`` mod the
-visible cards. ``--quantize int8`` serves the int8 dynamic-range model (SpyNet and the
+``--spatial_max_disp``). A one-process job with n visible cards serves
+in D = max(n // S, 1) data groups of S cards (``parallel/mesh.py``): when D
+divides the number of streams, group g takes streams g·B/D .. (g+1)·B/D - 1
+and runs the whole window (SpyNet, the sharded trunk, the reconstruction)
+on its cards, shard ``i`` on card (own + g·S + i) mod n; otherwise one group
+serves every stream. In a process group every shard stays on the process's
+card. ``--quantize int8`` serves the int8 dynamic-range model (SpyNet and the
 trunks, or 'multi''s and 'single''s convs, on kernel Q1; not 'multi_v1').
 'basic_mv' is refused: it needs the codec's motion vectors beside each
 frame, and serving reads RGB frames only.
@@ -46,7 +51,7 @@ from mobilesuperresolution_tpu_torch.core.logging_tool import LoggingTool
 from mobilesuperresolution_tpu_torch.core.utils import attr_extractor
 from mobilesuperresolution_tpu_torch.data.io_cache import load_image, save_png
 from mobilesuperresolution_tpu_torch.models import get_vsr_model
-from mobilesuperresolution_tpu_torch.parallel.mesh import make_mesh
+from mobilesuperresolution_tpu_torch.parallel.mesh import make_mesh, map_groups
 from mobilesuperresolution_tpu_torch.parallel.vsr_spatial import spatial_basicvsr_forward
 from mobilesuperresolution_tpu_torch.serve import FlowCachedStreamingVSR, StreamingVSR, make_flow_sr_fns
 from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
@@ -104,6 +109,28 @@ def build_parser():
     return p
 
 
+def make_stream(model, mesh, out_h, out_w, chunk, overlap, num_streams, device, flow_cache=False, max_disp=8):
+    """The stream ``main`` serves through: ``StreamingVSR`` over the model's
+    forward, or with ``flow_cache`` ``FlowCachedStreamingVSR`` over its
+    (flow_fn, sr_fn). ``mesh``: height-shard each window
+    (``spatial_basicvsr_forward``, flow dy clipped to ``max_disp``) in the
+    mesh's data groups (``Mesh.map_groups``)."""
+    if flow_cache:
+        flow_fn, sr_fn = make_flow_sr_fns(model, out_h, out_w, mesh=mesh, max_disp=max_disp)
+        return FlowCachedStreamingVSR(flow_fn, sr_fn, out_h, out_w, chunk=chunk, overlap=overlap,
+                                      num_streams=num_streams, device=device)
+
+    def apply_fn(x, oh, ow):
+        with torch.inference_mode():
+            if mesh is not None:
+                return map_groups(mesh, lambda group, m, xg: spatial_basicvsr_forward(m, xg, oh, ow, group,
+                                                                                     max_disp=max_disp), model, (x, 0))
+            return model(x, oh, ow)
+
+    return StreamingVSR(apply_fn, out_h, out_w, chunk=chunk, overlap=overlap, num_streams=num_streams,
+                        device=device)
+
+
 def main(argv=None):
     params = build_parser().parse_args(argv)
     LoggingTool(params.job_dir)
@@ -136,20 +163,8 @@ def main(argv=None):
     out_w = params.width or w * params.scale
 
     mesh = make_mesh(spatial=params.spatial_shards, device=device) if params.spatial_shards > 1 else None
-
-    def apply_fn(x, oh, ow):
-        with torch.inference_mode():
-            if mesh is not None:
-                return spatial_basicvsr_forward(model, x, oh, ow, mesh, max_disp=params.spatial_max_disp)
-            return model(x, oh, ow)
-
-    if params.flow_cache:
-        flow_fn, sr_fn = make_flow_sr_fns(model, out_h, out_w, mesh=mesh, max_disp=params.spatial_max_disp)
-        stream = FlowCachedStreamingVSR(flow_fn, sr_fn, out_h, out_w, chunk=chunk, overlap=params.chunk_overlap,
-                                        num_streams=n_streams, device=device)
-    else:
-        stream = StreamingVSR(apply_fn, out_h, out_w, chunk=chunk, overlap=params.chunk_overlap,
-                              num_streams=n_streams, device=device)
+    stream = make_stream(model, mesh, out_h, out_w, chunk, params.chunk_overlap, n_streams, device,
+                         flow_cache=params.flow_cache, max_disp=params.spatial_max_disp)
     stream.warmup((h, w, c))
 
     out_dir = params.output_dir or os.path.join(params.job_dir, "serve")

@@ -8,13 +8,16 @@ the reference's export_onnx.py + onnx_tflite.py).
   StableHLO artifact plays: a portable graph with no hand kernel in it.
 - ``onnx``: the searched SISR net (ResultNet) through ``torch.onnx.export``
   with NCHW input, the reference's own artifact; needs the ``onnx`` package.
-- ``tflite``: the searched SISR net (ResultNet) rebuilt in TF ops from the
-  port's weights (weight norm folded into plain HWIO kernels, NHWC,
-  ``tf.nn.depth_to_space`` for the tail) and converted by
+- ``tflite``: the searched SISR net (ResultNet) and the VSR types
+  ('basic', 'basic_origin', 'basic_mv', 'single', 'multi', as a
+  ``FixedSizeForward``) rebuilt in TF ops from the port's weights (weight
+  norm folded into plain HWIO kernels, NHWC, ``tf.nn.depth_to_space`` for
+  sub-pixel tails; the VSR types' SpyNet, warp, unrolled recurrence and
+  resizes in export/tflite_vsr.py) and converted by
   ``tf.lite.TFLiteConverter`` with the JAX package's settings (TFLite
   builtins plus select TF ops; ``quantize``: dynamic-range int8,
   ``Optimize.DEFAULT``). tensorflow is imported when it is called, and it
-  raises without it. The VSR types are refused (ROADMAP.md, queue A8g).
+  raises without it.
 
 The export input is 360x540 like the reference's (NHWC here, NCHW for ONNX).
 """
@@ -22,6 +25,7 @@ The export input is 360x540 like the reference's (NHWC here, NCHW for ONNX).
 import numpy as np
 import torch
 
+from mobilesuperresolution_tpu_torch.export.tflite_vsr import TFOps, depth_to_space_order, import_tf, tf_vsr_model
 from mobilesuperresolution_tpu_torch.models.result_net import ResultNet
 
 
@@ -87,73 +91,48 @@ def export_onnx(model, input_shape, path, opset=13):
     return path
 
 
-def refuse_tflite(name):
-    raise NotImplementedError(f"TFLite export of {name} is not ported: the VSR types need SpyNet, the flow warp and "
-                              "the unrolled scan in TF ops (ROADMAP.md, queue A8g); export --format pt2 instead")
-
-
-def _import_tf():
-    try:
-        import tensorflow as tf
-    except ImportError as e:
-        raise RuntimeError(f"tensorflow unavailable: {e}") from e
-    return tf
-
-
-def _depth_to_space_order(scale, channels):
-    """Conv channel order that makes ``tf.nn.depth_to_space`` (channel
-    (i·s + j)·C + c to offset (i, j) of channel c) give the port's
-    ``depth_to_space`` (channel c·s² + i·s + j)."""
-    return np.arange(scale * scale * channels).reshape(channels, scale * scale).T.reshape(-1)
-
-
 def tf_result_net(model):
     """The forward of ``model`` (a ResultNet, float) as a function of TF ops
     on an NHWC float32 tensor, its weights folded into constants: each
     WNConv's effective HWIO kernel and bias, the tail's and skip's output
     channels reordered for ``tf.nn.depth_to_space``."""
-    tf = _import_tf()
-    s = model.scale
-
-    def weights(conv, order=None):
-        k = conv.effective_kernel().detach().float().cpu().numpy()
-        b = conv.b.detach().float().cpu().numpy()
-        if order is not None:
-            k, b = k[..., order], b[order]
-        return tf.constant(k), tf.constant(b)
-
-    order = _depth_to_space_order(s, 3) if s > 1 else None
-    head, tail, skip = weights(model.head), weights(model.tail, order), weights(model.skip, order)
-    blocks = [(cin - split, weights(blk.WNConv_0)) for (cin, split, _), blk in zip(model.idx, model.blocks())]
-
-    def conv(x, kb):
-        return tf.nn.conv2d(x, kb[0], 1, "SAME") + kb[1]
+    ops = TFOps()
+    tf, s = ops.tf, model.scale
+    order = depth_to_space_order(s, 3) if s > 1 else None
+    head, tail, skip = ops.wn(model.head), ops.wn(model.tail, order), ops.wn(model.skip, order)
+    blocks = [(cin - split, ops.wn(blk.WNConv_0)) for (cin, split, _), blk in zip(model.idx, model.blocks())]
 
     def forward(x):
         x = x - model.image_mean
-        y = conv(x, head)
+        y = ops.conv(x, head)
         for p, kb in blocks:
             x2 = y[..., p:]
-            x2 = tf.nn.relu(conv(x2, kb)) + x2
+            x2 = tf.nn.relu(ops.conv(x2, kb)) + x2
             y = tf.concat([y[..., :p], x2], -1) if p > 0 else x2
-        y = conv(y, tail) + conv(x, skip)  # the reference never re-adds image_mean
-        return tf.nn.depth_to_space(y, s) if s > 1 else y
+        y = ops.conv(y, tail) + ops.conv(x, skip)  # the reference never re-adds image_mean
+        return ops.depth_to_space(y, s) if s > 1 else y
 
     return forward
 
 
 def export_tflite(module, input_shape, path, quantize=False):
-    """Write the searched SISR net ``module`` (a float ResultNet) as a
-    ``.tflite`` flatbuffer for an NHWC float32 input of ``input_shape``,
-    converted as the JAX package converts (TFLite builtins plus select TF
-    ops), dynamic-range int8 (int8 weights) with ``quantize``."""
-    if not isinstance(module, ResultNet):
-        refuse_tflite(type(module).__name__)
-    if module.quantized:
-        raise ValueError("export the float ResultNet: --quantize makes TFLite's own dynamic-range int8")
-    tf = _import_tf()
-    fn = tf.function(tf_result_net(module), input_signature=[tf.TensorSpec(input_shape, tf.float32)],
-                     autograph=False)
+    """Write ``module`` (a float ResultNet, or a ``FixedSizeForward`` of a
+    float VSR model of a type ``cli.export`` lists) as a ``.tflite``
+    flatbuffer for an NHWC float32 input of ``input_shape``, converted as
+    the JAX package converts (TFLite builtins plus select TF ops),
+    dynamic-range int8 (int8 weights) with ``quantize``."""
+    model = module.model if isinstance(module, FixedSizeForward) else module
+    if getattr(model, "quantized", False):
+        raise ValueError(f"export the float {type(model).__name__}: --quantize makes TFLite's own dynamic-range int8")
+    tf = import_tf()
+    if isinstance(module, ResultNet):
+        forward = tf_result_net(module)
+    elif isinstance(module, FixedSizeForward):
+        forward = tf_vsr_model(model, *module.args)
+    else:
+        raise TypeError(f"no TFLite builder for {type(module).__name__}: pass a ResultNet or a FixedSizeForward of "
+                        "a VSR model")
+    fn = tf.function(forward, input_signature=[tf.TensorSpec(input_shape, tf.float32)], autograph=False)
     converter = tf.lite.TFLiteConverter.from_concrete_functions([fn.get_concrete_function()], fn)
     converter.target_spec.supported_ops = [tf.lite.OpsSet.TFLITE_BUILTINS, tf.lite.OpsSet.SELECT_TF_OPS]
     if quantize:
@@ -166,7 +145,7 @@ def export_tflite(module, input_shape, path, quantize=False):
 def run_tflite(path, x):
     """The ``.tflite`` at ``path`` on the numpy input ``x`` in
     ``tf.lite.Interpreter`` (the CPU); returns its output as numpy."""
-    tf = _import_tf()
+    tf = import_tf()
     interp = tf.lite.Interpreter(model_path=path)
     interp.allocate_tensors()
     interp.set_tensor(interp.get_input_details()[0]["index"], np.ascontiguousarray(x, np.float32))

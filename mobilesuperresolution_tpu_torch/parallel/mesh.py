@@ -22,7 +22,14 @@ Torch has no virtual devices, so the JAX mesh's two axes split:
   and every one of its shards stays there: spreading them would put a
   process's shards, and in training a copy of its parameters, on another
   rank's card. A one-card process runs every shard on its card, a CPU
-  process on the CPU.
+  process on the CPU;
+- a one-process job with n cards and S shards has D = max(n // S, 1) data
+  groups (``Mesh.groups``, JAX's ``make_mesh(data=n // S, spatial=S)``):
+  group g's shard i on card ``(own + g·S + i) mod n``, group 0 being the
+  mesh itself. ``Mesh.map_groups`` splits a batch of streams over them when
+  D divides it (else one group computes it all, JAX's replicated fallback),
+  each group running the whole forward on its own cards. In a process
+  group, on one card and on the CPU, D = 1.
 
 A module runs on a shard's device through ``Mesh.replicas``: the module
 itself where it lives; elsewhere, in training, a functional call on its
@@ -43,8 +50,10 @@ class Mesh:
     """``data``: the processes of the group; ``data_devices``: this
     process's data slots; ``spatial``: its height shards, on ``devices``
     (one per shard); ``device``: the process's own device, where the
-    unsharded stages and the outputs live. ``slots`` (tests) gives the data
-    axis that many slots of ``device``, so grouping runs on the CPU."""
+    unsharded stages and the outputs live; ``groups``: the data groups, each
+    a mesh of ``spatial`` shards (the first is this mesh). ``slots`` (tests)
+    puts every shard and that many data slots on ``device``, so windows and
+    data groups (slots // spatial of them) run on the CPU or one card."""
 
     def __init__(self, spatial=1, device=None, slots=None):
         if spatial < 1:
@@ -61,10 +70,22 @@ class Mesh:
         else:
             self.devices, self.data_devices = [device] * spatial, [device]
         if slots is not None:
-            self.data_devices = [device] * slots
+            self.devices, self.data_devices = [device] * spatial, [device] * slots
         self.device = device
         self.spatial = spatial
         self._copies = {}
+        n = len(self.data_devices)
+        self.groups = [self] + [self._group([self.data_devices[(g * spatial + i) % n] for i in range(spatial)])
+                                for g in range(1, max(n // spatial, 1))]
+
+    def _group(self, devices):
+        """Data group mesh: its shards on ``devices``, its unsharded stages
+        and its one data slot on the first."""
+        group = copy.copy(self)
+        group.devices, group.device, group.data_devices = devices, devices[0], devices[:1]
+        group._copies = {}
+        group.groups = [group]
+        return group
 
     @property
     def shape(self):
@@ -108,6 +129,36 @@ class Mesh:
             with on_device(dev):
                 outs.append(fn(x.to(dev)))
         return [o.to(self.device) for o in outs]
+
+    def map_groups(self, fn, module, *batch):
+        """``fn(group, module_there, *parts)``: ``batch`` is (tensor, dim)
+        pairs whose dims hold the same B members; with D groups and D
+        dividing B, group g gets members g·B/D .. (g+1)·B/D - 1 of each
+        tensor on its device (made current) and ``module`` there (eval
+        replicas, ``replicas``), else the mesh itself gets them all. Returns
+        the outputs concatenated on dim 0 on the process's device, in member
+        order. Groups on other cards are launched before any output is
+        copied back."""
+        b = batch[0][0].shape[batch[0][1]]
+        d = len(self.groups)
+        if d == 1 or b % d:
+            return fn(self, module, *(t for t, _ in batch))
+        there = self.replicas(module, [g.device for g in self.groups])
+        outs = []
+        for k, group in enumerate(self.groups):
+            parts = [t.narrow(dim, k * b // d, b // d).to(group.device) for t, dim in batch]
+            with on_device(group.device):
+                outs.append(fn(group, there[group.device], *parts))
+        return torch.cat([o.to(self.device) for o in outs])
+
+
+def map_groups(mesh, fn, module, *batch):
+    """``mesh.map_groups(fn, module, *batch)`` for a ``Mesh``; for a shard
+    count (an int: one group on the input's device), ``fn(mesh, module,
+    *tensors)``."""
+    if isinstance(mesh, Mesh):
+        return mesh.map_groups(fn, module, *batch)
+    return fn(mesh, module, *(t for t, _ in batch))
 
 
 def on_device(device):

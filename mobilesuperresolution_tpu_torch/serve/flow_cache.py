@@ -26,6 +26,7 @@ import torch
 
 from mobilesuperresolution_tpu_torch.models.spynet import flow_downscale_hw, upsample_flow
 from mobilesuperresolution_tpu_torch.ops.resize import resize_bilinear
+from mobilesuperresolution_tpu_torch.parallel.mesh import map_groups
 from mobilesuperresolution_tpu_torch.parallel.vsr_spatial import spatial_basicvsr_forward
 from mobilesuperresolution_tpu_torch.serve.streaming import StreamingVSR
 
@@ -46,26 +47,40 @@ def make_flow_sr_fns(model, height, width, mesh=None, max_disp=8):
 
     mesh: height-shard the window (``serve --flow_cache --spatial_shards``):
     sr_fn runs ``parallel.vsr_spatial.spatial_basicvsr_forward`` on the
-    cached flows (its dy clip to ``max_disp`` applies); flow_fn stays one
-    SpyNet call on the pair batch."""
+    cached flows (its dy clip to ``max_disp`` applies), its streams split
+    over the mesh's data groups when their number D divides them
+    (``Mesh.map_groups``); flow_fn splits its pair batch over the groups
+    when D divides it (each pair's flow is its own sample's), one SpyNet
+    call on each group's card."""
     if not hasattr(model, "spynet"):
         raise ValueError(f"flow reuse needs a SpyNet-based model (BasicVSR family); got {type(model).__name__}, "
                          "which has no spynet")
     d, dtype = model.flow_downscale, model.compute_dtype
 
+    def flows(spynet, ref, supp):
+        h, w = ref.shape[1:3]
+        ref, supp = ref.to(dtype), supp.to(dtype)
+        fh, fw = flow_downscale_hw(h, w, d)
+        if (fh, fw) != (h, w):
+            ref, supp = resize_bilinear(ref, (fh, fw)), resize_bilinear(supp, (fh, fw))
+        return upsample_flow(spynet(ref, supp), h, w)
+
+    def group_flows(_, spynet, ref, supp):
+        return flows(spynet, ref, supp)
+
+    def group_sr(group, m, x, ff, fb):
+        return spatial_basicvsr_forward(m, x, height, width, group, max_disp=max_disp, flows=(ff, fb))
+
     def flow_fn(ref, supp):
         with torch.inference_mode():
-            h, w = ref.shape[1:3]
-            ref, supp = ref.to(dtype), supp.to(dtype)
-            fh, fw = flow_downscale_hw(h, w, d)
-            if (fh, fw) != (h, w):
-                ref, supp = resize_bilinear(ref, (fh, fw)), resize_bilinear(supp, (fh, fw))
-            return upsample_flow(model.spynet(ref, supp), h, w)
+            if mesh is not None:
+                return map_groups(mesh, group_flows, model.spynet, (ref, 0), (supp, 0))
+            return flows(model.spynet, ref, supp)
 
     def sr_fn(x, ff, fb):
         with torch.inference_mode():
             if mesh is not None:
-                return spatial_basicvsr_forward(model, x, height, width, mesh, max_disp=max_disp, flows=(ff, fb))
+                return map_groups(mesh, group_sr, model, (x, 0), (ff, 1), (fb, 1))
             return model(x, height, width, flows=(ff, fb))
 
     return flow_fn, sr_fn

@@ -905,6 +905,60 @@ def test_data_axis_places_windows_and_patches_on_two_cards(cuda):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
+def test_data_groups_serve_on_four_cards(cuda):
+    """Serving's data groups across cards: on four cards a one-process mesh
+    of S = 2 has D = 2 groups, group 1's shards on cards 2 and 3. A tiny
+    BasicVSR (f32, TF32 off) serves four lockstep streams through
+    cli.serve's stream, plain and flow-cached: group g's windows run on its
+    own cards (SpyNet, the sharded trunk, the reconstruction), and the
+    result on card 0 equals one group serving each half of the streams bit
+    for bit, and one group serving all four within 1e-5 of the largest
+    output (cuDNN may pick another algorithm for twice the batch). Needs
+    four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    from mobilesuperresolution_tpu_torch.cli import serve
+    from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
+    from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
+    from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
+
+    home = torch.device("cuda", 0)
+    model = BasicVSR(num_feat=8, num_block=1, scale=4).to(home)
+    load_params_npz(model, random_jax_params(model, seed=3))
+    model.eval()
+    mesh = Mesh(2, home)
+    assert [g.devices for g in mesh.groups] == [[torch.device("cuda", i) for i in pair] for pair in ((0, 1), (2, 3))]
+    one = Mesh(2, home)
+    one.groups = [one]  # a single group over the same cards
+    clip = np.random.default_rng(3).random((4, 7, 64, 48, 3), dtype=np.float32)
+    seen = []
+    orig = serve.spatial_basicvsr_forward
+
+    def spying(m, x, *a, **kw):
+        seen.append(x.device)
+        return orig(m, x, *a, **kw)
+
+    def run(mesh, streams, flow_cache):
+        stream = serve.make_stream(model, mesh, 256, 192, 2, 1, len(streams), home, flow_cache=flow_cache)
+        out = []
+        for i in range(clip.shape[1]):
+            out.extend(stream.push(clip[streams, i]))
+        out.extend(stream.flush())
+        return np.stack(out, 1)
+
+    serve.spatial_basicvsr_forward = spying
+    try:
+        for flow_cache in (False, True):
+            got = run(mesh, [0, 1, 2, 3], flow_cache)
+            halves = np.concatenate([run(one, [0, 1], flow_cache), run(one, [2, 3], flow_cache)])
+            whole = run(one, [0, 1, 2, 3], flow_cache)
+            assert np.array_equal(got, halves), flow_cache
+            assert float(np.abs(got - whole).max()) <= 1e-5 * float(np.abs(whole).max()), flow_cache
+    finally:
+        serve.spatial_basicvsr_forward = orig
+    assert torch.device("cuda", 2) in seen and home in seen
+
+
 def test_two_nccl_ranks_match_one_process(cuda, tmp_path):
     """Two NCCL ranks on cards 0 and 1 (tests/helpers/torch_parallel_worker.py:
     tcp:// for cli.pretrain, then env:// with torchrun's variables for

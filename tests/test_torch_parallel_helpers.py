@@ -190,13 +190,19 @@ def test_initialize_from_params_agrees_with_jax(flags):
 def test_mesh_places_shard_i_on_card_own_plus_i(monkeypatch, cards, own, spatial):
     """Shard i goes to the process's visible card (own + i) mod n, and so
     does data slot i of the n slots; the process's own card keeps the
-    unsharded stages. No card is touched."""
+    unsharded stages. The n // spatial data groups (at least one) put
+    group g's shard i on card (own + g·spatial + i) mod n, its unsharded
+    stages on its first card. No card is touched."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     m = mesh.Mesh(spatial, f"cuda:{own}")
     assert m.device == torch.device("cuda", own)
     assert m.devices == [torch.device("cuda", (own + i) % cards) for i in range(spatial)]
     assert m.data_devices == [torch.device("cuda", (own + i) % cards) for i in range(cards)]
     assert m.shape == {"data": 1, "spatial": spatial}
+    assert len(m.groups) == max(cards // spatial, 1) and m.groups[0] is m
+    for g, group in enumerate(m.groups):
+        assert group.devices == [torch.device("cuda", (own + g * spatial + i) % cards) for i in range(spatial)]
+        assert group.device == group.devices[0] and (g == 0 or group.groups == [group])
 
 
 @pytest.mark.parametrize("cards,own,spatial,world", [(2, 0, 2, 2), (2, 1, 2, 2), (4, 0, 2, 4), (4, 3, 2, 4),
@@ -212,3 +218,4 @@ def test_mesh_keeps_every_shard_on_the_process_card_in_a_group(monkeypatch, card
     assert m.devices == [torch.device("cuda", own)] * spatial
     assert m.data_devices == [torch.device("cuda", own)]
     assert m.shape == {"data": world, "spatial": spatial}
+    assert m.groups == [m]

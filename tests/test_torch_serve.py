@@ -2,8 +2,10 @@
 and the JAX package's streaming output (float32, 1e-4 absolute: the model
 tolerance of tests/test_torch_models.py); the flow-cached stream equals the
 plain one (1e-5: SpyNet sees another batch size), computes each pair once
-and stays bounded; BasicVSR with flow_downscale 2 matches JAX's (1e-5); plus
-the serve CLI on PNG frames with --device cpu."""
+and stays bounded; BasicVSR with flow_downscale 2 matches JAX's (1e-5); the
+height-sharded stream in data groups (``Mesh(slots=)``: two groups of two
+shards on the CPU) equals one group per half of the streams bit for bit;
+plus the serve CLI on PNG frames with --device cpu."""
 
 import contextlib
 import io
@@ -21,9 +23,12 @@ from helpers.jax_compile import unoptimized_xla  # noqa: F401 (a fixture)
 
 from mobilesuperresolution_tpu.models.basicvsr import BasicVSR as JBasicVSR
 from mobilesuperresolution_tpu.serve import StreamingVSR as JStreamingVSR
+from mobilesuperresolution_tpu_torch.cli import serve
 from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
+from mobilesuperresolution_tpu_torch.parallel.mesh import Mesh
 from mobilesuperresolution_tpu_torch.parallel.temporal import chunked_vsr_apply
 from mobilesuperresolution_tpu_torch.serve import FlowCachedStreamingVSR, StreamingVSR, make_flow_sr_fns
+from mobilesuperresolution_tpu_torch.serve import flow_cache as flow_cache_module
 from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 
 torch.set_num_threads(2)
@@ -179,6 +184,61 @@ def test_flow_cached_computes_each_pair_once(pair, rng, monkeypatch):
     assert max_frames <= stream.window + chunk
     assert max_cache <= stream.window + 2 * chunk
     assert not stream._pair_flows
+
+
+def _grouped_stream(tm, mesh, clip, flow_cache):
+    """The stream cli.serve builds for --spatial_shards 2 (chunk 2, overlap
+    1, flow dy clipped to 1 row: 8-row shards of a 16-row frame) over the
+    lockstep streams of ``clip``: (S, T, OH, OW, 3)."""
+    stream = serve.make_stream(tm, mesh, OH, OW, 2, 1, clip.shape[0], "cpu", flow_cache=flow_cache, max_disp=1)
+    return np.stack(_stream(stream, clip), axis=1)
+
+
+def _spy_batches(monkeypatch, module):
+    """The stream count of every sharded window forward ``module`` runs."""
+    batches = []
+    orig = module.spatial_basicvsr_forward
+
+    def spying(model, x, *a, **kw):
+        batches.append(x.shape[0])
+        return orig(model, x, *a, **kw)
+
+    monkeypatch.setattr(module, "spatial_basicvsr_forward", spying)
+    return batches
+
+
+@pytest.mark.parametrize("flow_cache", [False, True])
+def test_data_groups_match_one_group(pair, rng, monkeypatch, flow_cache):
+    """Four streams in D = 2 data groups of S = 2 shards (the seam: four data
+    slots of the CPU): group g serves streams 2g and 2g+1, its whole window
+    forward on its own, and the stream equals one group serving each half
+    bit for bit, plain and flow-cached. Against one group serving all four
+    it agrees to float32 rounding: oneDNN's conv is not batch-invariant on
+    every shape (SpyNet's 1x1 s2d level at a batch of 24 against 12 moved
+    the plain stream by 6e-8)."""
+    _, _, tm = pair
+    clip = rng.random((4, 5, H, W, 3)).astype(np.float32)
+    mesh = Mesh(2, "cpu", slots=4)
+    assert len(mesh.groups) == 2 and all(g.devices == [torch.device("cpu")] * 2 for g in mesh.groups)
+    batches = _spy_batches(monkeypatch, flow_cache_module if flow_cache else serve)
+    got = _grouped_stream(tm, mesh, clip, flow_cache)
+    assert batches and set(batches) == {2}
+    halves = np.concatenate([_grouped_stream(tm, Mesh(2, "cpu"), clip[k : k + 2], flow_cache) for k in (0, 2)])
+    assert got.shape == (4, 5, OH, OW, 3) and np.array_equal(got, halves)
+    whole = _grouped_stream(tm, Mesh(2, "cpu"), clip, flow_cache)
+    np.testing.assert_allclose(got, whole, rtol=0, atol=1e-6)
+
+
+def test_data_groups_fall_back_to_one_group(pair, rng, monkeypatch):
+    """Three streams do not split over D = 2 groups: one group serves them
+    all (JAX's replicated fallback), the stream of a one-group mesh bit for
+    bit."""
+    _, _, tm = pair
+    clip = rng.random((3, 4, H, W, 3)).astype(np.float32)
+    batches = _spy_batches(monkeypatch, serve)
+    got = _grouped_stream(tm, Mesh(2, "cpu", slots=4), clip, False)
+    assert batches and set(batches) == {3}
+    assert np.array_equal(got, _grouped_stream(tm, Mesh(2, "cpu"), clip, False))
 
 
 def test_flow_downscale_matches_jax(rng, unoptimized_xla):
