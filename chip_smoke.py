@@ -4,7 +4,8 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
 1. device name, and the card's name and power limit from nvidia-smi;
-2. build the hand kernels from mobilesuperresolution_tpu_torch/csrc with nvcc;
+2. build the hand kernels from mobilesuperresolution_tpu_torch/csrc with nvcc
+   (ptxas's registers and spills per kernel; Q1's s8 wgmma in its SASS);
 3. each kernel against its plain PyTorch version on the card at the shapes
    the main path gives it, with kernel / plain / library-call times and the
    kernel's roofline bound (B3, B4 and B5 at the rate of the unit each product
@@ -140,17 +141,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    blocks, mmedit's {"meta", "params"}), 'basic_mv', 'single' and 'multi'
    .pth through cli.test_vsr --eval_model (ZOO_PER_FORWARD); a SpyNet .pth
    through cli.train_vsr --spynet_weights for one step;
-25. Q1, the int8 dynamic-range conv (not a TPU kernel: the JAX package's
-   XLA int8 conv), against its plain version bit for bit (f32 and bf16 out,
-   with and without bias, all-±127 inputs) at the dual trunk's 54->48 and
-   48->48 (426x240), SpyNet's five s2d convs at a window's finest level,
-   WDSR-B's and ResultNet's convs at 678x1020 (k 1/3/5/7), with ms, plain,
-   cuDNN bf16 (the nearest library call, not the same function) and bound
-   (int8 operations at 1,979 TOP/s, or bytes);
+25. Q1s and Q1, the int8 dynamic-range conv's per-sample scale and the
+   conv that quantizes with it (not TPU kernels: the JAX package's
+   quantize_symmetric and XLA int8 conv), against their plain versions bit
+   for bit (float inputs, f32 and bf16, with and without bias, the
+   all-±127 edge, a row-window view) at the dual trunk's 54->48 and 48->48
+   (426x240), SpyNet's five s2d convs at a window's finest level, WDSR-B's
+   and ResultNet's convs at 678x1020 (k 1/3/5/7), with ms, plain, bound
+   (Q1 int8 operations at 1,979 TOP/s or bytes, Q1s bytes) and for Q1
+   cuDNN bf16 (the nearest library call, not the same function);
 26. cli.serve --quantize int8 of mobile BasicVSR x4 (bf16, 16 426x240
-   frames, chunk 4, overlap 3), plain and --flow_cache: Q1 200 per window
-   (flow-cached 30 per flow group + 170 per window), B1 0, B2 1; the
-   agreement PSNR with phase 5's float stream; the quantized window's ms;
+   frames, chunk 4, overlap 3), plain and --flow_cache: Q1 and Q1s 200
+   each per window (flow-cached 30 per flow group + 170 per window), B1 0,
+   B2 1; the agreement PSNR with phase 5's float stream; the quantized
+   window's ms, and the window bit-equal to its twin run with Q1s's and
+   Q1's plain versions patched in (a seam of this script);
 27. quantized evaluation: the shipped wdsr_b_x2 / result_net_x2 int8 on
    their held-out set (PSNR and its delta from the float report), through
    cli.pretrain / cli.retrain_searched --eval_only --quantize int8 beside the
@@ -206,7 +211,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    12 per forward at 4 blocks;
 41. cli.serve --quantize int8 --spatial_shards 2 over phase 26's frames,
    within the int8 bound of phase 26's unsharded int8 stream (each shard's
-   trunk window has its own per-sample scale), with Q1's launches;
+   trunk window has its own per-sample scale), with Q1's and Q1s's
+   launches;
 42. serving's data groups (parallel/mesh.py): mobile BasicVSR x4 (bf16)
    serves 4 lockstep streams of 8 426x240 frames at S = 2 through
    cli.serve's stream, plain and flow-cached, in the seam's D = 2 groups on
@@ -221,7 +227,8 @@ each count set to 0 before its path: B1 and B2 from the basic VSR training
 run plus phases 16-18, 20, 21, 24, 26-30, 34-38 and 41, B3 from the
 pretraining run and phases 24, 29, 32, 33 and 37, B4 from those and phase
 20's 'multi_v1' runs and 28, B5 from the search and phases 22, 23 and 40,
-Q1 from phases 26, 27, 30 and 41; B1 and B2 also from phase 42), the
+Q1 and Q1s from phases 26, 27, 30 and 41, as many of each; B1 and B2 also from
+phase 42), the
 nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``. Details go to chiprun_out/chip_smoke.json. Needs CUDA;
 imports nothing of JAX.
@@ -535,6 +542,29 @@ def ptxas_summary(path):
         name = name[:cut].removeprefix("void ").replace("<unnamed>::", "").replace("(int)", "")
         out.append(f"{name}: {regs}; {spill}")
     return out
+
+
+def q1_sass():
+    """Q1's tensor-core route in the built library: the distinct int8 wgmma
+    instructions (IGMMA ... S8.S8) of its SASS, and ptxas's C75xx notes per
+    code (C7517 is a warpgroup.wait injected before mbar_wait's timeout
+    trap, a path never taken; C7512, C7513, C7515 and C7518 would mean
+    serialised wgmma). Fails when there is no s8 wgmma."""
+    from mobilesuperresolution_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", os.path.join(_build.BUILD_DIR, "libqconv_int8.so")], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops = sorted(set(re.findall(r"IGMMA\.\w+\.S8\.S8", sass)))
+    notes = {}
+    for ln in open(os.path.join(_build.BUILD_DIR, "qconv_int8.log")):
+        m = re.search(r"\((C75\d+)\)", ln)
+        if m:
+            notes[m.group(1)] = notes.get(m.group(1), 0) + 1
+    log(f"  qconv_int8 SASS: {ops}; ptxas notes {notes}")
+    if not ops:
+        raise AssertionError("Q1's library holds no s8 wgmma (IGMMA ... S8.S8)")
+    return dict(igmma=ops, ptxas_notes=notes)
 
 
 def phase_kernels(gen, dev):
@@ -2456,28 +2486,48 @@ def phase_logging_profiling(work):
 
 
 def q1_counts():
-    """The int8 path's kernel counts: Q1 and the float kernels beside it."""
-    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import qconv_int8
+    """The int8 path's kernel counts: Q1, Q1s and the float kernels beside
+    them."""
+    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import act_scale, qconv_int8
 
-    return dict(vsr_launches(), **sisr_launches(), Q1=qconv_int8.launches)
+    return dict(vsr_launches(), **sisr_launches(), Q1=qconv_int8.launches, Q1s=act_scale.launches)
 
 
 def reset_q1_counts():
-    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import qconv_int8
+    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import act_scale, qconv_int8
 
     reset_vsr_launches()
     reset_sisr_launches()
-    qconv_int8.launches = 0
+    qconv_int8.launches = act_scale.launches = 0
+
+
+def check_q1s(launches, where):
+    """On the card a quantized conv is Q1s then Q1: as many of each."""
+    if launches["Q1s"] != launches["Q1"]:
+        raise AssertionError(f"{where}: Q1s {launches['Q1s']} launches against Q1's {launches['Q1']}")
 
 
 def phase_q1_kernels(gen, dev):
-    """Q1 against its plain version at every shape this slice launches it on:
-    bit for bit (tolerance 0) with f32 and bf16 output, with and without
-    bias, and on all-±127 inputs (the int32 edge); then ms, the plain ms,
-    the bound (int8 operations at the dense tensor-core rate, or bytes) and
-    cuDNN's bf16 conv of the same shape, the nearest library call (not the
-    same function: no int8 conv exists in PyTorch on CUDA)."""
-    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import pack_weights, qconv_int8, qconv_int8_plain
+    """Q1s and Q1 against their plain versions at every shape this slice
+    launches them on, bit for bit (tolerance 0): float inputs uniform in
+    [-3, 3], f32 and bf16, Q1 with and without bias; the all-±127 edge
+    (inputs of exactly ±127 xs against weights of -127, the int32 edge);
+    and the same inputs as a row window of a taller frame (a view, as
+    height sharding passes them). Then each kernel's ms as the path runs
+    it, its plain ms and its bound: Q1's int8 operations at the dense
+    tensor-core rate, or bytes; Q1s's bytes of x. Q1 also beside cuDNN's
+    bf16 conv of the same shape, the nearest library call (not the same
+    function: PyTorch has no int8 conv on CUDA); no one PyTorch call
+    computes Q1s's scale (abs, amax, a division and a floor)."""
+    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import (
+        act_scale,
+        act_scale_plain,
+        k_chunk,
+        pack_weights,
+        qconv_int8,
+        qconv_int8_plain,
+        tensor_cores,
+    )
 
     n_pairs = 2 * (T_WIN - 1)
     cases = [("trunk conv0", 1, H_LR, W_LR, 54, 48, 3, True), ("trunk conv", 1, H_LR, W_LR, 48, 48, 3, True)]
@@ -2488,45 +2538,63 @@ def phase_q1_kernels(gen, dev):
               for name, ci, co, k in (("head", 3, 24, 3), ("expand", 24, 144, 1), ("linear", 144, 20, 1),
                                       ("3x3", 20, 24, 3), ("tail", 24, 12, 3), ("skip", 3, 12, 5))]
     cases += [(f"ResultNet k{k}", 1, hs, ws, c, c, k, False) for c, k in ((18, 3), (16, 5), (15, 7))]
-    rows = []
+    rows, srows = [], []
     for tag, n, h, w, ci, co, k, serving in cases:
-        xq = torch.randint(-127, 128, (n, h, w, ci), generator=gen, dtype=torch.int8).to(dev)
+        x32 = (torch.rand((n, h, w, ci), generator=gen) * 6 - 3).to(dev)
         wq = torch.randint(-127, 128, (co, ci, k, k), generator=gen, dtype=torch.int8).to(dev)
-        xs = (torch.rand(n, generator=gen) * 1e-2 + 1e-4).to(dev)
         ks = (torch.rand(co, generator=gen) * 1e-2 + 1e-4).to(dev)
         b = (torch.rand(co, generator=gen) - 0.5).to(dev)
-        packed = pack_weights(wq)
-        edge_x = torch.full_like(xq, 127)
-        edge_x[..., 1::2] = -127
+        packed = {dt: pack_weights(wq, k_chunk(dt, ci, co, k)) for dt in (torch.float32, torch.bfloat16)}
         edge_w = torch.full_like(wq, -127)
         err = 0.0
+
+        def same(what, got, want):
+            nonlocal err
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"Q1 {tag}: {what} differs from its plain version (max {err})")
+
         for dtype in (torch.float32, torch.bfloat16):
-            for bias in (None, b):
-                for x_, w_, p_ in ((xq, wq, packed), (edge_x, edge_w, None)):
-                    got = qconv_int8(x_, w_, xs, ks, bias, dtype, packed=p_)
-                    want = qconv_int8_plain(x_, w_, xs, ks, bias, dtype)
-                    err = max(err, float((got.float() - want.float()).abs().max()))
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"Q1 {tag} {dtype} bias {bias is not None}: differs from its plain "
-                                             f"version (max {err})")
+            x = x32.to(dtype)
+            tall = torch.zeros((n, h + 2, w, ci), dtype=dtype, device=dev)
+            tall[:, 1:1 + h] = x
+            view = tall[:, 1:1 + h]
+            edge = torch.full_like(x, 63.5)  # 127 x 0.5, exact in bf16 too
+            edge[..., 1::2] = -63.5
+            for xin, name in ((x, "x"), (view, "view"), (edge, "edge")):
+                xs = act_scale(xin)
+                same(f"{name} {dtype} Q1s", xs, act_scale_plain(xin))
+                for bias in (None, b):
+                    w_, p_ = (edge_w, None) if name == "edge" else (wq, packed[dtype])
+                    same(f"{name} {dtype} bias {bias is not None}", qconv_int8(xin, xs, w_, ks, bias, packed=p_),
+                         qconv_int8_plain(xin, xs, w_, ks, bias))
         # timed as the path runs it: serving's convs in bf16 with the bias
         # inside (PlainConv), the SISR nets' in f32 with the bias after (WNConv)
         dtype, bias = (torch.bfloat16, b) if serving else (torch.float32, None)
-        ms = cuda_ms(lambda: qconv_int8(xq, wq, xs, ks, bias, dtype, packed=packed))
-        plain_ms = cuda_ms(lambda: qconv_int8_plain(xq, wq, xs, ks, bias, dtype), iters=3, warmup=1)
-        xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
+        x = x32.to(dtype)
+        xs = act_scale(x)
+        ms = cuda_ms(lambda: qconv_int8(x, xs, wq, ks, bias, packed=packed[dtype]))
+        plain_ms = cuda_ms(lambda: qconv_int8_plain(x, xs, wq, ks, bias), iters=3, warmup=1)
+        s_ms = cuda_ms(lambda: act_scale(x))
+        s_plain_ms = cuda_ms(lambda: act_scale_plain(x), iters=5, warmup=1)
+        xb = x32.to(torch.bfloat16).permute(0, 3, 1, 2)
         wb, bb = wq.to(torch.bfloat16), b.to(torch.bfloat16)
         lib_ms = cuda_ms(lambda: F.conv2d(xb, wb, bb, padding=k // 2))
         ops = 2.0 * n * h * w * ci * co * k * k
-        out_bytes = n * h * w * co * (2 if dtype == torch.bfloat16 else 4)
-        bms, by, basis = bound_by_route([(ops, "int8")], nbytes(xq, wq, xs, ks, b) + out_bytes)
-        label = f"Q1 {tag} {n}x{h}x{w} {ci}->{co} k{k} -> {str(dtype)[6:]}"
-        log(f"  {label}: equal to its plain version (f32/bf16 out, +/- bias, all-127 edge); ms {ms:.4f} plain "
-            f"{plain_ms:.4f} cuDNN bf16 {lib_ms:.4f} bound {bms:.4f} ({by}; {basis}); "
-            f"{ops / ms / 1e9:.1f} TOP/s")
-        rows.append(dict(case=label, main_path=serving, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bms, bound_by=by, bound_basis=basis, gop=ops / 1e9))
-    return rows
+        out_bytes = n * h * w * co * x.element_size()
+        bms, by, basis = bound_by_route([(ops, "int8")], nbytes(x, wq, xs, ks, b) + out_bytes)
+        s_bms, s_by, _ = bound_by_route([(0.0, "int8")], nbytes(x, xs))
+        route_name = f"wgmma s8, {k_chunk(dtype, ci, co, k)}-channel chunks" if tensor_cores(ci, co) else "dp4a"
+        label = f"{tag} {n}x{h}x{w} {ci}->{co} k{k} {str(dtype)[6:]}"
+        log(f"  Q1 {label} ({route_name}): equal to its plain version (f32/bf16, +/- bias, a view, the ±127 edge); "
+            f"ms {ms:.4f} plain {plain_ms:.4f} cuDNN bf16 {lib_ms:.4f} bound {bms:.4f} ({by}; {basis}); "
+            f"{ops / ms / 1e9:.1f} TOP/s; Q1s ms {s_ms:.4f} plain {s_plain_ms:.4f} bound {s_bms:.4f} ({s_by})")
+        rows.append(dict(case=f"Q1 {label}", route=route_name, main_path=serving, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by, bound_basis=basis,
+                         gop=ops / 1e9))
+        srows.append(dict(case=f"Q1s {label}", main_path=serving, max_abs_err=0.0, ms=s_ms, plain_ms=s_plain_ms,
+                          library_ms=None, bound_ms=s_bms, bound_by=s_by))
+    return rows, srows
 
 
 def read_pngs(d):
@@ -2545,9 +2613,10 @@ def phase_quantized_serving(dev, work, frames, float_out, flow_groups):
     bf16, the float stream's seeded weights) over the 16 426x240 frames,
     chunk 4, overlap 3, plain and --flow_cache: 16 1080x1920 frames each;
     Q1 200 (SpyNet's 30 and the dual trunks' 17 x 10 steps), B1 0 and B2 1
-    per window (flow-cached: Q1 30 per flow group and 170 per window); the
-    agreement PSNR of each stream's PNGs with the float stream's frames;
-    then the quantized window forward's ms and frames/s."""
+    per window (flow-cached: Q1 30 per flow group and 170 per window), Q1s
+    as many as Q1; the agreement PSNR of each stream's PNGs with the float
+    stream's frames; then the quantized window forward's ms and frames/s,
+    and the window bit-equal to its twin on Q1s's and Q1's plain versions."""
     import contextlib
     import io
 
@@ -2574,6 +2643,7 @@ def phase_quantized_serving(dev, work, frames, float_out, flow_groups):
         with contextlib.redirect_stdout(io.StringIO()):
             stats = run_cli(serve.main, argv)
         launches = q1_counts()
+        check_q1s(launches, f"quantized serve {name}")
         got = read_pngs(os.path.join(job, "serve"))
         agreement = psnr_u8(np.stack(got), np.stack(ref))
         log(f"  cli.serve --quantize int8 {name}: {stats['frames']} frames of {got[0].shape}, "
@@ -2596,13 +2666,40 @@ def phase_quantized_serving(dev, work, frames, float_out, flow_groups):
         torch.cuda.synchronize()
         per_window = q1_counts()
         win_ms = cuda_ms(lambda: model(x, OH, OW), iters=5, warmup=1)
+        twin = plain_q1_twin(lambda: model(x, OH, OW))
+    check_q1s(per_window, "quantized window")
     if per_window["Q1"] != q1_flow + q1_sr or per_window["B1"] != 0 or per_window["B2"] != 1 \
             or not torch.isfinite(y).all():
         raise AssertionError(f"quantized window: launches {per_window}, finite {bool(torch.isfinite(y).all())}")
-    log(f"  quantized window forward {win_ms:.3f} ms = {T_WIN / win_ms * 1e3:.2f} frames/s; per window {per_window}")
-    out["window"] = dict(ms=win_ms, fps=T_WIN / win_ms * 1e3, launches=per_window)
+    log(f"  quantized window forward {win_ms:.3f} ms = {T_WIN / win_ms * 1e3:.2f} frames/s; per window {per_window}; "
+        f"bit-equal to its twin on Q1's and Q1s's plain versions: {torch.equal(twin, y)}")
+    if not torch.equal(twin, y):
+        raise AssertionError(f"quantized window: {int((twin != y).sum())} values differ from the plain-Q1 twin's, "
+                             f"max {float((twin.float() - y.float()).abs().max())}")
+    out["window"] = dict(ms=win_ms, fps=T_WIN / win_ms * 1e3, launches=per_window, plain_twin_equal=True)
     total = {k: total.get(k, 0) + v for k, v in per_window.items()}
     return out, total
+
+
+def plain_q1_twin(fn):
+    """fn() with ops.quant's Q1s and Q1 replaced by their plain versions (on
+    the card's tensors): a test seam of this script, not a path of the
+    program; the kernels' counts do not move."""
+    from mobilesuperresolution_tpu_torch.kernels import qconv_int8 as q1
+    from mobilesuperresolution_tpu_torch.ops import quant
+
+    def plain(x, xs, wq, ks, bias=None, packed=None):
+        return q1.qconv_int8_plain(x, q1.act_scale_plain(x) if xs is None else xs, wq, ks, bias)
+
+    kernel, quant.qconv_int8 = quant.qconv_int8, plain
+    try:
+        before = q1.act_scale.launches, q1.qconv_int8.launches
+        out = fn()
+        if (q1.act_scale.launches, q1.qconv_int8.launches) != before:
+            raise AssertionError("plain twin: a Q1 kernel was launched")
+        return out
+    finally:
+        quant.qconv_int8 = kernel
 
 
 def write_block_index(path, idx):
@@ -2661,6 +2758,7 @@ def phase_quantized_eval(dev, work, mv_root):
         reset_q1_counts()
         res = evaluate(fwd, held_out_batches(), scale=cfg["scale"], device=dev).as_dict()
         launches = q1_counts()
+        check_q1s(launches, f"{run} int8")
         add(launches)
         log(f"  {run} int8: PSNR {res['PSNR']:.4f} (float report {want}, delta {res['PSNR'] - want:+.4f} dB), "
             f"SSIM {res['SSIM']:.4f}; launches {launches}")
@@ -2689,6 +2787,7 @@ def phase_quantized_eval(dev, work, mv_root):
                                     q])["synthetic_isr"]
             launches = q1_counts()
             if q == "int8":
+                check_q1s(launches, f"cli.{name} --quantize int8")
                 add(launches)
                 if (launches["Q1"], launches["B3"], launches["B4"]) != (8 * per_image[run], 0, 0):
                     raise AssertionError(f"cli.{name} --quantize int8: launches {launches}")
@@ -2713,6 +2812,7 @@ def phase_quantized_eval(dev, work, mv_root):
         with contextlib.redirect_stdout(io.StringIO()):
             res = run_cli(test_vsr.main, argv + ["--quantize", "int8"])[argv[argv.index("--eval_datasets") + 1]]
         launches = q1_counts()
+        check_q1s(launches, f"cli.test_vsr {kind} --quantize int8")
         add(launches)
         params = argparse.Namespace(scale=VSR_SCALE, data_dir=mv_root, image_batch=VSR_T, val_image_batch=VSR_T,
                                     seed=0, synthetic_clips=1, synthetic_frames=VSR_T, synthetic_size="256")
@@ -2849,6 +2949,7 @@ def phase_ladder():
         res = approx_ladder.main(["--config", "tiny"])
     wall = time.perf_counter() - t0
     launches = q1_counts()
+    check_q1s(launches, "ladder")
     for line in buf.getvalue().splitlines():
         log(f"  {line}")
     ags = [res["chunk_overlap"][ov].get("interior_agreement", res["chunk_overlap"][ov]["agreement"])
@@ -3391,6 +3492,7 @@ def phase_sharded_int8_serve(work):
     with contextlib.redirect_stdout(io.StringIO()):
         stats = run_cli(serve.main, argv)
     launches = q1_counts()
+    check_q1s(launches, "sharded int8 serve")
     got = np.stack(read_pngs(os.path.join(job, "serve"))).astype(np.float32)
     want = np.stack(read_pngs(os.path.join(work, "qserve_plain", "serve"))).astype(np.float32)
     err = float(np.abs(got - want).max())
@@ -3403,7 +3505,7 @@ def phase_sharded_int8_serve(work):
     if (launches["Q1"], launches["B1"], launches["B2"]) != (want_q1, 0, B2_PER_WINDOW * windows):
         raise AssertionError(f"sharded int8 serve: launches {launches}, want Q1 {want_q1}, B1 0, B2 {windows}")
     return dict(stats, max_err_levels=err, tol_levels=tol, agreement_db=psnr_u8(got, want), launches=launches), \
-        {k: launches[k] for k in ("Q1", "B2")}
+        {k: launches[k] for k in ("Q1", "Q1s", "B2")}
 
 
 def phase_data_groups(dev):
@@ -3518,6 +3620,7 @@ def main():
             for line in ptxas_summary(os.path.join(_build.BUILD_DIR, f"{name}.log")):
                 log(f"  {name}: {line}")
         report["build_s"] = secs
+        report["q1_sass"] = q1_sass()
 
         phase("kernels vs plain:")
         rows = phase_kernels(torch.Generator().manual_seed(0), dev)
@@ -3577,7 +3680,7 @@ def main():
         phase("reference checkpoints:")
         report["reference_checkpoints"], ckpt_main = phase_reference_checkpoints(dev, work, mv_root)
         phase("Q1, the int8 conv, against its plain version:")
-        rows["Q1"] = phase_q1_kernels(torch.Generator().manual_seed(26), dev)
+        rows["Q1"], rows["Q1s"] = phase_q1_kernels(torch.Generator().manual_seed(26), dev)
         phase("quantized serving at full width:")
         report["quantized_serving"], q_serve_main = phase_quantized_serving(
             dev, work, q_frames, q_float_out, report["flow_cache"]["groups"])
@@ -3628,7 +3731,8 @@ def main():
         b5_parts = dict(search=search_main, latency_table=table_main, search_latency=search_latency_main)
         report["launches_b5_paths"] = b5_parts
         launches = {"B5": sum(p["B5"] for p in b5_parts.values()), "B3": train_main["B3"] + ckpt_main["B3"],
-                    "B1": vsr_paths["B1"], "B2": vsr_paths["B2"], "B4": train_main["B4"] + vsr_paths["B4"], "Q1": 0}
+                    "B1": vsr_paths["B1"], "B2": vsr_paths["B2"], "B4": train_main["B4"] + vsr_paths["B4"],
+                    "Q1": 0, "Q1s": 0}
         # this slice's paths: the int8 stream and evals, the export checks,
         # tiled eval and the ladder, each count set to 0 before its path
         q_parts = dict(quantized_serving=q_serve_main, quantized_eval=q_eval_main, export=export_main,
@@ -3665,7 +3769,8 @@ def main():
             "plain_ms": sum(r["plain_ms"] for r in on_path),
             "bound_ms": sum(r["bound_ms"] for r in on_path),
             "bound_by": max(on_path, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in on_path),
+            "library_ms": None if any(r["library_ms"] is None for r in on_path) else
+            sum(r["library_ms"] for r in on_path),
         }
 
     kernels = {"kernels": [
@@ -3679,9 +3784,12 @@ def main():
               "mobilesuperresolution_tpu/kernels/fused_tail.py:85", "B4"),
         entry("fused_convsep", "mobilesuperresolution_tpu_torch/csrc/fused_convsep.cu",
               "mobilesuperresolution_tpu/kernels/fused_convsep.py:68", "B5"),
-        # not a TPU kernel: the XLA int8 conv of the JAX package's qconv2d
+        # not TPU kernels: the XLA int8 conv of the JAX package's qconv2d and
+        # its per-sample activation scale
         entry("qconv_int8", "mobilesuperresolution_tpu_torch/csrc/qconv_int8.cu",
               "mobilesuperresolution_tpu/ops/quant.py:86", "Q1"),
+        entry("act_scale", "mobilesuperresolution_tpu_torch/csrc/qconv_int8.cu",
+              "mobilesuperresolution_tpu/ops/quant.py:84", "Q1s"),
     ]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

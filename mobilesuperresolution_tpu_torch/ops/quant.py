@@ -4,9 +4,11 @@
 The numerics class of the reference's int8 TFLite deployment:
 per-output-channel symmetric int8 weights, per-sample dynamic symmetric int8
 activations (the scale from the live activation's max, so a sample's numbers
-do not depend on what it is batched with), int8 x int8 → int32 convolution
-(kernel Q1 on the card, kernels/qconv_int8.py), then ``acc * (xs · ks)`` and
-the float32 bias, cast to the input's dtype. Scales and rounding follow the
+do not depend on what it is batched with), int8 x int8 → int32 convolution,
+then ``acc * (xs · ks)`` and the float32 bias, cast to the input's dtype. On
+the card a conv is two launches (kernels/qconv_int8.py): Q1s takes the
+per-sample scale, Q1 quantizes the activation as it stages it and
+convolves on the int8 tensor cores. Scales and rounding follow the
 JAX package's: float32 whatever the input dtype, round half to even, clip
 to [-127, 127], a scale floor of 1e-12.
 
@@ -17,7 +19,7 @@ The models quantize their constant weights once, in ``prepare()``
 import torch
 import torch.nn.functional as F
 
-from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import pack_weights, qconv_int8
+from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import k_chunk, over_127, pack_weights, qconv_int8
 
 _EPS = 1e-12
 
@@ -28,7 +30,7 @@ def quantize_symmetric(x, dims=None):
     kept as broadcastable dims."""
     xf = x.float()
     a = xf.abs()
-    scale = (a.amax() if dims is None else a.amax(dim=dims, keepdim=True)) / 127.0
+    scale = over_127(a.amax() if dims is None else a.amax(dim=dims, keepdim=True))
     scale = torch.clamp_min(scale, _EPS)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -44,18 +46,28 @@ def quantize_kernel(w):
 class QConvWeight:
     """One conv's weight quantized once: ``wq`` (O, I, k, k) int8, ``ks``
     (O,) float32, ``bias`` (O,) float32 or None (added in float32 inside the
-    conv), and on the card ``packed`` for kernel Q1."""
+    conv), and on the card ``packed`` for kernel Q1: its packing for each
+    chunk width the input dtypes take (``k_chunk``)."""
 
     def __init__(self, weight, bias=None):
         with torch.no_grad():
             self.wq, self.ks = quantize_kernel(weight.detach())
             self.bias = None if bias is None else bias.detach().float().clone()
-        self.packed = pack_weights(self.wq) if self.wq.is_cuda else None
+        co, ci, k, _ = self.wq.shape
+        self.packed = None
+        if self.wq.is_cuda:
+            self.packed = {kc: pack_weights(self.wq, kc)
+                           for kc in {k_chunk(dt, ci, co, k) for dt in (torch.float32, torch.bfloat16)}}
 
     def __call__(self, x):
-        """The quantized SAME conv of NHWC ``x``, in x.dtype."""
-        xq, xs = quantize_symmetric(x, dims=(1, 2, 3))
-        return qconv_int8(xq, self.wq, xs.reshape(-1), self.ks, self.bias, x.dtype, packed=self.packed)
+        """The quantized SAME conv of NHWC ``x``, in x.dtype: x's per-sample
+        scale, then the conv that quantizes x with it (on the card Q1s then
+        Q1, from one call)."""
+        packed = None
+        if self.packed is not None:
+            co, ci, k, _ = self.wq.shape
+            packed = self.packed[k_chunk(x.dtype, ci, co, k)]
+        return qconv_int8(x, None, self.wq, self.ks, self.bias, packed=packed)
 
 
 def qconv2d(x, weight, bias=None, groups=1):

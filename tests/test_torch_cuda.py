@@ -719,34 +719,57 @@ def test_pth_loaded_basic_mv_equals_npz_loaded_on_card(cuda, tmp_path):
 
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 24, 40, 54, 48, 3), (1, 24, 40, 48, 48, 3), (2, 16, 28, 32, 128, 5),
-                                   (2, 16, 28, 256, 128, 5), (2, 9, 17, 8, 2, 7), (1, 21, 33, 3, 12, 5)])
+@pytest.mark.parametrize("shape", [(1, 24, 40, 54, 48, 3, False), (1, 24, 40, 48, 48, 3, False),
+                                   (2, 16, 28, 32, 128, 5, False), (2, 16, 28, 256, 128, 5, False),
+                                   (2, 9, 17, 8, 2, 7, False), (1, 21, 33, 3, 12, 5, False),
+                                   (2, 19, 37, 40, 144, 3, False), (2, 20, 30, 80, 96, 5, True)])
 def test_qconv_int8_kernel_matches_plain(cuda, shape, dtype, bias):
-    """Q1 equals its plain version bit for bit at the dual trunk's and
-    SpyNet's channel counts (and the odd 8->2 direct 7x7, the 3->12 skip),
-    f32 and bf16 out, with and without bias, and at the int32 edge."""
-    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import pack_weights, qconv_int8, qconv_int8_plain
+    """Q1s and Q1 equal their plain versions bit for bit on float inputs at
+    the dual trunk's and SpyNet's channel counts (tensor cores), the odd 8->2
+    direct 7x7 and the 3->12 skip (CUDA cores), a ragged shape (H, W past
+    the tile, Ci 40 past a 32-channel k-step, Co 144 in three N tiles) and a
+    row window of a taller tensor (a view, as height sharding passes; in
+    bf16 64-channel chunks, Ci 80 and Co 96 ragged in them), f32 and bf16,
+    with and without bias; and at the int32 edge, inputs of exactly -127 xs
+    against weights of 127."""
+    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import (
+        act_scale,
+        act_scale_plain,
+        k_chunk,
+        pack_weights,
+        qconv_int8,
+        qconv_int8_plain,
+    )
 
-    n, h, w, ci, co, k = shape
+    n, h, w, ci, co, k, view = shape
     g = torch.Generator().manual_seed(ci + co)
-    xq = torch.randint(-127, 128, (n, h, w, ci), generator=g, dtype=torch.int8).to(cuda)
+    full = ((torch.rand((n, h + 6 * view, w, ci), generator=g) * 2 - 1) * 3).to(cuda, dtype)
+    x = full[:, 3:3 + h] if view else full
+    assert x.is_contiguous() != view
     wq = torch.randint(-127, 128, (co, ci, k, k), generator=g, dtype=torch.int8).to(cuda)
-    xs, ks = (torch.rand(n, generator=g) * 1e-2).to(cuda), (torch.rand(co, generator=g) * 1e-2).to(cuda)
+    ks = (torch.rand(co, generator=g) * 1e-2).to(cuda)
     b = (torch.rand(co, generator=g) - 0.5).to(cuda) if bias else None
-    before = qconv_int8.launches
-    assert torch.equal(qconv_int8(xq, wq, xs, ks, b, dtype, packed=pack_weights(wq)),
-                       qconv_int8_plain(xq, wq, xs, ks, b, dtype))
-    edge_x, edge_w = torch.full_like(xq, -127), torch.full_like(wq, 127)
-    assert torch.equal(qconv_int8(edge_x, edge_w, xs, ks, b, dtype), qconv_int8_plain(edge_x, edge_w, xs, ks, b, dtype))
-    assert qconv_int8.launches == before + 2
+    q1, q1s = qconv_int8.launches, act_scale.launches
+    xs = act_scale(x)
+    assert torch.equal(xs, act_scale_plain(x))
+    got = qconv_int8(x, xs, wq, ks, b, packed=pack_weights(wq, k_chunk(dtype, ci, co, k)))
+    assert got.dtype == dtype and torch.equal(got, qconv_int8_plain(x, xs, wq, ks, b))
+    assert torch.equal(qconv_int8(x, None, wq, ks, b), got)  # Q1s then Q1 from one call
+    edge = torch.full_like(x, -63.5)  # -127 x 0.5, exact in bf16 too
+    edge_w = torch.full_like(wq, 127)
+    xs_edge = act_scale(edge)
+    assert torch.equal(xs_edge, torch.full((n,), 0.5, device=cuda))
+    assert torch.equal(qconv_int8(edge, xs_edge, edge_w, ks, b), qconv_int8_plain(edge, xs_edge, edge_w, ks, b))
+    assert (qconv_int8.launches - q1, act_scale.launches - q1s) == (3, 3)
 
 
 def test_quantized_tiny_basic_matches_cpu(cuda):
-    """A quantized tiny BasicVSR on the card (Q1 for SpyNet's 30 convs and
-    the trunks' 3 per step, B2 once, B1 never) against the same model on the
-    CPU: within 1e-2 of the largest output, mean 1e-3 (float32 convs in
-    other orders upstream can flip a round-half activation by one step)."""
-    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import qconv_int8
+    """A quantized tiny BasicVSR on the card (Q1 and Q1s for SpyNet's 30
+    convs and the trunks' 3 per step, B2 once, B1 never) against the same
+    model on the CPU: within 1e-2 of the largest output, mean 1e-3 (float32
+    convs in other orders upstream can flip a round-half activation by one
+    step)."""
+    from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import act_scale, qconv_int8
     from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
     from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 
@@ -755,12 +778,12 @@ def test_quantized_tiny_basic_matches_cpu(cuda):
     for d in ("cpu", cuda):
         m = BasicVSR(num_feat=8, num_block=1, scale=4, quantized=True).to(d)
         load_params_npz(m, random_jax_params(m, seed=3))
-        counts = (qconv_int8.launches, conv5x5_same.launches, fused_conv_pixel_shuffle.launches)
+        counts = (qconv_int8.launches, act_scale.launches, conv5x5_same.launches, fused_conv_pixel_shuffle.launches)
         with torch.inference_mode():
             outs.append(m(x.to(d), 128, 192).cpu())
-        counts = tuple(a - b for a, b in zip((qconv_int8.launches, conv5x5_same.launches,
+        counts = tuple(a - b for a, b in zip((qconv_int8.launches, act_scale.launches, conv5x5_same.launches,
                                               fused_conv_pixel_shuffle.launches), counts))
-    assert counts == (30 + 3 * 3, 0, 1)
+    assert counts == (30 + 3 * 3, 30 + 3 * 3, 0, 1)
     top = float(outs[0].abs().max())
     diff = (outs[1] - outs[0]).abs()
     assert float(diff.max()) <= 1e-2 * top and float(diff.mean()) <= 1e-3 * top

@@ -37,10 +37,16 @@ from mobilesuperresolution_tpu.models.wdsr_basic import BasicModel as JBasicMode
 from mobilesuperresolution_tpu.ops import quant as jq
 from mobilesuperresolution_tpu_torch.cli import pretrain, retrain_searched, serve, test_vsr, train_vsr
 from mobilesuperresolution_tpu_torch.kernels.qconv_int8 import (
+    act_scale,
+    act_scale_plain,
     co_tile,
+    n_tile,
     pack_weights,
+    packed_shape,
     qconv_int8,
     qconv_int8_plain,
+    quantize_plain,
+    tensor_cores,
 )
 from mobilesuperresolution_tpu_torch.models import get_model, get_vsr_model
 from mobilesuperresolution_tpu_torch.models.basicvsr import BasicVSR
@@ -92,7 +98,8 @@ def conv_case():
 def test_quantize_symmetric_and_kernel_match_jax(conv_case, dt):
     """The per-sample activation scales and int8 values, the per-tensor
     ones, the per-output-channel kernel's, and the all-zero tensor's floor,
-    bit for bit."""
+    bit for bit; Q1s's plain version (and its wrapper on the CPU) gives the
+    per-sample scales, and quantize_plain with them the int8 values."""
     x, w, _ = conv_case
     jdt, tdt = dt
     for dims in ((1, 2, 3), None):
@@ -100,6 +107,11 @@ def test_quantize_symmetric_and_kernel_match_jax(conv_case, dt):
         tqv, ts = tq.quantize_symmetric(_t(x).to(tdt), dims=dims)
         np.testing.assert_array_equal(tqv.numpy(), np.asarray(jqv))
         np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+        if dims is not None:
+            xs = act_scale_plain(_t(x).to(tdt))
+            assert xs.dtype == torch.float32 and torch.equal(act_scale(_t(x).to(tdt)), xs)
+            np.testing.assert_array_equal(xs.numpy(), np.asarray(js).reshape(-1))
+            np.testing.assert_array_equal(quantize_plain(_t(x).to(tdt), xs).numpy(), np.asarray(jqv))
     jkq, jks = jq.quantize_kernel(jnp.asarray(w).astype(jdt))
     tkq, tks = tq.quantize_kernel(_t(w).to(tdt).permute(3, 2, 0, 1))
     np.testing.assert_array_equal(tkq.permute(2, 3, 1, 0).numpy(), np.asarray(jkq))
@@ -112,9 +124,10 @@ def test_quantize_symmetric_and_kernel_match_jax(conv_case, dt):
 @pytest.mark.parametrize("bias", [False, True], ids=["no_bias", "bias"])
 @pytest.mark.parametrize("dt", DTYPES, ids=["f32", "bf16"])
 def test_qconv2d_matches_jax_bit_for_bit(conv_case, dt, bias):
-    """qconv2d (Q1's plain version on the CPU) equals JAX's qconv2d bit for
-    bit in f32 and bf16, with and without bias; a sample alone gives the
-    same numbers as in its batch (per-sample scales)."""
+    """qconv2d (Q1s's and Q1's plain versions on the CPU) equals JAX's
+    qconv2d bit for bit in f32 and bf16, with and without bias, and so does
+    Q1's plain version called on its own with Q1s's scales; a sample alone
+    gives the same numbers as in its batch (per-sample scales)."""
     x, w, b = conv_case
     jdt, tdt = dt
     want = jq.qconv2d(jnp.asarray(x).astype(jdt), jnp.asarray(w), jnp.asarray(b) if bias else None)
@@ -123,27 +136,49 @@ def test_qconv2d_matches_jax_bit_for_bit(conv_case, dt, bias):
     np.testing.assert_array_equal(got.float().numpy(), _np32(want))
     alone = tq.qconv2d(_t(x[1:2]).to(tdt), _t(w).permute(3, 2, 0, 1), _t(b) if bias else None)
     assert torch.equal(alone[0], got[1])
+    wq, ks = tq.quantize_kernel(_t(w).permute(3, 2, 0, 1))
+    xt = _t(x).to(tdt)
+    plain = qconv_int8_plain(xt, act_scale_plain(xt), wq, ks, _t(b) if bias else None)
+    assert plain.dtype == tdt and torch.equal(plain, got)
+    one = qconv_int8_plain(xt[2:], act_scale_plain(xt[2:]), wq, ks, _t(b) if bias else None)
+    assert torch.equal(one[0], plain[2])
 
 
 @pytest.mark.parametrize("ci,co,k", [(3, 12, 5), (54, 48, 3), (8, 2, 7), (46, 40, 3), (20, 24, 1)])
 def test_q1_packing_is_exact(ci, co, k):
-    """The packed weight Q1 reads holds every int8 value once, in (Co tile,
-    Ci chunk of 16, ky, kx, word, co, byte) order, zero past Ci and Co, and
-    the plain version's integer conv is exact at the int32 edge (all ±127
-    over 6,400 products is < 2^31)."""
+    """The packed weight Q1 reads holds every int8 value once, zero past Ci
+    and Co: on the tensor cores (Ci >= 16, Co >= 8) K-major k-steps in
+    (N tile, Ci chunk of 32 or 64, ky, kx, k-step, n, 32-byte row) order
+    with the row's 16-byte halves swapped in rows 4-7 of every 8; on the
+    CUDA cores (Co tile, Ci chunk of 16, ky, kx, word, co, byte) order. The
+    plain version's integer conv is exact at the int32 edge (all ±127 over
+    6,400 products is < 2^31)."""
     g = torch.Generator().manual_seed(ci)
     wq = torch.randint(-127, 128, (co, ci, k, k), generator=g, dtype=torch.int8)
-    p = pack_weights(wq)
-    t = co_tile(co)
-    assert p.dtype == torch.int32 and p.shape == (-(-co // t), -(-ci // 16), k, k, 4, t, 1)
-    b = p.view(torch.int8).reshape(p.shape[0], p.shape[1], k, k, 4, t, 4)
-    back = b.permute(0, 5, 1, 4, 6, 2, 3).reshape(p.shape[0] * t, p.shape[1] * 16, k, k)
-    assert torch.equal(back[:co, :ci], wq) and not back[co:].any() and not back[:, ci:].any()
-    xq = torch.full((1, 6, 7, 256), 127, dtype=torch.int8)
+    if tensor_cores(ci, co):
+        t = n_tile(co)
+        for kc in (32, 64):
+            p = pack_weights(wq, kc)
+            assert p.dtype == torch.int8 and p.is_contiguous()
+            assert p.shape == packed_shape(co, ci, k, kc) == (-(-co // t), -(-ci // kc), k, k, kc // 32, t, 2, 16)
+            swap = ((torch.arange(t) >> 2) & 1).bool()
+            rows = p.clone()
+            rows[:, :, :, :, :, swap] = p[:, :, :, :, :, swap].flip(6)  # undo the swizzle
+            back = rows.permute(0, 5, 1, 4, 6, 7, 2, 3).reshape(p.shape[0] * t, p.shape[1] * kc, k, k)
+            assert torch.equal(back[:co, :ci], wq) and not back[co:].any() and not back[:, ci:].any()
+    else:
+        t = co_tile(co)
+        p = pack_weights(wq)
+        assert p.dtype == torch.int32 and p.shape == packed_shape(co, ci, k) == (-(-co // t), -(-ci // 16), k, k, 4,
+                                                                                t, 1)
+        b = p.view(torch.int8).reshape(p.shape[0], p.shape[1], k, k, 4, t, 4)
+        back = b.permute(0, 5, 1, 4, 6, 2, 3).reshape(p.shape[0] * t, p.shape[1] * 16, k, k)
+        assert torch.equal(back[:co, :ci], wq) and not back[co:].any() and not back[:, ci:].any()
+    x = torch.full((1, 6, 7, 256), 127.0)
     we = torch.full((3, 256, 5, 5), -127, dtype=torch.int8)
-    y = qconv_int8_plain(xq, we, torch.ones(1), torch.ones(3))
+    y = qconv_int8_plain(x, torch.ones(1), we, torch.ones(3))
     assert float(y[0, 3, 3, 0]) == -127.0 * 127 * 6400
-    assert torch.equal(qconv_int8(xq, we, torch.ones(1), torch.ones(3)), y)
+    assert torch.equal(qconv_int8(x, act_scale(x), we, torch.ones(3)), y)
 
 
 def test_qconv2d_refuses_groups():
