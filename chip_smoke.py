@@ -5,11 +5,17 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 1. device name, and the card's name and power limit from nvidia-smi;
 2. build the hand kernels from mobilesuperresolution_tpu_torch/csrc with nvcc
-   (ptxas's registers and spills per kernel; Q1's s8 wgmma in its SASS);
+   (ptxas's registers and spills per kernel; Q1's s8 wgmma in its SASS, and
+   the tf32 tensor-core instructions of B1's and B2's f32 routes in theirs,
+   with ptxas's C75xx notes);
 3. each kernel against its plain PyTorch version on the card at the shapes
    the main path gives it, with kernel / plain / library-call times and the
-   kernel's roofline bound (B3, B4 and B5 at the rate of the unit each product
-   runs on: CUDA-core f32, 3xTF32 or bf16 tensor cores, named in the row);
+   kernel's roofline bound (at the rate of the unit each product runs on:
+   CUDA-core f32, 3xTF32 or bf16 tensor cores, named in the row); every f32
+   case of B1 and B2 also twice against itself, bit for bit (B1's 8-warp
+   f32 tiles on wgmma also against its mma.sync route), and B1 f32 at N =
+   1, ragged 37x53 maps with channel tails, a 4x7 level and 128 samples at
+   1x1, B2 f32 at odd crops, Cin 16 and 40 and the 3x3 form at s 3;
    B1 over all six pyramid levels of one window (30 launches), per level and
    summed, against cuDNN; B3 and B5 also at other widths (B3 16, 32, 64
    units; B5 16, 48, 24 -> 40 channels) and B5 at the eval shape for k 3, 5,
@@ -18,7 +24,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    with their device time per launch (torch.profiler) and the wrapper's
    host time per call; B1 at the flow cache's group (8 pair samples) and B3
    and B4 at the training step's batch (16 x 48x48) too; B1 over the VSR
-   training step's six SpyNet levels (36 samples, f32: 30 launches) and B2
+   training step's six SpyNet levels (36 samples, f32: 30 launches, per
+   level and summed, against cuDNN) and B2
    at its tail (20 x 64x64, f32 and bf16); B2 at 'single''s tail (2x2 over
    32 channels) and 'multi''s decode (3x3 over 18), f32 and bf16 at the
    training shape, and the decode at the serving window in bf16; B2 past
@@ -228,7 +235,8 @@ run plus phases 16-18, 20, 21, 24, 26-30, 34-38 and 41, B3 from the
 pretraining run and phases 24, 29, 32, 33 and 37, B4 from those and phase
 20's 'multi_v1' runs and 28, B5 from the search and phases 22, 23 and 40,
 Q1 and Q1s from phases 26, 27, 30 and 41, as many of each; B1 and B2 also from
-phase 42), the
+phase 42; with each kernel's routes by dtype or shape, and B1's and B2's
+float32 launches from phase 4 on), the
 nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``. Details go to chiprun_out/chip_smoke.json. Needs CUDA;
 imports nothing of JAX.
@@ -335,12 +343,6 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes, dtype):
-    """Bound of B1 and B2: bf16 at the tensor-core rate, f32 on the CUDA
-    cores. Returns (ms, "operations" or "bytes")."""
-    return bound_by_route([(flops, "bf16" if dtype == torch.bfloat16 else "f32")], nbytes)[:2]
-
-
 def bound_by_route(work, nbytes):
     """Bound of a kernel whose operations run on several units: ``work`` is
     [(flops, basis)], basis a key of PEAK_RATES; the units work side by side,
@@ -353,8 +355,22 @@ def bound_by_route(work, nbytes):
 
 
 def route(dtype):
-    """The tensor-core basis of B3's, B4's and B5's products for an I/O dtype."""
+    """The tensor-core basis of the products of B1-B5 for an I/O dtype: bf16
+    for bfloat16, 3xTF32 for float32."""
     return "bf16" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def check_twice(name, fn, want, tol):
+    """``check`` one call of ``fn`` against its plain version, then a second
+    call bit for bit against the first (the f32 routes sum K in an order
+    fixed by the shapes: no atomics, no split K)."""
+    got = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    err = check(name, got, want, tol)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two calls differ (max {float((got - again).abs().max())})")
+    return got, err
 
 
 def host_us(fn, iters=200):
@@ -544,31 +560,85 @@ def ptxas_summary(path):
     return out
 
 
+def sass_ops(name, pattern):
+    """The distinct SASS instructions of lib<name>.so that match ``pattern``
+    (cuobjdump -sass), and ptxas's C75xx notes per code from its build log."""
+    from mobilesuperresolution_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", os.path.join(_build.BUILD_DIR, f"lib{name}.so")], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    notes = {}
+    for ln in open(os.path.join(_build.BUILD_DIR, f"{name}.log")):
+        m = re.search(r"\((C75\d+)\)", ln)
+        if m:
+            notes[m.group(1)] = notes.get(m.group(1), 0) + 1
+    return sorted(set(re.findall(pattern, sass))), notes
+
+
 def q1_sass():
     """Q1's tensor-core route in the built library: the distinct int8 wgmma
     instructions (IGMMA ... S8.S8) of its SASS, and ptxas's C75xx notes per
     code (C7517 is a warpgroup.wait injected before mbar_wait's timeout
     trap, a path never taken; C7512, C7513, C7515 and C7518 would mean
     serialised wgmma). Fails when there is no s8 wgmma."""
-    from mobilesuperresolution_tpu_torch.kernels import _build
-
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", os.path.join(_build.BUILD_DIR, "libqconv_int8.so")], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    ops = sorted(set(re.findall(r"IGMMA\.\w+\.S8\.S8", sass)))
-    notes = {}
-    for ln in open(os.path.join(_build.BUILD_DIR, "qconv_int8.log")):
-        m = re.search(r"\((C75\d+)\)", ln)
-        if m:
-            notes[m.group(1)] = notes.get(m.group(1), 0) + 1
+    ops, notes = sass_ops("qconv_int8", r"IGMMA\.\w+\.S8\.S8")
     log(f"  qconv_int8 SASS: {ops}; ptxas notes {notes}")
     if not ops:
         raise AssertionError("Q1's library holds no s8 wgmma (IGMMA ... S8.S8)")
     return dict(igmma=ops, ptxas_notes=notes)
 
 
+def tf32_sass():
+    """The f32 routes of B1 and B2 on the tensor cores: the distinct tf32
+    instructions (HMMA.1688.F32.TF32 of mma.sync, HGMMA ... TF32 of wgmma)
+    in the SASS of libconv5x5.so and libfused_tail.so, and ptxas's C75xx
+    notes per code for each. Fails when either library has none."""
+    out = {}
+    for name in ("conv5x5", "fused_tail"):
+        ops, notes = sass_ops(name, r"HMMA\.1688\.F32\.TF32|HGMMA\.\w+\.F32\.TF32")
+        log(f"  {name} SASS: tf32 {ops}; ptxas notes {notes}")
+        if not ops:
+            raise AssertionError(f"lib{name}.so holds no tf32 tensor-core instruction "
+                                 "(HMMA.1688.F32.TF32 / HGMMA TF32)")
+        out[name] = dict(tf32=ops, ptxas_notes=notes)
+    return out
+
+
+def b1_routes_agree(tag, x, wt, b, relu, got):
+    """B1 f32 without packed weights (the mma.sync route on 4-warp tiles)
+    bit for bit against ``got`` (the packed weights' plan: wgmma on 8-warp
+    tiles where the plan takes them): every plan sums each output in one
+    order with the same tf32 products."""
+    from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, f32_plan
+
+    other = conv5x5_same(x, wt, b, relu)
+    torch.cuda.synchronize()
+    if not torch.equal(other, got):
+        raise AssertionError(f"{tag}: the mma.sync route differs from the wgmma route by "
+                             f"{float((other - got).abs().max())}")
+    shape = (*x.shape[:3], wt.shape[3])
+    log(f"  {tag}: packed (plan {f32_plan(*shape, True)}) and unpacked (plan {f32_plan(*shape, False)}) bit-equal")
+
+
+def conv5x5_flops(n, h, w, cin, cout):
+    """The operations of a 5x5 SAME conv on an (n, h, w) map: its products
+    with pixels of the image only (a tap's shift by dy rows meets max(0, h -
+    |dy|) of them; products with the zero padding are not needed)."""
+    def live(m):
+        return sum(max(0, m - abs(d)) for d in range(-2, 3))
+
+    return 2.0 * n * cin * cout * live(h) * live(w)
+
+
 def phase_kernels(gen, dev):
-    from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain, pack_weights
+    from mobilesuperresolution_tpu_torch.kernels.conv5x5 import (
+        conv5x5_same,
+        conv5x5_same_plain,
+        f32_plan,
+        pack_weights,
+        pack_weights_f32,
+    )
     from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
         fused_conv_pixel_shuffle,
         fused_conv_pixel_shuffle_plain,
@@ -595,47 +665,81 @@ def phase_kernels(gen, dev):
         x = rand((nimg, h, w, cin), dtype)
         wt = rand((5, 5, cin, cout), dtype, 1.0 / np.sqrt(25 * cin))
         b = rand((cout,), torch.float32, 0.1)
-        wp = pack_weights(wt) if cout % 64 == 0 else None  # as SpyNet's prepare packs them, once
-        got = conv5x5_same(x, wt, b, relu, wp)
+        # as SpyNet's prepare packs them, once
+        wp = (pack_weights_f32 if dtype == torch.float32 else pack_weights)(wt) if cout % 64 == 0 else None
         want = conv5x5_same_plain(x, wt, b, relu)
-        torch.cuda.synchronize()
         tag = f"B1 {nimg}x{h}x{w} {cin}->{cout} {str(dtype)[6:]}"
-        err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
+        if dtype == torch.float32:
+            got, err = check_twice(tag, lambda: conv5x5_same(x, wt, b, relu, wp), want, f32_tol(want))
+        else:
+            got = conv5x5_same(x, wt, b, relu, wp)
+            torch.cuda.synchronize()
+            err = check(tag, got, want, bf16_tol(want))
         xn, wn, bb = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(), b.to(dtype)
         ms = cuda_ms(lambda: conv5x5_same(x, wt, b, relu, wp))
         plain_ms = cuda_ms(lambda: conv5x5_same_plain(x, wt, b, relu))
         lib_ms = cuda_ms(lambda: F.conv2d(xn, wn, bb, padding=2))
-        flops = 2.0 * nimg * h * w * cin * cout * 25
-        bms, by = bound(flops, nbytes(x, wt, b, got), dtype)
-        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+        flops = conv5x5_flops(nimg, h, w, cin, cout)
+        bms, by, basis = bound_by_route([(flops, route(dtype))], nbytes(x, wt, b, got))
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis})")
         rows["B1"].append(dict(case=tag, main_path=False, serving=dtype == torch.bfloat16 and nimg == n,
                                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                               bound_by=by, gflop=flops / 1e9))
+                               bound_by=by, bound_basis=basis, gflop=flops / 1e9))
+
+    # B1 f32 at the edges of its tiles (3xTF32): N = 1 at a large map,
+    # ragged 37x53 with Cin 20 / Cout 8 and Cin 40 / Cout 96 tails, a coarse
+    # 4x7 level, 128 samples at 1x1 (the folded tile past 36), and a batch
+    # of 16 clips' 288 samples at 8x8 and 4x4 (whole images folded into the
+    # wgmma route's tile); each with packed weights against its plain
+    # version, twice against itself, and against the unpacked route
+    for nimg, hh, ww, cin, cout, relu in [(1, 64, 112, 128, 256, True), (2, 37, 53, 20, 8, True),
+                                          (1, 37, 53, 40, 96, False), (18, 4, 7, 32, 128, True),
+                                          (128, 1, 1, 128, 256, True), (288, 8, 8, 128, 256, True),
+                                          (288, 4, 4, 256, 256, True)]:
+        x = rand((nimg, hh, ww, cin), torch.float32)
+        wt = rand((5, 5, cin, cout), torch.float32, 1.0 / np.sqrt(25 * cin))
+        b = rand((cout,), torch.float32, 0.1)
+        wp = pack_weights_f32(wt)
+        want = conv5x5_same_plain(x, wt, b, relu)
+        tag = f"B1 edge {nimg}x{hh}x{ww} {cin}->{cout} float32"
+        got, _ = check_twice(tag, lambda: conv5x5_same(x, wt, b, relu, wp), want, f32_tol(want))
+        b1_routes_agree(tag, x, wt, b, relu, got)
 
     # B1 on the VSR training step's path (this slice's): SpyNet's six levels
     # for 64x64 LR patches, 2 clips x 9 pairs x 2 directions = 36 samples,
     # each level's five s2d convs at half its size (32x32 down to 1x1), f32
     nv = VSR_BATCH * (VSR_T - 1) * 2
+    levels = []
     for lvl in range(6):
         lh = (VSR_PATCH // 2) >> lvl
+        lv = dict(level=f"{nv}x{lh}x{lh}", ms=0.0, library_ms=0.0, bound_ms=0.0)
         for cin, cout, relu in shapes:
             x = rand((nv, lh, lh, cin), torch.float32)
             wt = rand((5, 5, cin, cout), torch.float32, 1.0 / np.sqrt(25 * cin))
             b = rand((cout,), torch.float32, 0.1)
-            got = conv5x5_same(x, wt, b, relu)
+            wp = pack_weights_f32(wt) if cout % 64 == 0 else None  # as SpyNet's prepare packs them, once
             want = conv5x5_same_plain(x, wt, b, relu)
-            torch.cuda.synchronize()
             tag = f"B1 train {nv}x{lh}x{lh} {cin}->{cout} float32"
-            err = check(tag, got, want, f32_tol(want))
+            got, err = check_twice(tag, lambda: conv5x5_same(x, wt, b, relu, wp), want, f32_tol(want))
+            if f32_plan(nv, lh, lh, cout, wp is not None)[0] == 8:
+                b1_routes_agree(tag, x, wt, b, relu, got)
             xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
-            ms = cuda_ms(lambda: conv5x5_same(x, wt, b, relu))
+            ms = cuda_ms(lambda: conv5x5_same(x, wt, b, relu, wp))
             plain_ms = cuda_ms(lambda: conv5x5_same_plain(x, wt, b, relu))
             lib_ms = cuda_ms(lambda: F.conv2d(xn, wn, b, padding=2))
-            flops = 2.0 * nv * lh * lh * cin * cout * 25
-            bms, by = bound(flops, nbytes(x, wt, b, got), torch.float32)
-            log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+            flops = conv5x5_flops(nv, lh, lh, cin, cout)
+            bms, by, basis = bound_by_route([(flops, route(torch.float32))], nbytes(x, wt, b, got))
+            log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis})")
             rows["B1"].append(dict(case=tag, main_path=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   library_ms=lib_ms, bound_ms=bms, bound_by=by, gflop=flops / 1e9))
+                                   library_ms=lib_ms, bound_ms=bms, bound_by=by, bound_basis=basis,
+                                   gflop=flops / 1e9))
+            lv["ms"] += ms
+            lv["library_ms"] += lib_ms
+            lv["bound_ms"] += bms
+        levels.append(lv)
+        log(f"    level {lv['level']}: B1 f32 {lv['ms']:.4f} ms, library {lv['library_ms']:.4f}, "
+            f"bound {lv['bound_ms']:.4f} (five convs)")
+    rows["B1_f32_levels"] = levels
 
     # B1 over one window's whole pyramid: SpyNet's six levels (426x240 is
     # resized to 448x256, then halved five times; the s2d convs run at half
@@ -657,7 +761,7 @@ def phase_kernels(gen, dev):
             xn, wn, bb = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous(), b.to(torch.bfloat16)
             lv["ms"] += cuda_ms(lambda: conv5x5_same(x, wt, b, relu, wp))
             lv["library_ms"] += cuda_ms(lambda: F.conv2d(xn, wn, bb, padding=2))
-            lv["bound_ms"] += bound(2.0 * n * lh * lw * cin * cout * 25, nbytes(x, wt, b, got), torch.bfloat16)[0]
+            lv["bound_ms"] += bound_by_route([(conv5x5_flops(n, lh, lw, cin, cout), "bf16")], nbytes(x, wt, b, got))[0]
         pyramid.append(lv)
         log(f"    level {lv['level']}: B1 {lv['ms']:.4f} ms, library {lv['library_ms']:.4f}, "
             f"bound {lv['bound_ms']:.4f} (five convs)")
@@ -688,16 +792,26 @@ def phase_kernels(gen, dev):
     tail_cases += [("multi", VSR_BATCH * VSR_T, vp, vp, 18, 3, 4, ((1, 1), (1, 1)), None, dt)
                    for dt in (torch.float32, torch.bfloat16)]
     tail_cases += [("multi", T_WIN, H_LR, W_LR, 18, 3, 4, ((1, 1), (1, 1)), None, torch.bfloat16)]
+    # B2 f32 at the edges of its tile (3xTF32): odd crops of a ragged map,
+    # Cin 16 and 40 (a K tail), and the 3x3 form at s 3 (27 conv channels)
+    tail_cases += [(None, 2, 13, 21, 48, 2, 4, ((1, 2), (1, 2)), (51, 83), torch.float32),
+                   (None, 2, 11, 19, 16, 2, 4, ((1, 2), (1, 2)), (45, 77), torch.float32),
+                   (None, 1, 11, 19, 40, 2, 4, ((1, 2), (1, 2)), (43, 75), torch.float32),
+                   (None, 2, 11, 19, 16, 3, 3, ((1, 1), (1, 1)), None, torch.float32)]
     for zoo, nb, hh, ww, cin, k, s, pad, crop, dtype in tail_cases:
         cc = 3 * s * s
         x = rand((nb, hh, ww, cin), dtype)
         kern = rand((k, k, cin, cc), dtype, 1.0 / np.sqrt(k * k * cin))
         b = rand((cc,), dtype, 0.1)
-        got = fused_conv_pixel_shuffle(x, kern, b, s, pad, crop)
         want = fused_conv_pixel_shuffle_plain(x, kern, b, s, pad, crop)
-        torch.cuda.synchronize()
-        tag = f"B2 {nb}x{hh}x{ww}x{cin} {k}x{k} s{s} -> {tuple(got.shape)} {str(dtype)[6:]}"
-        err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
+        tag = f"B2 {nb}x{hh}x{ww}x{cin} {k}x{k} s{s} -> {tuple(want.shape)} {str(dtype)[6:]}"
+        if dtype == torch.float32:
+            got, err = check_twice(tag, lambda: fused_conv_pixel_shuffle(x, kern, b, s, pad, crop), want,
+                                   f32_tol(want))
+        else:
+            got = fused_conv_pixel_shuffle(x, kern, b, s, pad, crop)
+            torch.cuda.synchronize()
+            err = check(tag, got, want, bf16_tol(want))
         (pt, pb), (pl, pr) = pad
         xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb)).contiguous(memory_format=torch.channels_last)
         kn = kern.permute(3, 2, 0, 1).contiguous()
@@ -708,14 +822,14 @@ def phase_kernels(gen, dev):
         # conv positions that reach the crop, as the kernel computes them
         hc, wc = -(-oh // s), -(-ow // s)
         flops = 2.0 * nb * hc * wc * k * k * cin * cc
-        bms, by = bound(flops, nbytes(x, kern, b, got), dtype)
-        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+        bms, by, basis = bound_by_route([(flops, route(dtype))], nbytes(x, kern, b, got))
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis})")
         train = zoo is None and nb == VSR_BATCH * VSR_T
         rows["B2"].append(dict(case=tag, main_path=train and dtype == torch.float32,
                                serving=zoo is None and not train and dtype == torch.bfloat16, zoo=zoo,
                                max_abs_err=err, ms=ms,
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-                               gflop=flops / 1e9))
+                               bound_basis=basis, gflop=flops / 1e9))
 
     # B2 past 64 conv channels: basic_origin's upconvs (3x3 SAME, s 2, 64 ->
     # 256 conv channels, the leaky ReLU fused) at the serving window's shapes
@@ -730,22 +844,26 @@ def phase_kernels(gen, dev):
         x = rand((nb, hh, ww, cin), dtype)
         kern = rand((3, 3, cin, cc), dtype, 1.0 / np.sqrt(9 * cin))
         b = rand((cc,), dtype, 0.1)
-        got = fused_conv_pixel_shuffle(x, kern, b, 2, pad, None, True)
         want = fused_conv_pixel_shuffle_plain(x, kern, b, 2, pad, None, True)
-        torch.cuda.synchronize()
-        tag = f"B2 basic_origin {name} {nb}x{hh}x{ww}x{cin} 3x3 s2 {cc} + lrelu -> {tuple(got.shape)} {str(dtype)[6:]}"
-        err = check(tag, got, want, bf16_tol(want) if dtype == torch.bfloat16 else f32_tol(want))
+        tag = f"B2 basic_origin {name} {nb}x{hh}x{ww}x{cin} 3x3 s2 {cc} + lrelu -> {tuple(want.shape)} {str(dtype)[6:]}"
+        if dtype == torch.float32:
+            got, err = check_twice(tag, lambda: fused_conv_pixel_shuffle(x, kern, b, 2, pad, None, True), want,
+                                   f32_tol(want))
+        else:
+            got = fused_conv_pixel_shuffle(x, kern, b, 2, pad, None, True)
+            torch.cuda.synchronize()
+            err = check(tag, got, want, bf16_tol(want))
         del want
         xn, kn = x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         ms = cuda_ms(lambda: fused_conv_pixel_shuffle(x, kern, b, 2, pad, None, True), iters=10)
         plain_ms = cuda_ms(lambda: fused_conv_pixel_shuffle_plain(x, kern, b, 2, pad, None, True), iters=10)
         lib_ms = cuda_ms(lambda: F.leaky_relu(F.pixel_shuffle(F.conv2d(xn, kn, b, padding=1), 2), 0.1), iters=10)
         flops = 2.0 * nb * hh * ww * 9 * cin * cc
-        bms, by = bound(flops, nbytes(x, kern, b, got), dtype)
-        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by})")
+        bms, by, basis = bound_by_route([(flops, route(dtype))], nbytes(x, kern, b, got))
+        log(f"    ms {ms:.4f} plain {plain_ms:.4f} library {lib_ms:.4f} bound {bms:.4f} ({by}; {basis})")
         rows["B2"].append(dict(case=tag, main_path=False, serving=dtype == torch.bfloat16, zoo="basic_origin",
                                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                               bound_by=by, gflop=flops / 1e9))
+                               bound_by=by, bound_basis=basis, gflop=flops / 1e9))
         del x, got
 
     # B3: one WDSR-B block at the full-width x2 LR map (678x1020, 24 units:
@@ -1477,7 +1595,8 @@ def phase_search(dev):
 
 
 def vsr_launches():
-    """The VSR models' kernel counts: B1, B2 and B4 ('multi_v1''s tail)."""
+    """The VSR models' kernel counts: B1, B2 and B4 ('multi_v1''s tail), and
+    B1's and B2's float32 launches among them (B1_f32, B2_f32)."""
     from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same
     from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
         fused_conv_pixel_shuffle,
@@ -1485,7 +1604,8 @@ def vsr_launches():
     )
 
     return {"B1": conv5x5_same.launches, "B2": fused_conv_pixel_shuffle.launches,
-            "B4": fused_conv_pixel_shuffle_skip.launches}
+            "B4": fused_conv_pixel_shuffle_skip.launches, "B1_f32": conv5x5_same.f32_launches,
+            "B2_f32": fused_conv_pixel_shuffle.f32_launches}
 
 
 def reset_vsr_launches():
@@ -1495,9 +1615,15 @@ def reset_vsr_launches():
         fused_conv_pixel_shuffle_skip,
     )
 
-    conv5x5_same.launches = 0
-    fused_conv_pixel_shuffle.launches = 0
+    conv5x5_same.launches = conv5x5_same.f32_launches = 0
+    fused_conv_pixel_shuffle.launches = fused_conv_pixel_shuffle.f32_launches = 0
     fused_conv_pixel_shuffle_skip.launches = 0
+
+
+def routes(launches):
+    """A count dict without its float32 shares (the "_f32" keys): what the
+    checks of each kernel's launches compare."""
+    return {k: v for k, v in launches.items() if not k.endswith("_f32")}
 
 
 def model_argv(kind):
@@ -1632,7 +1758,7 @@ def phase_vsr_train(dev, work):
                                                                   for s in steps):
         raise AssertionError(f"train_vsr steps {[(s['loss'], s['skipped']) for s in steps]}")
     forwards = out["train_forwards"] + out["eval_clips"]
-    if launches != {"B1": B1_PER_WINDOW * forwards, "B2": B2_PER_WINDOW * forwards, "B4": 0}:
+    if routes(launches) != {"B1": B1_PER_WINDOW * forwards, "B2": B2_PER_WINDOW * forwards, "B4": 0}:
         raise AssertionError(f"train_vsr launches {launches}, expected B1 30 and B2 1 per forward ({forwards})")
     model = get_vsr_model("basic", scale=VSR_SCALE, device=dev)
     want = jax_param_shapes(model)
@@ -1658,7 +1784,7 @@ def phase_vsr_train(dev, work):
             f"{st['peak_gib']:.3f} GiB")
         for k, c, t in st["top_kernels"]:
             log(f"    {t:8.3f} ms {c:5d}x {k}")
-        if st["launches_per_step"] != {"B1": B1_PER_WINDOW, "B2": B2_PER_WINDOW, "B4": 0}:
+        if routes(st["launches_per_step"]) != {"B1": B1_PER_WINDOW, "B2": B2_PER_WINDOW, "B4": 0}:
             raise AssertionError(f"VSR step {name}: launches per step {st['launches_per_step']}")
         del m
     return stats, launches, job
@@ -1922,7 +2048,7 @@ def phase_zoo_parity(dev):
             f"{l1}, CPU {l0} (max difference {lerr:.3e}); first-step gradients of {len(g0)} parameters within "
             f"{gerr:.3e} of each largest")
         if not (yerr <= 1e-4 and lerr <= 1e-4 and gerr <= 1e-4 and not frozen and set(g0) == set(g1)
-                and launches == ZOO_PER_FORWARD[kind]):
+                and routes(launches) == ZOO_PER_FORWARD[kind]):
             raise AssertionError(f"tiny {kind} card vs CPU: forward {yerr}, losses {lerr}, gradients {gerr}, "
                                  f"flownet {frozen}, launches {launches}")
         out[kind] = dict(forward_err_rel=yerr, loss_err=lerr, grad_err_rel=gerr, launches=launches)
@@ -1943,7 +2069,7 @@ def phase_zoo_train(dev, work, kinds, mv_root=None):
     from mobilesuperresolution_tpu_torch.models import get_vsr_model
     from mobilesuperresolution_tpu_torch.train.checkpoint import jax_param_shapes, load_params_npz, random_jax_params
 
-    stats, total, npzs = {}, {"B1": 0, "B2": 0, "B4": 0}, {}
+    stats, total, npzs = {}, dict.fromkeys(vsr_launches(), 0), {}
     for kind in kinds:
         job = os.path.join(work, f"vsr_{kind}")
         set_name = "reds_with_mv" if kind == "basic_mv" else "synthetic_vsr"
@@ -1961,7 +2087,7 @@ def phase_zoo_train(dev, work, kinds, mv_root=None):
             f"forwards")
         if len(steps) != VSR_STEPS_PER_EPOCH or not all(np.isfinite(s["loss"]) and s["skipped"] == 0 for s in steps):
             raise AssertionError(f"train_vsr {kind} steps {[(s['loss'], s['skipped']) for s in steps]}")
-        if launches != {k: v * forwards for k, v in ZOO_PER_FORWARD[kind].items()}:
+        if routes(launches) != {k: v * forwards for k, v in ZOO_PER_FORWARD[kind].items()}:
             raise AssertionError(f"train_vsr {kind} launches {launches}, expected {ZOO_PER_FORWARD[kind]} per forward")
         model = get_vsr_model(kind, scale=VSR_SCALE, device=dev, block_index_path=ZOO_ARTIFACT)
         want = jax_param_shapes(model)
@@ -1987,7 +2113,7 @@ def phase_zoo_train(dev, work, kinds, mv_root=None):
                 f"launches, peak {ss['peak_gib']:.3f} GiB")
             for k, c, t in ss["top_kernels"][:4]:
                 log(f"    {t:8.3f} ms {c:5d}x {k}")
-            if ss["launches_per_step"] != ZOO_PER_FORWARD[kind]:
+            if routes(ss["launches_per_step"]) != ZOO_PER_FORWARD[kind]:
                 raise AssertionError(f"{kind} step {name}: launches per step {ss['launches_per_step']}")
             del m
         reset_vsr_launches()
@@ -2042,7 +2168,7 @@ def phase_patch_eval(dev, work, npz):
         f"{wall:.2f} s, launches {launches}")
     if arr.shape != (4, N_PATCHES * VSR_T) or not np.isfinite(arr).all() or not np.array_equal(arr, res):
         raise AssertionError(f"patch eval array {arr.shape}, finite {np.isfinite(arr).all()}")
-    if launches != {"B1": B1_PER_WINDOW * N_PATCHES, "B2": B2_PER_WINDOW * N_PATCHES, "B4": 0}:
+    if routes(launches) != {"B1": B1_PER_WINDOW * N_PATCHES, "B2": B2_PER_WINDOW * N_PATCHES, "B4": 0}:
         raise AssertionError(f"patch eval launches {launches} for {N_PATCHES} patch batches")
 
     params = argparse.Namespace(scale=VSR_SCALE, synthetic_size=size, synthetic_clips=1, synthetic_frames=VSR_T,
@@ -2111,7 +2237,7 @@ def phase_zoo_serve(dev, work, npz):
         f"(PNG writes included), launches {launches}")
     if stats["frames"] != N_STREAM_FRAMES or len(names) != N_STREAM_FRAMES or shape != (4 * H_LR, 4 * W_LR, 3):
         raise AssertionError(f"serve multi: {stats}, {len(names)} files of {shape}")
-    if launches != {"B1": B1_PER_WINDOW * windows, "B2": B2_PER_WINDOW * windows, "B4": 0}:
+    if routes(launches) != {"B1": B1_PER_WINDOW * windows, "B2": B2_PER_WINDOW * windows, "B4": 0}:
         raise AssertionError(f"serve multi launches {launches} for {windows} windows")
     return dict(stats, launches=launches, windows=windows), launches
 
@@ -2176,7 +2302,7 @@ def phase_origin_serve(dev):
     plain = vsr_launches()
     if len(out) != T_WIN or any(fr.shape != (OH, OW, 3) or not np.isfinite(fr).all() for fr in out):
         raise AssertionError(f"basic_origin stream: {len(out)} frames of {out[0].shape if out else None}")
-    if plain != {k: v * windows for k, v in per.items()}:
+    if routes(plain) != {k: v * windows for k, v in per.items()}:
         raise AssertionError(f"basic_origin stream launches {plain} for {windows} windows")
 
     flow_fn, sr_fn = make_flow_sr_fns(model, OH, OW)
@@ -2195,7 +2321,7 @@ def phase_origin_serve(dev):
     want = torch.from_numpy(np.stack(out))
     err = check("basic_origin cached stream vs plain stream (bf16)", torch.from_numpy(np.stack(cout)), want,
                 bf16_tol(want))
-    if cached != {"B1": B1_PER_WINDOW * len(groups), "B2": per["B2"] * windows, "B4": 0}:
+    if routes(cached) != {"B1": B1_PER_WINDOW * len(groups), "B2": per["B2"] * windows, "B4": 0}:
         raise AssertionError(f"basic_origin cached stream launches {cached} for {len(groups)} groups, "
                              f"{windows} windows")
 
@@ -2352,7 +2478,7 @@ def phase_reference_checkpoints(dev, work, mv_root):
     from mobilesuperresolution_tpu_torch.train.evaluate import evaluate
     from mobilesuperresolution_tpu_torch.train.torch_convert import load_reference_wdsr
 
-    stats, total = {}, {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    stats, total = {}, dict(dict.fromkeys(vsr_launches(), 0), B3=0)
     g = torch.Generator().manual_seed(24)
     # WDSR-B x2 through evaluate
     wdsr = BasicModel(num_blocks=SR_BLOCKS, num_residual_units=SR_UNITS, scale=SR_SCALE)
@@ -2424,10 +2550,10 @@ def phase_reference_checkpoints(dev, work, mv_root):
             f"(npz {runs['npz']['PSNR']:.4f}), launches {runs['pth_launches']} over {clips} clips")
         if not torch.equal(a, b) or runs["pth"] != runs["npz"]:
             raise AssertionError(f"{kind}: the .pth-loaded model differs from the npz-loaded one")
-        if runs["pth_launches"] != want:
+        if routes(runs["pth_launches"]) != want:
             raise AssertionError(f"{kind} .pth: launches {runs['pth_launches']}, expected {want}")
         stats[kind] = dict(psnr=runs["pth"]["PSNR"], launches=runs["pth_launches"])
-        for k in ("B1", "B2", "B4"):
+        for k in ("B1", "B2", "B4", "B1_f32", "B2_f32"):
             total[k] += runs["pth_launches"][k]
         del model, by_pth, by_npz
 
@@ -2447,11 +2573,11 @@ def phase_reference_checkpoints(dev, work, mv_root):
         launches = vsr_launches()
     log(f"  spynet .pth through cli.train_vsr: step losses {losses['pth']} (npz {losses['npz']}), launches "
         f"{launches}")
-    if losses["pth"] != losses["npz"] or len(losses["pth"]) != 1 or launches != {"B1": B1_PER_WINDOW, "B2": 1,
-                                                                                "B4": 0}:
+    if losses["pth"] != losses["npz"] or len(losses["pth"]) != 1 or routes(launches) != {
+            "B1": B1_PER_WINDOW, "B2": 1, "B4": 0}:
         raise AssertionError(f"spynet .pth: losses {losses}, launches {launches}")
     stats["spynet_pth"] = dict(loss=losses["pth"][0], launches=launches)
-    for k in ("B1", "B2"):
+    for k in ("B1", "B2", "B1_f32", "B2_f32"):
         total[k] += launches[k]
     return stats, total
 
@@ -3138,7 +3264,7 @@ def phase_sharded_vsr(dev, frames):
     from mobilesuperresolution_tpu_torch.train.checkpoint import load_params_npz, random_jax_params
 
     x = torch.from_numpy(np.stack(frames[:T_WIN])[None]).to(dev)
-    stats, total = {}, {"B1": 0, "B2": 0, "B4": 0}
+    stats, total = {}, dict.fromkeys(vsr_launches(), 0)
     for kind, shards, b2 in (("basic", (2, 4), 1), ("basic_origin", (2,), 2)):
         model = get_vsr_model(kind, scale=4, compute_dtype=torch.bfloat16, device=dev)
         load_params_npz(model, random_jax_params(model, seed=0))
@@ -3159,7 +3285,7 @@ def phase_sharded_vsr(dev, frames):
                 got = fwd()
                 torch.cuda.synchronize()
                 launches = vsr_launches()
-                if launches != {"B1": B1_PER_WINDOW, "B2": b2, "B4": 0}:
+                if routes(launches) != {"B1": B1_PER_WINDOW, "B2": b2, "B4": 0}:
                     raise AssertionError(f"sharded {kind} S={n}: launches {launches}")
                 total = {k: total[k] + launches[k] for k in total}
                 err = check(f"{kind} bf16 window S={n} vs plain", got, want, bf16_tol(want))
@@ -3188,7 +3314,7 @@ def phase_sharded_serve(work, float_out, cached_out):
     from mobilesuperresolution_tpu_torch.cli import serve
 
     d = os.path.join(work, "qserve_frames")
-    out, total = {}, {"B1": 0, "B2": 0, "B4": 0}
+    out, total = {}, dict.fromkeys(vsr_launches(), 0)
     windows = len(range(0, N_STREAM_FRAMES, CHUNK)) + 1  # and the warm-up window
     for name, extra, ref in (("plain", [], float_out), ("flow_cache", ["--flow_cache"], cached_out)):
         job = os.path.join(work, f"sserve_{name}")
@@ -3241,7 +3367,7 @@ def phase_spatial_vsr_train(dev, work, ref_steps):
         raise AssertionError(f"spatial train_vsr steps {steps}")
     if not abs(steps[0]["loss"] - ref_steps[0]["loss"]) <= 1e-5 * abs(ref_steps[0]["loss"]):
         raise AssertionError(f"spatial train_vsr first loss {steps[0]['loss']} vs {ref_steps[0]['loss']}")
-    if launches != {"B1": B1_PER_WINDOW * forwards, "B2": B2_PER_WINDOW * forwards, "B4": 0}:
+    if routes(launches) != {"B1": B1_PER_WINDOW * forwards, "B2": B2_PER_WINDOW * forwards, "B4": 0}:
         raise AssertionError(f"spatial train_vsr launches {launches} for {forwards} forwards")
     total = dict(launches)
     npz = os.path.join(job, "weights", "models.npz")
@@ -3356,7 +3482,7 @@ def phase_data_axis(work, job):
     slots = [str(d) for d in make_mesh(spatial=1, device="cuda").data_devices]
     chunk, overlap = 4, 2
     windows = VSR_CLIPS * len(range(0, VSR_T, chunk))
-    out, total, results = {"data_slots": slots}, {"B1": 0, "B2": 0, "B4": 0}, {}
+    out, total, results = {"data_slots": slots}, dict.fromkeys(vsr_launches(), 0), {}
     runs = (("windows", [], windows), ("windows_data_parallel", ["--chunk_data_parallel"], windows),
             ("patches", [], N_PATCHES), ("patches_data_parallel", ["--data_parallel"], N_PATCHES))
     for name, flag, per in runs:
@@ -3376,7 +3502,7 @@ def phase_data_axis(work, job):
                          result=res if isinstance(res, dict) else dict(psnr=float(res[2].mean()), shape=res.shape))
         log(f"  {' '.join(flag) or 'plain'} ({name.split('_')[0]}): {wall:.2f} s, launches {launches}, "
             f"{out[name]['result']}")
-        if launches != {"B1": B1_PER_WINDOW * per, "B2": B2_PER_WINDOW * per, "B4": 0}:
+        if routes(launches) != {"B1": B1_PER_WINDOW * per, "B2": B2_PER_WINDOW * per, "B4": 0}:
             raise AssertionError(f"{name}: launches {launches} for {per} windows or patch batches")
         results[name] = res
         total = {k: total[k] + launches[k] for k in total}
@@ -3621,6 +3747,7 @@ def main():
                 log(f"  {name}: {line}")
         report["build_s"] = secs
         report["q1_sass"] = q1_sass()
+        report["tf32_sass"] = tf32_sass()
 
         phase("kernels vs plain:")
         rows = phase_kernels(torch.Generator().manual_seed(0), dev)
@@ -3725,14 +3852,14 @@ def main():
         # it, each count set to 0 before its path; B4 also from pretraining
         parts = dict(basic_train=vsr_main, zoo_train=zoo_main, patch_eval=patch_main, multi_serve=serve_main,
                      zoo_rest_train=rest_main, origin_serve=origin_main, reference_checkpoints=ckpt_main)
-        vsr_paths = {k: sum(p[k] for p in parts.values()) for k in ("B1", "B2", "B4")}
+        vsr_paths = {k: sum(p[k] for p in parts.values()) for k in ("B1", "B2", "B4", "B1_f32", "B2_f32")}
         report["launches_vsr_paths"] = parts
         # B5: the search, the latency table and the search's latency paths
         b5_parts = dict(search=search_main, latency_table=table_main, search_latency=search_latency_main)
         report["launches_b5_paths"] = b5_parts
         launches = {"B5": sum(p["B5"] for p in b5_parts.values()), "B3": train_main["B3"] + ckpt_main["B3"],
                     "B1": vsr_paths["B1"], "B2": vsr_paths["B2"], "B4": train_main["B4"] + vsr_paths["B4"],
-                    "Q1": 0, "Q1s": 0}
+                    "Q1": 0, "Q1s": 0, "B1_f32": vsr_paths["B1_f32"], "B2_f32": vsr_paths["B2_f32"]}
         # this slice's paths: the int8 stream and evals, the export checks,
         # tiled eval and the ladder, each count set to 0 before its path
         q_parts = dict(quantized_serving=q_serve_main, quantized_eval=q_eval_main, export=export_main,
@@ -3753,16 +3880,23 @@ def main():
         for key in launches:
             launches[key] += sum(p.get(key, 0) for parts in (q_parts, p_parts, a_parts, g_parts)
                                  for p in parts.values())
+        # B1's and B2's float32 routes: their share of the same paths' counts
+        for key in ("B1", "B2"):
+            if not 0 <= launches[f"{key}_f32"] <= launches[key]:
+                raise AssertionError(f"{key}: {launches[f'{key}_f32']} float32 launches of {launches[key]} in all")
+        report["f32_route_launches"] = {key: launches[f"{key}_f32"] for key in ("B1", "B2")}
+        log(f"float32 routes' launches on the paths: {report['f32_route_launches']}")
     except Exception:
         traceback.print_exc()
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    def entry(name, source, replaces, key):
+    def entry(name, source, replaces, key, routes):
         on_path = [r for r in rows[key] if r["main_path"]]
         return {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "routes": routes, "source": source, "replaces": replaces,
+            **({"f32_launches": launches[f"{key}_f32"]} if f"{key}_f32" in launches else {}),
             "launches": launches[key],
             "max_abs_err": max(r["max_abs_err"] for r in rows[key]),
             "ms": sum(r["ms"] for r in on_path),
@@ -3773,23 +3907,30 @@ def main():
             sum(r["library_ms"] for r in on_path),
         }
 
+    # each kernel's routes, by the dtype or shape its host code routes on
+    mma = {"bfloat16": "mma.sync m16n8k16 bf16", "float32": "3xTF32 mma.sync m16n8k8"}
     kernels = {"kernels": [
         entry("conv5x5_same", "mobilesuperresolution_tpu_torch/csrc/conv5x5.cu",
-              "mobilesuperresolution_tpu/kernels/conv5x5.py:107", "B1"),
+              "mobilesuperresolution_tpu/kernels/conv5x5.py:107", "B1",
+              {"bfloat16": "wgmma m64nNk16 bf16",
+               "float32": "3xTF32: wgmma m64nNk8 on 8-warp tiles (packed weights), else mma.sync m16n8k8 "
+                          "(the same bits)"}),
         entry("fused_conv_pixel_shuffle", "mobilesuperresolution_tpu_torch/csrc/fused_tail.cu",
-              "mobilesuperresolution_tpu/kernels/fused_tail.py:85", "B2"),
+              "mobilesuperresolution_tpu/kernels/fused_tail.py:85", "B2", mma),
         entry("fused_wdsr_block", "mobilesuperresolution_tpu_torch/csrc/fused_wdsr_block.cu",
-              "mobilesuperresolution_tpu/kernels/fused_wdsr_block.py:110", "B3"),
+              "mobilesuperresolution_tpu/kernels/fused_wdsr_block.py:110", "B3", mma),
         entry("fused_conv_pixel_shuffle_skip", "mobilesuperresolution_tpu_torch/csrc/fused_tail.cu",
-              "mobilesuperresolution_tpu/kernels/fused_tail.py:85", "B4"),
+              "mobilesuperresolution_tpu/kernels/fused_tail.py:85", "B4", mma),
         entry("fused_convsep", "mobilesuperresolution_tpu_torch/csrc/fused_convsep.cu",
-              "mobilesuperresolution_tpu/kernels/fused_convsep.py:68", "B5"),
+              "mobilesuperresolution_tpu/kernels/fused_convsep.py:68", "B5",
+              {k: f"depthwise on the CUDA cores, 1x1 on {v}" for k, v in mma.items()}),
         # not TPU kernels: the XLA int8 conv of the JAX package's qconv2d and
         # its per-sample activation scale
         entry("qconv_int8", "mobilesuperresolution_tpu_torch/csrc/qconv_int8.cu",
-              "mobilesuperresolution_tpu/ops/quant.py:86", "Q1"),
+              "mobilesuperresolution_tpu/ops/quant.py:86", "Q1",
+              {"Cin >= 16 and Cout >= 8": "wgmma m64nNk32 s8", "else": "__dp4a"}),
         entry("act_scale", "mobilesuperresolution_tpu_torch/csrc/qconv_int8.cu",
-              "mobilesuperresolution_tpu/ops/quant.py:84", "Q1s"),
+              "mobilesuperresolution_tpu/ops/quant.py:84", "Q1s", {"any": "CUDA cores, atomicMax"}),
     ]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -12,48 +12,64 @@
 // (s^2*C)-channel conv output never goes to device memory, and only pixels
 // inside the crop are computed and written.
 //
-// bf16 design (the main path): an implicit GEMM on the tensor cores,
-// mma.sync m16n8k16 with ldmatrix. M is a tile of 8 x 16 conv positions (a
-// warp owns two rows: two m16 tiles), K is KH*KW*Cin (192 on the path), N
-// the conv channels rounded up to 8 (48). The op is bound by bytes, so
-// mma.sync is enough: the 19 GFLOP need ~0.03 ms at its rate against the
-// 0.059 ms bytes bound, and wgmma's 64-row tiles would not fit the 8 x 16
-// tile. The grid is persistent (as many blocks as fit, each walking tiles):
-// - the weights (bf16, rounded by the wrapper) are staged once per block;
-// - the input halo is staged as bf16 with 16-byte cp.async (zero-filled
-//   outside the image and past Cin), double-buffered: the next tile's copy
-//   is in flight during this tile's MMAs. Pixel and weight-row strides are
-//   odd multiples of 16 bytes, so ldmatrix phases are free of bank
-//   conflicts;
+// Design (both dtypes, fused_tail_mma_kernel): an implicit GEMM on the tensor
+// cores with mma.sync and ldmatrix. M is a tile of 8 x 16 conv positions (a
+// warp owns two rows: two m16 tiles), K is KH*KW*Cin (192 on the bf16 path),
+// N the conv channels of one group rounded up to 8. A bf16 block is 4 warps;
+// an f32 block 8, its two halves splitting N (one block an SM at
+// basic_origin's upconvs: two warps a scheduler keep the tensor pipe
+// busier than one; 10 % faster there on an H100). bf16 runs m16n8k16; f32
+// runs 3xTF32 on m16n8k8 (hopper.cuh's Tf32x3: hi = tf32(v), lo = v - hi,
+// lo·hi + hi·lo + hi·hi summed in f32), split in the kernel as each fragment
+// is loaded, so training's live weights need no packing on the host. A k-step
+// is 32 bytes of a pixel in both dtypes (16 bf16, 8 f32), so one ldmatrix.x4
+// address pattern loads A for both: over 32-bit elements it leaves the tf32
+// fragment in PTX order. B is read by ldmatrix.trans in bf16 and by two
+// 4-byte loads a lane in f32 (ldmatrix cannot transpose 32-bit elements);
+// the weight row stride, (NB | 1) x 8 elements, keeps both free of bank
+// conflicts. The grid is persistent (as many blocks as fit, each walking
+// tiles):
+// - the weights (rounded to the I/O dtype by the wrapper) are staged once
+//   per block;
+// - the input halo is staged with 16-byte cp.async (zero-filled outside the
+//   image and past Cin), double-buffered: the next tile's copy is in flight
+//   during this tile's MMAs. The pixel stride is an odd multiple of 16 bytes,
+//   so ldmatrix phases are free of bank conflicts;
 // - the epilogue adds the bias in f32, rounds once, writes the depth-to-space
 //   tile into the tile's own (now free) halo buffer in output order, then
 //   copies it out one output row per warp, consecutive lanes on consecutive
-//   4-byte words (a row of y is 2-byte aligned only: one element is peeled).
-//   The crop masks the last partial tiles.
+//   4-byte words (a bf16 row of y is 2-byte aligned only: one element is
+//   peeled). The crop masks the last partial tiles.
+// Bounds: the bf16 main path (10, 240, 426, 48) -> (10, 961, 1705, 3) is
+// bound by bytes (0.059 ms; its 19 GFLOP need ~0.03 ms at mma.sync's rate).
+// f32 at basic_origin's upconv2, (20, 128, 128, 64) 3x3 -> 256 conv
+// channels, is 96.6 GFLOP: 0.59 ms at 3xTF32 (165 TFLOP/s, a third of the
+// TF32 dense rate), bound by operations; what bounds the kernel is
+// mma.sync's TF32 rate, a fraction of wgmma's, times the three products per
+// term, and one block of 8 warps an SM (a group's 92 KB of weights beside
+// two halos). The f32 VSR tail (20, 64, 64, 48) 2x2 -> 48, s 4, is bound by
+// bytes (0.009 ms).
 // Any KH, KW, padding, s <= 8, crop, Cin and Cc are taken: weights too large
 // to stage at once are staged per chunk of input channels and group of kernel
-// rows (slower; never on the path), and Cin or Cc not a multiple of 8 stage
-// through a synchronous zero-filling loop.
+// rows (slower; never on the paths), and Cin or Cc not a multiple of a
+// 16-byte piece stage through a synchronous zero-filling loop. Each output's
+// K is summed in an order fixed by KH, KW, Cin, Cc and s (the plan), never by
+// N, H or W: two calls, and a height-sharded window, give the same bits.
 //
-// Channel groups (both kernels): the conv channels are tiled over the grid's
-// y dimension in groups of at most 64, each a multiple of s^2 (64 for s 1, 2,
-// 4 and 8, 63 for s 3), so a group owns whole output channels of the
-// shuffle. BasicVSROrigin's upconvs (3x3, 64 -> 256 conv channels, s 2) run
-// as 4 groups of 64: in bf16 a group's weights (9 * 64 * 64 * 2 = 74 KB) stay
-// resident where all 256 channels' (295 KB) would not fit. Its stage then
-// holds 16 of the 64 output channels of each pixel, and the copy-out writes
-// them as 32-byte runs at the pixel stride: whole 32-byte sectors. The
-// blocks of the groups walk the same tiles in the same order, so a tile's
-// halo is read from device memory about once and from L2 by the others.
+// Channel groups: the conv channels are tiled over the grid's y dimension in
+// groups, each a multiple of s^2, so a group owns whole output channels of
+// the shuffle: at most 64 in bf16 (64 for s 1, 2, 4 and 8, 63 for s 3); in
+// f32 64 where the group's weights and two halos fit shared memory at once,
+// else at most 32 (or s^2 when s^2 > 32). BasicVSROrigin's upconvs (3x3, 64
+// -> 256 conv channels, s 2) run as 4 groups of 64 in bf16 (74 KB of
+// weights; all 256 channels' 295 KB would not fit) and 8 groups of 32 in f32
+// (92 KB; a group of 64 is 166 KB, too much beside two 49 KB halos). A
+// group's stage then holds Cg / s^2 of the output channels of each pixel,
+// and the copy-out writes them as runs at the pixel stride. The blocks of the
+// groups walk the same tiles in the same order, so a tile's halo is read from
+// device memory about once and from L2 by the others.
 // Optional epilogue: leaky ReLU (slope 0.1) after the bias, in f32 before the
 // one rounding (elementwise, so it commutes with the shuffle and the crop).
-//
-// f32 design: one thread per low-resolution conv position, holding its
-// group's conv output channels (<= 64) in f32 registers. A block covers
-// 16 x 16 positions; the input halo tile and the weights are staged in shared
-// memory 8 input channels at a time, so every weight read is a broadcast. The
-// epilogue adds the bias and scatters each channel to its depth-to-space
-// pixel. CUDA-core FMA, full f32.
 //
 // Kernel B4 is the WDSR / ResultNet tail
 // (mobilesuperresolution_tpu/models/wdsr_basic.py:67-74, result_net.py:74-77):
@@ -113,16 +129,16 @@ using namespace hopper;
 
 namespace {
 
-constexpr int TILE = 16;   // conv positions per block side
-constexpr int CK = 8;      // input channels staged per step
-constexpr int THREADS = TILE * TILE;
-constexpr int GROUP_MAX = 64;  // conv channels one block computes, at most
+constexpr int GROUP_MAX = 64;      // conv channels one block computes, at most
+constexpr int GROUP_MAX_F32 = 32;  // f32, where a group of GROUP_MAX does not stage at once
 constexpr float LRELU_SLOPE = 0.1f;
 
-// Conv channels of one group: the most, up to GROUP_MAX, that are a multiple
-// of s^2 (0 when s^2 > GROUP_MAX), never more than cc.
-__host__ __device__ inline int group_width(int cc, int s) {
-  const int g = GROUP_MAX / (s * s) * (s * s);
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// Conv channels of one group: the most, up to gmax, that are a multiple of
+// s^2 (s^2 itself when s^2 > gmax; s^2 <= GROUP_MAX), never more than cc.
+inline int group_width(int cc, int s, int gmax = GROUP_MAX) {
+  const int ss = s * s, g = ss > gmax ? ss : gmax / ss * ss;
   return cc < g ? cc : g;
 }
 
@@ -130,131 +146,11 @@ __device__ __forceinline__ float epilogue(float v, int act) {
   return (act && v < 0.f) ? v * LRELU_SLOPE : v;
 }
 
-
-// Accumulate one zero-padded KH x KW conv of x (n, H, W, Cin) into acc, for
-// the conv position (ty*TILE + ly, tx*TILE + lx) and the group's conv
-// channels n0 .. n0 + Cg - 1 of Cc. halo [HH][HW][CK] and wts [KH*KW][CK][CO]
-// are the block's shared staging buffers.
-template <typename T, int CO>
-__device__ __forceinline__ void accumulate_conv(
-    float (&acc)[CO], float* halo, float* wts, const T* __restrict__ x,
-    const float* __restrict__ w, int img, int H, int W, int Cin, int KH, int KW,
-    int pad_t, int pad_l, int Cc, int n0, int Cg, int tx, int ty, int ly, int lx) {
-  const int HH = TILE + KH - 1, HW = TILE + KW - 1;
-  const size_t img_off = size_t(img) * H * W;
-  for (int c0 = 0; c0 < Cin; c0 += CK) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < HH * HW * CK; idx += THREADS) {
-      const int k = idx % CK, p = idx / CK;
-      const int gy = ty * TILE + p / HW - pad_t, gx = tx * TILE + p % HW - pad_l;
-      const int c = c0 + k;
-      halo[idx] = (gy >= 0 && gy < H && gx >= 0 && gx < W && c < Cin)
-                      ? to_float(x[(img_off + size_t(gy) * W + gx) * Cin + c])
-                      : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < KH * KW * CK * CO; idx += THREADS) {
-      const int n = idx % CO, r = idx / CO;
-      const int k = r % CK, tap = r / CK;
-      const int c = c0 + k;
-      wts[idx] = (c < Cin && n < Cg) ? w[(size_t(tap) * Cin + c) * Cc + n0 + n] : 0.f;
-    }
-    __syncthreads();
-    for (int ky = 0; ky < KH; ++ky) {
-      for (int kx = 0; kx < KW; ++kx) {
-        const float* a = halo + ((ly + ky) * HW + lx + kx) * CK;
-        const float* wt = wts + (ky * KW + kx) * CK * CO;
-#pragma unroll
-        for (int k = 0; k < CK; ++k) {
-          const float av = a[k];
-#pragma unroll
-          for (int n = 0; n < CO; ++n) acc[n] = fmaf(av, wt[k * CO + n], acc[n]);
-        }
-      }
-    }
-  }
-}
-
-// Add the bias (and the activation) and scatter conv channel n0 + n =
-// c*s^2 + i*s + j of position (cy, cx) to pixel (cy*s + i, cx*s + j) of
-// channel c, inside the crop.
-template <typename T, int CO>
-__device__ __forceinline__ void store_shuffled(const float (&acc)[CO], const float* __restrict__ bias,
-                                               T* __restrict__ y, int img, int cy, int cx, int Cc,
-                                               int n0, int Cg, int s, int out_h, int out_w, int act) {
-  const int ss = s * s, C = Cc / ss;
-#pragma unroll
-  for (int n = 0; n < CO; ++n) {
-    if (n < Cg) {
-      const int ng = n0 + n;
-      const int c = ng / ss, i = (ng % ss) / s, j = ng % s;
-      const int oy = cy * s + i, ox = cx * s + j;
-      if (oy < out_h && ox < out_w)
-        y[((size_t(img) * out_h + oy) * out_w + ox) * C + c] = from_float<T>(epilogue(acc[n] + bias[ng], act));
-    }
-  }
-}
-
-template <typename T, int CO>
-__global__ void __launch_bounds__(THREADS) fused_tail_kernel(
-    const T* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, T* __restrict__ y, int H, int W, int Cin,
-    int KH, int KW, int pad_t, int pad_l, int Cc, int s, int Hc, int Wc,
-    int out_h, int out_w, int tiles_w, int tiles_h, int act) {
-  extern __shared__ float smem[];
-  float* halo = smem;                                         // [HH][HW][CK]
-  float* wts = smem + (TILE + KH - 1) * (TILE + KW - 1) * CK;  // [KH*KW][CK][CO]
-
-  const int tile = blockIdx.x;
-  const int tx = tile % tiles_w;
-  const int ty = (tile / tiles_w) % tiles_h;
-  const int img = tile / (tiles_w * tiles_h);
-  const int ly = threadIdx.x / TILE, lx = threadIdx.x % TILE;
-  const int cy = ty * TILE + ly, cx = tx * TILE + lx;
-  const int gw = group_width(Cc, s), n0 = blockIdx.y * gw, Cg = min(gw, Cc - n0);
-
-  float acc[CO];
-#pragma unroll
-  for (int n = 0; n < CO; ++n) acc[n] = 0.f;
-  accumulate_conv<T, CO>(acc, halo, wts, x, w, img, H, W, Cin, KH, KW, pad_t, pad_l, Cc, n0, Cg, tx, ty, ly, lx);
-  if (cy >= Hc || cx >= Wc) return;
-  store_shuffled<T, CO>(acc, bias, y, img, cy, cx, Cc, n0, Cg, s, out_h, out_w, act);
-}
-
-// Call f with the smallest register width (a std::integral_constant) that
-// holds one group of cc <= 64 conv channels.
-template <typename F>
-cudaError_t by_width(int cc, F&& f) {
-  if (cc <= 16) return f(std::integral_constant<int, 16>());
-  if (cc <= 48) return f(std::integral_constant<int, 48>());
-  return f(std::integral_constant<int, 64>());
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const float* w, const float* b, void* y, int n,
-                   int h, int wd, int cin, int kh, int kw, int pad_t, int pad_l,
-                   int cc, int s, int hc, int wc, int out_h, int out_w, int act,
-                   cudaStream_t stream) {
-  const int gw = group_width(cc, s), groups = (cc + gw - 1) / gw;
-  return by_width(gw, [&](auto width) {
-    constexpr int CO = decltype(width)::value;
-    const size_t smem = (size_t(TILE + kh - 1) * (TILE + kw - 1) * CK + size_t(kh) * kw * CK * CO) * 4;
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_tail_kernel<T, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    const int tiles_w = (wc + TILE - 1) / TILE, tiles_h = (hc + TILE - 1) / TILE;
-    fused_tail_kernel<T, CO><<<dim3(tiles_w * tiles_h * n, groups), THREADS, smem, stream>>>(
-        static_cast<const T*>(x), w, b, static_cast<T*>(y), h, wd, cin, kh, kw,
-        pad_t, pad_l, cc, s, hc, wc, out_h, out_w, tiles_w, tiles_h, act);
-    return cudaGetLastError();
-  });
-}
-
 bool bad_geometry(int n, int hc, int wc, int cin, int cc, int s) {
-  return n <= 0 || hc <= 0 || wc <= 0 || cin <= 0 || cc <= 0 || s <= 0 || s * s > GROUP_MAX ||
-         cc % (s * s) != 0 || (cc + group_width(cc, s) - 1) / group_width(cc, s) > 65535;
+  return n <= 0 || hc <= 0 || wc <= 0 || cin <= 0 || cc <= 0 || s <= 0 || s * s > GROUP_MAX || cc % (s * s) != 0;
 }
 
-// ---- B2 in bf16: tensor cores (mma.sync m16n8k16), persistent grid ----
+// ---- B2: tensor cores (mma.sync: m16n8k16 bf16, 3xTF32 m16n8k8 f32), persistent grid ----
 
 constexpr int M_TH = 8;    // conv rows per tile (two per warp)
 constexpr int M_TW = 16;   // conv columns per tile (one m16 per conv row)
@@ -263,15 +159,18 @@ constexpr int M_SMEM_MAX = 232448;
 
 // Shared-memory plan of one launch, computed on the host and passed by value.
 struct MmaPlan {
-  int kch;          // input channels per halo chunk (multiple of 16)
+  int gw;           // conv channels of one group (a multiple of s^2)
+  int kch;          // input channels per halo chunk (a multiple of the k-step)
   int kyg;          // kernel rows whose weights are staged together
   int hw;           // halo width, M_TW + KW - 1
   int pstr;         // halo pixel stride in bytes: an odd number of 16-byte chunks
-  int wstr;         // weight row stride in bytes: an odd number of 16-byte chunks
+  int wstr;         // weight row stride in bytes: (NB | 1) x 8 elements
   int halo_bytes;   // one halo buffer; once its tile's MMAs are done, the tile's output stage
   int wts_bytes;
 };
 
+// The products of kernel rows ky0 .. ky1 - 1 over `ksteps` k-steps of the
+// staged chunk, for the warp's two m16 tiles and NB n8 tiles (bf16).
 template <int NB>
 __device__ __forceinline__ void tail_mma_piece(float (&acc)[2][NB][4], uint32_t halo_s, uint32_t wts_s,
                                                const MmaPlan& pl, int KW, int ky0, int ky1, int ksteps,
@@ -304,45 +203,108 @@ __device__ __forceinline__ void tail_mma_piece(float (&acc)[2][NB][4], uint32_t 
   }
 }
 
-// Up to 48 conv channels a block (NB <= 6: the serving tails) the kernel
-// keeps to <= 170 registers a thread, so that 3 blocks fit an SM; without the
-// bound ptxas gave NB 6 226 registers, 2 blocks per SM, and the serving tail
-// ran slower on an H100. Wider groups (BasicVSROrigin's upconvs) stage 74+
-// KB of weights, 1 block per SM, and keep every register: capped, they ran
-// slower.
+// The f32 form of tail_mma_piece (3xTF32, the same K order: ky, kx, k-step)
+// for NB n8 tiles from tile q0, loading the next step's fragments while this
+// step's products run. B (k t, n g) and (k t + 4, n g) of each n8 tile come
+// by 4-byte loads: the row stride, 8 mod 16 words, puts a warp's 32 loads on
+// 32 banks.
 template <int NB>
-__global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H, int W, int Cin,
+__device__ __forceinline__ void tail_mma_piece_f32(float (&acc)[2][NB][4], uint32_t halo_s,
+                                                   const unsigned char* wts, const MmaPlan& pl, int KW, int ky0,
+                                                   int ky1, int ksteps, int warp, int q0, int lane) {
+  const int g = lane >> 2, t = lane & 3, w4 = pl.wstr / 4;
+  const int steps = (ky1 - ky0) * KW * ksteps;
+  uint32_t a[2][4];
+  float b[NB][2];
+  auto load = [&](int ky, int kx, int ks) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int p = (2 * warp + mi + ky) * pl.hw + (lane & 15) + kx;
+      ldmatrix_x4(a[mi], halo_s + p * pl.pstr + (ks * 2 + (lane >> 4)) * 16);
+    }
+    const float* wr =
+        reinterpret_cast<const float*>(wts + (((ky - ky0) * KW + kx) * pl.kch + 8 * ks + t) * pl.wstr) + 8 * q0 + g;
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      b[q][0] = wr[8 * q];
+      b[q][1] = wr[4 * w4 + 8 * q];
+    }
+  };
+  int ky = ky0, kx = 0, ks = 0;
+  load(ky, kx, ks);
+#pragma unroll 1
+  for (int i = 0; i < steps; ++i) {
+    const Tf32x3::A af[2] = {Tf32x3::split_a(a[0]), Tf32x3::split_a(a[1])};
+    Tf32x3::B bf[NB];
+#pragma unroll
+    for (int q = 0; q < NB; ++q) bf[q] = Tf32x3::split_b(b[q][0], b[q][1]);
+    if (++ks == ksteps) {
+      ks = 0;
+      if (++kx == KW) {
+        kx = 0;
+        ++ky;
+      }
+    }
+    if (i + 1 < steps) load(ky, kx, ks);
+    mma_tf32x3<2, NB>(acc, af, bf);
+  }
+}
+
+// The warps of a block and the n8 tiles each computes: bf16 4 warps, each
+// all NB tiles of its two conv rows; f32 8 warps, the block's two halves
+// splitting the NB tiles (3xTF32 issues three products a term: with one
+// block an SM, two warps a scheduler keep its tensor pipe fed). A weight row
+// holds WN x NBW tiles (the last one zero-padded where NB is odd).
+template <typename T, int NB>
+struct TailWarps {
+  static constexpr int WN = sizeof(T) == 4 ? 2 : 1;  // warps along N
+  static constexpr int THREADS = 128 * WN;
+  static constexpr int NBW = (NB + WN - 1) / WN;     // n8 tiles a warp
+};
+
+// Up to 48 conv channels a block (NB <= 6: the serving tails) the bf16
+// kernel keeps to <= 170 registers a thread, so that 3 blocks fit an SM;
+// without the bound ptxas gave NB 6 226 registers, 2 blocks per SM, and the
+// serving tail ran slower on an H100. Wider groups (BasicVSROrigin's
+// upconvs) stage 74+ KB of weights, 1 block per SM, and keep every register:
+// capped, they ran slower. f32 keeps every register too.
+template <typename T, int NB>
+__global__ void __launch_bounds__(TailWarps<T, NB>::THREADS, sizeof(T) == 4 || NB > 6 ? 1 : 3) fused_tail_mma_kernel(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const float* __restrict__ bias, T* __restrict__ y, int H, int W, int Cin,
     int KH, int KW, int pad_t, int pad_l, int Cc, int s, int Hc, int Wc, int out_h, int out_w,
     int tiles_w, int tiles_h, int ntiles, int act, MmaPlan pl) {
+  constexpr int KG = PolicyOf<T>::type::KG, EPC = 16 / int(sizeof(T));  // k per step; elements a 16-byte piece
+  constexpr int THR = TailWarps<T, NB>::THREADS, NBW = TailWarps<T, NB>::NBW;
+  using T2 = typename std::conditional<sizeof(T) == 2, __nv_bfloat162, float2>::type;
   extern __shared__ __align__(128) unsigned char tail_smem[];
   unsigned char* halo = tail_smem;                     // [2][HH * hw] pixels of pstr bytes
   unsigned char* wts = tail_smem + 2 * pl.halo_bytes;  // [kyg * KW * kch] rows of wstr bytes
   const uint32_t halo_s = smem_u32(halo), wts_s = smem_u32(wts);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, q0 = (warp >> 2) * NBW;  // the warp's conv rows 2 wm, 2 wm + 1; its n8 tiles from q0
   const int ss = s * s, C = Cc / ss, HH = M_TH + KH - 1;
   // this block's channel group: conv channels n0 .. n0 + Cg - 1, output
   // channels c0 .. c0 + Cs - 1 of C
-  const int gw = group_width(Cc, s), n0 = blockIdx.y * gw, Cg = min(gw, Cc - n0);
+  const int gw = pl.gw, n0 = blockIdx.y * gw, Cg = min(gw, Cc - n0);
   const int Cs = Cg / ss, c0 = n0 / ss;
-  const int cin_pad = (Cin + 15) / 16 * 16;
+  const int cin_pad = round_up(Cin, KG);
   const int nchunks = (cin_pad + pl.kch - 1) / pl.kch, nkg = (KH + pl.kyg - 1) / pl.kyg;
   const bool resident = nchunks == 1 && nkg == 1;
-  const bool vec_x = Cin % 8 == 0, vec_w = Cc % 8 == 0 && gw % 8 == 0;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const bool vec_x = Cin % EPC == 0, vec_w = Cc % EPC == 0 && gw % EPC == 0;
+  const T zero = from_float<T>(0.f);
 
   // Where the group's conv channel n (n0 + n = c*s^2 + i*s + j) of a position
   // lands in the output stage, relative to the position's top-left pixel; -1
   // past the group.
-  int off[NB][2];
-  float bv[NB][2];
+  int off[NBW][2];
+  float bv[NBW][2];
 #pragma unroll
-  for (int q = 0; q < NB; ++q)
+  for (int q = 0; q < NBW; ++q)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int n = 8 * q + 2 * t + e;
+      const int n = 8 * (q0 + q) + 2 * t + e;
       off[q][e] = n < Cg ? (((n % ss) / s) * (M_TW * s) + n % s) * Cs + n / ss : -1;
       bv[q][e] = n < Cg ? bias[n0 + n] : 0.f;
     }
@@ -356,39 +318,40 @@ __global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kern
   auto stage_halo = [&](int buf, int tile, int chunk) {
     int img, cy0, cx0;
     tile_origin(tile, img, cy0, cx0);
-    const int cpp = pl.kch / 8;
+    const int cpp = pl.kch / EPC;
     const size_t img_px = size_t(img) * H * W;
-    for (int idx = tid; idx < HH * pl.hw * cpp; idx += M_THREADS) {
+    for (int idx = tid; idx < HH * pl.hw * cpp; idx += THR) {
       const int p = idx / cpp, c = idx % cpp;
       const int gy = cy0 + p / pl.hw - pad_t, gx = cx0 + p % pl.hw - pad_l;
-      const int ch = chunk * pl.kch + c * 8;
+      const int ch = chunk * pl.kch + c * EPC;
       const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
       const int o = buf * pl.halo_bytes + p * pl.pstr + c * 16;
-      const __nv_bfloat16* src = x + (img_px + size_t(gy) * W + gx) * Cin + ch;
+      const T* src = x + (img_px + size_t(gy) * W + gx) * Cin + ch;
       if (vec_x) {
         const bool ok = inside && ch < Cin;
         cp_async16(halo_s + o, ok ? src : x, ok);
       } else {
-        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(halo + o);
+        T* dst = reinterpret_cast<T*>(halo + o);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) dst[k] = (inside && ch + k < Cin) ? src[k] : zero;
+        for (int k = 0; k < EPC; ++k) dst[k] = (inside && ch + k < Cin) ? src[k] : zero;
       }
     }
   };
   auto stage_wts = [&](int chunk, int ky0, int ky1) {
+    constexpr int PIECES = NB * 8 / EPC;  // 16-byte pieces of a weight row
     const int rows = (ky1 - ky0) * KW * pl.kch;
-    for (int idx = tid; idx < rows * NB; idx += M_THREADS) {
-      const int r = idx / NB, j = idx % NB;
+    for (int idx = tid; idx < rows * PIECES; idx += THR) {
+      const int r = idx / PIECES, j = idx % PIECES;
       const int ky = ky0 + r / (KW * pl.kch), kx = (r / pl.kch) % KW, c = chunk * pl.kch + r % pl.kch;
       const int o = r * pl.wstr + j * 16;
-      const __nv_bfloat16* src = w + ((size_t(ky) * KW + kx) * Cin + c) * Cc + n0 + 8 * j;
+      const T* src = w + ((size_t(ky) * KW + kx) * Cin + c) * Cc + n0 + EPC * j;
       if (vec_w) {
-        const bool ok = c < Cin && 8 * j < Cg;
+        const bool ok = c < Cin && EPC * j < Cg;
         cp_async16(wts_s + o, ok ? src : w, ok);
       } else {
-        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(wts + o);
+        T* dst = reinterpret_cast<T*>(wts + o);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) dst[k] = (c < Cin && 8 * j + k < Cg) ? src[k] : zero;
+        for (int k = 0; k < EPC; ++k) dst[k] = (c < Cin && EPC * j + k < Cg) ? src[k] : zero;
       }
     }
   };
@@ -396,8 +359,8 @@ __global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kern
   // stage (halo buffer sb, free once the tile's MMAs are done), then the
   // stage's rows out to y, one row per warp, consecutive lanes on consecutive
   // 4-byte words.
-  auto finish = [&](float (&acc)[2][NB][4], int tile, int sb) {
-    __nv_bfloat16* ost = reinterpret_cast<__nv_bfloat16*>(halo + sb * pl.halo_bytes);  // [M_TH*s][M_TW*s][Cs]
+  auto finish = [&](float (&acc)[2][NBW][4], int tile, int sb) {
+    T* ost = reinterpret_cast<T*>(halo + sb * pl.halo_bytes);  // [M_TH*s][M_TW*s][Cs]
     int img, cy0, cx0;
     tile_origin(tile, img, cy0, cx0);
     const int row_el = M_TW * s * Cs;  // elements in one stage row
@@ -405,13 +368,12 @@ __global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kern
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int base = ((2 * warp + mi) * s * (M_TW * s) + (g + 8 * h) * s) * Cs;
+        const int base = ((2 * wm + mi) * s * (M_TW * s) + (g + 8 * h) * s) * Cs;
 #pragma unroll
-        for (int q = 0; q < NB; ++q)
+        for (int q = 0; q < NBW; ++q)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            if (off[q][e] >= 0)
-              ost[base + off[q][e]] = __float2bfloat16(epilogue(acc[mi][q][2 * h + e] + bv[q][e], act));
+            if (off[q][e] >= 0) ost[base + off[q][e]] = from_float<T>(epilogue(acc[mi][q][2 * h + e] + bv[q][e], act));
       }
     __syncthreads();
     const int oy0 = cy0 * s, ox0 = cx0 * s;
@@ -419,17 +381,16 @@ __global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kern
     if (Cs != C) {
       // one group of several: each pixel's Cs channels are a run at stride C
       // in y; channel pairs where runs and stride are even (whole 32-byte
-      // sectors at s 2: 16 of 64 channels), else elements
+      // sectors at s 2: 16 of 64 channels in bf16), else elements
       const bool pairs = Cs % 2 == 0 && C % 2 == 0 && c0 % 2 == 0;
-      for (int rr = warp; rr < M_TH * s; rr += M_THREADS / 32) {
+      for (int rr = warp; rr < M_TH * s; rr += THR / 32) {
         const int oy = oy0 + rr;
         if (oy >= out_h) break;
-        const __nv_bfloat16* srow = ost + rr * row_el;
-        __nv_bfloat16* grow = y + ((size_t(img) * out_h + oy) * out_w + ox0) * C + c0;
+        const T* srow = ost + rr * row_el;
+        T* grow = y + ((size_t(img) * out_h + oy) * out_w + ox0) * C + c0;
         if (pairs) {
           for (int e = 2 * lane; e < nel; e += 64)
-            *reinterpret_cast<__nv_bfloat162*>(grow + (e / Cs) * C + e % Cs) =
-                *reinterpret_cast<const __nv_bfloat162*>(srow + e);
+            *reinterpret_cast<T2*>(grow + (e / Cs) * C + e % Cs) = *reinterpret_cast<const T2*>(srow + e);
         } else {
           for (int e = lane; e < nel; e += 32) grow[(e / Cs) * C + e % Cs] = srow[e];
         }
@@ -437,38 +398,42 @@ __global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kern
       __syncthreads();  // the stage is read out before its buffer takes a halo again
       return;
     }
-    for (int rr = warp; rr < M_TH * s; rr += M_THREADS / 32) {
+    for (int rr = warp; rr < M_TH * s; rr += THR / 32) {
       const int oy = oy0 + rr;
       if (oy >= out_h) break;
-      // a row of y is 2-byte aligned only: peel one element to reach 4 bytes
       const size_t ge = ((size_t(img) * out_h + oy) * out_w + ox0) * C;
-      const int head = int(ge & 1);
-      const __nv_bfloat16* srow = ost + rr * row_el;
-      __nv_bfloat16* grow = y + ge;
-      if (head && lane == 0) grow[0] = srow[0];
-      for (int e0 = head + 2 * lane; e0 < nel; e0 += 64) {
-        if (e0 + 1 < nel) {
-          __nv_bfloat162 v;
-          v.x = srow[e0];
-          v.y = srow[e0 + 1];
-          *reinterpret_cast<__nv_bfloat162*>(grow + e0) = v;
-        } else {
-          grow[e0] = srow[e0];
+      const T* srow = ost + rr * row_el;
+      T* grow = y + ge;
+      if constexpr (sizeof(T) == 4) {
+        for (int e = lane; e < nel; e += 32) grow[e] = srow[e];
+      } else {
+        // a row of y is 2-byte aligned only: peel one element to reach 4 bytes
+        const int head = int(ge & 1);
+        if (head && lane == 0) grow[0] = srow[0];
+        for (int e0 = head + 2 * lane; e0 < nel; e0 += 64) {
+          if (e0 + 1 < nel) {
+            __nv_bfloat162 v;
+            v.x = srow[e0];
+            v.y = srow[e0 + 1];
+            *reinterpret_cast<__nv_bfloat162*>(grow + e0) = v;
+          } else {
+            grow[e0] = srow[e0];
+          }
         }
       }
     }
     __syncthreads();  // the stage is read out before its buffer takes a halo again
   };
-  auto zero_acc = [&](float (&acc)[2][NB][4]) {
+  auto zero_acc = [&](float (&acc)[2][NBW][4]) {
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int q = 0; q < NB; ++q)
+      for (int q = 0; q < NBW; ++q)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][q][e] = 0.f;
   };
 
-  float acc[2][NB][4];
+  float acc[2][NBW][4];
   const int first = blockIdx.x;
   if (resident) {
     // Weights once per block; the next tile's halo is in flight while this
@@ -487,7 +452,10 @@ __global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kern
       }
       __syncthreads();
       zero_acc(acc);
-      tail_mma_piece<NB>(acc, halo_s + buf * pl.halo_bytes, wts_s, pl, KW, 0, KH, cin_pad / 16, warp, lane);
+      if constexpr (sizeof(T) == 2)
+        tail_mma_piece<NB>(acc, halo_s + buf * pl.halo_bytes, wts_s, pl, KW, 0, KH, cin_pad / KG, warp, lane);
+      else
+        tail_mma_piece_f32<NBW>(acc, halo_s + buf * pl.halo_bytes, wts, pl, KW, 0, KH, cin_pad / KG, wm, q0, lane);
       __syncthreads();  // every warp is done with the halo buffer: it becomes the output stage
       finish(acc, tile, buf);
     }
@@ -497,7 +465,7 @@ __global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kern
     for (int tile = first; tile < ntiles; tile += gridDim.x) {
       zero_acc(acc);
       for (int chunk = 0; chunk < nchunks; ++chunk) {
-        const int ksteps = min(pl.kch, cin_pad - chunk * pl.kch) / 16;
+        const int ksteps = min(pl.kch, cin_pad - chunk * pl.kch) / KG;
         for (int ky0 = 0; ky0 < KH; ky0 += pl.kyg) {
           const int ky1 = min(KH, ky0 + pl.kyg);
           __syncthreads();
@@ -506,7 +474,10 @@ __global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kern
           cp_async_commit();
           cp_async_wait<0>();
           __syncthreads();
-          tail_mma_piece<NB>(acc, halo_s, wts_s, pl, KW, ky0, ky1, ksteps, warp, lane);
+          if constexpr (sizeof(T) == 2)
+            tail_mma_piece<NB>(acc, halo_s, wts_s, pl, KW, ky0, ky1, ksteps, warp, lane);
+          else
+            tail_mma_piece_f32<NBW>(acc, halo_s, wts, pl, KW, ky0, ky1, ksteps, wm, q0, lane);
         }
       }
       __syncthreads();
@@ -515,18 +486,23 @@ __global__ void __launch_bounds__(M_THREADS, NB > 6 ? 1 : 3) fused_tail_mma_kern
   }
 }
 
-// The largest channel chunk, then the most kernel rows, whose staging fits.
-// cc: the conv channels of one group.
-bool plan_mma(int kh, int kw, int cin, int cc, int nb, MmaPlan& pl) {
-  const int cin_pad = (cin + 15) / 16 * 16;
+// The largest channel chunk, then the most kernel rows, whose staging fits,
+// for groups of gw conv channels. True with kch = Cin rounded up to the
+// k-step and kyg = KH when the weights stay resident.
+template <typename T>
+bool plan_mma(int kh, int kw, int cin, int gw, MmaPlan& pl) {
+  constexpr int KG = PolicyOf<T>::type::KG, es = int(sizeof(T));
+  const int cin_pad = round_up(cin, KG);
+  pl.gw = gw;
   pl.hw = M_TW + kw - 1;
-  pl.wstr = (nb | 1) * 16;
-  const int stage_bytes = M_TH * M_TW * cc * 2;
-  for (int kch = cin_pad; kch >= 16; kch -= 16) {
+  const int wn = es == 4 ? 2 : 1, nbp = ((gw + 7) / 8 + wn - 1) / wn * wn;  // TailWarps' WN x NBW tiles
+  pl.wstr = (nbp | 1) * 8 * es;
+  const int stage_bytes = M_TH * M_TW * gw * es;
+  for (int kch = cin_pad; kch >= KG; kch -= KG) {
     for (int kyg = kh; kyg >= 1; --kyg) {
       pl.kch = kch;
       pl.kyg = kyg;
-      pl.pstr = (kch / 8 + 1) * 16;
+      pl.pstr = (kch * es / 16 + 1) * 16;
       pl.halo_bytes = std::max((M_TH + kh - 1) * pl.hw * pl.pstr, stage_bytes);
       pl.wts_bytes = kyg * kw * kch * pl.wstr;
       if (2 * pl.halo_bytes + pl.wts_bytes <= M_SMEM_MAX) return true;
@@ -535,42 +511,55 @@ bool plan_mma(int kh, int kw, int cin, int cc, int nb, MmaPlan& pl) {
   return false;
 }
 
-template <int NB>
+template <typename T, int NB>
 cudaError_t launch_mma_nb(const void* x, const void* w, const float* b, void* y, int n, int h,
                           int wd, int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s,
-                          int hc, int wc, int out_h, int out_w, int act, cudaStream_t stream) {
-  const int gw = group_width(cc, s), groups = (cc + gw - 1) / gw;
-  MmaPlan pl;
-  if (!plan_mma(kh, kw, cin, gw, NB, pl)) return cudaErrorInvalidConfiguration;
+                          int hc, int wc, int out_h, int out_w, int act, const MmaPlan& pl,
+                          cudaStream_t stream) {
+  const int groups = (cc + pl.gw - 1) / pl.gw;
+  if (groups > 65535) return cudaErrorInvalidValue;
   const int smem = 2 * pl.halo_bytes + pl.wts_bytes;
-  auto kern = fused_tail_mma_kernel<NB>;
+  auto kern = fused_tail_mma_kernel<T, NB>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, M_THREADS, smem)) != cudaSuccess)
+  constexpr int threads = TailWarps<T, NB>::THREADS;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem)) != cudaSuccess)
     return err;
   const int tiles_w = (wc + M_TW - 1) / M_TW, tiles_h = (hc + M_TH - 1) / M_TH;
   const int ntiles = tiles_w * tiles_h * n;
-  // persistent: the resident blocks are shared out among the groups
-  const int per_group = (std::max(per_sm, 1) * sms + groups - 1) / groups;
+  // persistent: the resident blocks are shared out among the groups (never
+  // more than fit: a block past them would run its whole share after the rest)
+  const int per_group = std::max(1, std::max(per_sm, 1) * sms / groups);
   const int grid = std::max(1, std::min(ntiles, per_group));
-  kern<<<dim3(grid, groups), M_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), b,
-      static_cast<__nv_bfloat16*>(y), h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w,
-      tiles_w, tiles_h, ntiles, act, pl);
+  kern<<<dim3(grid, groups), threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), b, static_cast<T*>(y), h, wd, cin, kh, kw, pad_t,
+      pad_l, cc, s, hc, wc, out_h, out_w, tiles_w, tiles_h, ntiles, act, pl);
   return cudaGetLastError();
 }
 
+// Plan the groups (bf16: of <= 64; f32: of <= 64 where the weights stay
+// resident, else of <= 32), then dispatch on the group's n8 tiles.
+template <typename T>
 cudaError_t launch_mma(const void* x, const void* w, const float* b, void* y, int n, int h, int wd,
                        int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc, int wc,
                        int out_h, int out_w, int act, cudaStream_t st) {
-  switch ((group_width(cc, s) + 7) / 8) {
-#define TAIL_NB(NB)                                                                                          \
-  case NB:                                                                                                   \
-    return launch_mma_nb<NB>(x, w, b, y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, act, \
-                             st);
+  MmaPlan pl;
+  const bool wide = plan_mma<T>(kh, kw, cin, group_width(cc, s), pl);
+  if (sizeof(T) == 4 && !(wide && pl.kch == round_up(cin, 8) && pl.kyg == kh)) {
+    MmaPlan narrow;
+    if (plan_mma<T>(kh, kw, cin, group_width(cc, s, GROUP_MAX_F32), narrow)) pl = narrow;
+    else if (!wide) return cudaErrorInvalidConfiguration;
+  } else if (!wide) {
+    return cudaErrorInvalidConfiguration;
+  }
+  switch ((pl.gw + 7) / 8) {
+#define TAIL_NB(NB)                                                                                              \
+  case NB:                                                                                                       \
+    return launch_mma_nb<T, NB>(x, w, b, y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, act, \
+                                pl, st);
     TAIL_NB(1) TAIL_NB(2) TAIL_NB(3) TAIL_NB(4) TAIL_NB(5) TAIL_NB(6) TAIL_NB(7) TAIL_NB(8)
 #undef TAIL_NB
     default: return cudaErrorInvalidValue;
@@ -584,8 +573,6 @@ constexpr int S_K = 3;     // body kernel size
 constexpr int S_K2 = 5;    // skip kernel size
 constexpr int S_C2 = 3;    // skip channels, at most
 constexpr int S_BAR_BYTES = 128;  // two mbarriers, padded to keep what follows 128-byte aligned
-
-__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // Shared-memory plan of one B4 launch, computed on the host, passed by value.
 struct SkipPlan {
@@ -985,18 +972,19 @@ cudaError_t launch_skip(const void* x, const void* x2, const float* packed, void
 
 }  // namespace
 
-// B2 in f32. x (n, h, wd, cin), w (kh, kw, cin, cc), b (cc,) and y (n, out_h,
-// out_w, cc / s^2), all f32 and contiguous; cc a multiple of s^2, s^2 <= 64.
-// hc, wc: conv output positions to compute (those that reach the crop). act
-// 1: leaky ReLU (slope 0.1) after the bias; 0: none. Launches on `stream`,
-// does not synchronise, returns cudaGetLastError() after the launch.
+// B2 in f32 (3xTF32 on the tensor cores). x (n, h, wd, cin), w (kh, kw,
+// cin, cc), b (cc,) and y (n, out_h, out_w, cc / s^2), all f32 and
+// contiguous; cc a multiple of s^2, s^2 <= 64. hc, wc: conv output positions
+// to compute (those that reach the crop). act 1: leaky ReLU (slope 0.1)
+// after the bias; 0: none. Launches on `stream`, does not synchronise,
+// returns cudaGetLastError() after the launch.
 extern "C" int fused_conv_pixel_shuffle_launch(
     const void* x, const void* w, const void* b, void* y, int n, int h, int wd,
     int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc,
     int wc, int out_h, int out_w, int act, void* stream) {
-  if (bad_geometry(n, hc, wc, cin, cc, s)) return int(cudaErrorInvalidValue);
-  return int(launch<float>(x, static_cast<const float*>(w), static_cast<const float*>(b), y, n, h, wd, cin, kh,
-                           kw, pad_t, pad_l, cc, s, hc, wc, out_h, out_w, act, static_cast<cudaStream_t>(stream)));
+  if (bad_geometry(n, hc, wc, cin, cc, s) || kh <= 0 || kw <= 0) return int(cudaErrorInvalidValue);
+  return int(launch_mma<float>(x, w, static_cast<const float*>(b), y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s,
+                               hc, wc, out_h, out_w, act, static_cast<cudaStream_t>(stream)));
 }
 
 // B2 in bf16 on the tensor cores: x (n, h, wd, cin) bf16; w (kh, kw, cin, cc)
@@ -1007,8 +995,8 @@ extern "C" int fused_conv_pixel_shuffle_bf16_launch(
     int cin, int kh, int kw, int pad_t, int pad_l, int cc, int s, int hc,
     int wc, int out_h, int out_w, int act, void* stream) {
   if (bad_geometry(n, hc, wc, cin, cc, s) || kh <= 0 || kw <= 0) return int(cudaErrorInvalidValue);
-  return int(launch_mma(x, w, static_cast<const float*>(b), y, n, h, wd, cin, kh, kw, pad_t, pad_l, cc, s,
-                        hc, wc, out_h, out_w, act, static_cast<cudaStream_t>(stream)));
+  return int(launch_mma<__nv_bfloat16>(x, w, static_cast<const float*>(b), y, n, h, wd, cin, kh, kw, pad_t, pad_l,
+                                       cc, s, hc, wc, out_h, out_w, act, static_cast<cudaStream_t>(stream)));
 }
 
 

@@ -3,9 +3,11 @@
 // cp.async with zero fill, bulk and TMA tensor copies completing on
 // mbarriers, ldmatrix, mma.sync
 // (m16n8k16 bf16, m16n8k8 tf32, and the Tf32x3 / Bf16 fragment policies of
-// B3 and B5) and warpgroup wgmma (A in registers, B read from shared memory
-// through a descriptor: bf16 for B1, s8 for Q1 in qconv_int8.cu). Raw PTX
-// through inline asm keeps nvcc at seconds.
+// B3, B4 and B5; Tf32x3's split of ldmatrix-loaded fragments and
+// mma_tf32x3 for the f32 routes of B1 and B2) and warpgroup wgmma (A in
+// registers, B read from shared memory through a descriptor: bf16 and tf32
+// for B1, s8 for Q1 in qconv_int8.cu). Raw PTX through inline asm keeps nvcc
+// at seconds.
 // Needs sm_90a for wgmma.
 
 #pragma once
@@ -87,7 +89,7 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
   return r;
 }
 
-// ---- mma.sync fragment policies (B3, B5) ----
+// ---- mma.sync fragment policies (B3, B4, B5; Tf32x3 also B1 and B2 in f32) ----
 //
 // Both policies see a k-step of A the same way: lane (g, t) of a warp holds
 // rows g and g + 8 of the m16 tile at columns 2t and 2t + 1 of each group of
@@ -149,7 +151,48 @@ struct Tf32x3 {
     const float v[4] = {p.x, p.y, q.x, q.y};
     return make_a(v);
   }
+  // Split an A fragment already in PTX order, (g, t), (g+8, t), (g, t+4),
+  // (g+8, t+4): what ldmatrix.x4 leaves from a 16 x 8 f32 tile whose rows are
+  // 32 bytes (lanes 0-15 on rows 0-15 at bytes 0-15, lanes 16-31 at 16-31).
+  static __device__ __forceinline__ A split_a(const uint32_t (&r)[4]) {
+    A a;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a.hi[i] = tf32_rna(__uint_as_float(r[i]));
+      a.lo[i] = __float_as_uint(__uint_as_float(r[i]) - __uint_as_float(a.hi[i]));
+    }
+    return a;
+  }
+  // Split a B fragment in PTX order: (k t, n g), (k t + 4, n g).
+  static __device__ __forceinline__ B split_b(float v0, float v1) {
+    B b;
+    b.hi[0] = tf32_rna(v0);
+    b.hi[1] = tf32_rna(v1);
+    b.lo[0] = __float_as_uint(v0 - __uint_as_float(b.hi[0]));
+    b.lo[1] = __float_as_uint(v1 - __uint_as_float(b.hi[1]));
+    return b;
+  }
 };
+
+// d[m][q] += a[m] b[q] in 3xTF32 over M x NB tiles, one pass over every
+// accumulator per product, so consecutive mma.sync are independent; each
+// accumulator still takes lo·hi, hi·lo, hi·hi, Tf32x3::mma's order.
+template <int M, int NB>
+__device__ __forceinline__ void mma_tf32x3(float (&d)[M][NB][4], const Tf32x3::A (&a)[M],
+                                           const Tf32x3::B (&b)[NB]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int q = 0; q < NB; ++q) mma_1688_tf32(d[m][q], a[m].lo, b[q].hi);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int q = 0; q < NB; ++q) mma_1688_tf32(d[m][q], a[m].hi, b[q].lo);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int q = 0; q < NB; ++q) mma_1688_tf32(d[m][q], a[m].hi, b[q].hi);
+}
 
 struct Bf16 {
   static constexpr int KG = 16;
@@ -298,6 +341,11 @@ __device__ __forceinline__ void fence_operands(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // Shared-memory matrix descriptor of wgmma, no swizzle ("interleave"): the
 // operand is made of 8x8 core matrices of 16-bit values, each 128 contiguous
@@ -390,6 +438,49 @@ template <> struct Wgmma<128> {
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+  }
+};
+
+// wgmma m64nNk8, tf32 x tf32 -> f32: d = a b + (acc ? d : 0). A is the
+// warpgroup's 64x8 tile in registers (each warp 16 rows, laid out as
+// mma.sync m16n8k8's tf32 A fragment, i.e. as ldmatrix.x4 leaves a 16 x 8
+// f32 tile); B (8 x N) is K-major in shared memory in the 32-byte swizzle
+// (tf32 has no transpose), described by desc_b. Only the top 19 bits of each
+// operand are read. Accumulator d[4q + 2h + e] sits where the bf16 one does.
+// On an H100 its per-k-step sums equal mma.sync m16n8k8's bit for bit
+// (B1's two f32 routes, checked in chip_smoke.py).
+template <int N>
+struct WgmmaTf32;
+
+template <> struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(acc));
+  }
+};
+
+template <> struct WgmmaTf32<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),

@@ -10,10 +10,15 @@ and the 2x2/pad-((1,2),(1,2))/s=4 reconstruction tail of BasicVSR
 (ops/layers.py::SubpixelConvTranspose). It takes any number of conv channels
 that s² divides (both kernels tile them over the grid in groups of at most
 64, as the Pallas kernel takes any s²·C'; BasicVSROrigin's upconvs have 256)
-and an optional leaky-ReLU epilogue (slope 0.1) after the bias. B2 in bf16
-(the main path) runs a tensor-core kernel (mma.sync, cp.async double-buffered halo, persistent
-grid, depth-to-space staged in shared memory and written out row by row);
-B2 in float32 runs a CUDA-core kernel. B4, ``fused_conv_pixel_shuffle_skip``,
+and an optional leaky-ReLU epilogue (slope 0.1) after the bias. B2 runs one
+tensor-core kernel in both dtypes (mma.sync, cp.async double-buffered halo,
+persistent grid, depth-to-space staged in shared memory and written out row
+by row): bf16 m16n8k16 for bfloat16 (serving), 3xTF32 m16n8k8 for float32
+(training; its live weights are split into tf32 hi and lo in the kernel, so
+nothing is packed per call, and each output sums K in an order fixed by the
+kernel size, Cin and the conv channels). In float32 it groups the conv
+channels by 64 where a group's weights stay in shared memory beside two
+halos, else by 32 (``basic_origin``'s upconvs). B4, ``fused_conv_pixel_shuffle_skip``,
 is the tail of models/wdsr_basic.py::BasicModel and
 models/result_net.py::ResultNet: depth_to_space(conv3x3(body) +
 conv5x5(x_skip) + bias, s), both SAME, as one implicit GEMM on the tensor
@@ -84,9 +89,9 @@ def _output(x, kernel, scale, padding, crop):
 
 def _launch(x, kernel, bias, scale, padding, crop, lrelu, y):
     """Launch B2 (csrc/fused_tail.cu) on checked CUDA tensors: the
-    tensor-core kernel in bf16, the CUDA-core kernel in f32. Kernel and bias
-    are rounded to x.dtype; the tensor-core kernel reads the kernel as bf16,
-    the CUDA-core one as f32, and both read the bias as f32."""
+    tensor-core kernel, bf16 or 3xTF32 by x.dtype. Kernel and bias are
+    rounded to x.dtype; the kernel reads the kernel in x.dtype and the bias
+    as f32."""
     hc, wc, oh, ow = _geometry(x, kernel, scale, padding, crop)
     (pt, _), (pl, _) = padding
     geom = (*x.shape, kernel.shape[0], kernel.shape[1], pt, pl, kernel.shape[3], scale,
@@ -120,8 +125,8 @@ def fused_conv_pixel_shuffle(x, kernel, bias, scale, padding=((1, 1), (1, 1)), c
     ((top, bottom), (left, right)); crop: (out_h, out_w) or None for the
     whole shuffled map; lrelu: a leaky ReLU (slope 0.1) after the bias.
     Accumulates in f32 (kernel and bias rounded to x.dtype first) and writes
-    (B, out_h, out_w, C') in x.dtype. On the card, bf16 runs the tensor-core
-    kernel and float32 the CUDA-core one (csrc/fused_tail.cu)."""
+    (B, out_h, out_w, C') in x.dtype. On the card both dtypes run the
+    tensor-core kernel of csrc/fused_tail.cu, float32 in 3xTF32."""
     if x.device.type == "cpu":
         return fused_conv_pixel_shuffle_plain(x, kernel, bias, scale, padding, crop, lrelu)
     if x.device.type != "cuda":
@@ -137,10 +142,13 @@ def fused_conv_pixel_shuffle(x, kernel, bias, scale, padding=((1, 1), (1, 1)), c
     y = _output(x, kernel, scale, padding, crop)
     _launch(x, kernel, bias, scale, padding, crop, lrelu, y)
     fused_conv_pixel_shuffle.launches += 1
+    fused_conv_pixel_shuffle.f32_launches += x.dtype == torch.float32
     return y
 
 
+# launches of every route, and of the float32 route alone
 fused_conv_pixel_shuffle.launches = 0
+fused_conv_pixel_shuffle.f32_launches = 0
 
 
 class FusedConvPixelShuffleFn(torch.autograd.Function):

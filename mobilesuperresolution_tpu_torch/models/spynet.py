@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, pack_weights
+from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, pack_weights, pack_weights_f32
 from mobilesuperresolution_tpu_torch.ops.layers import depth_to_space, space_to_depth
 from mobilesuperresolution_tpu_torch.ops.quant import QConvWeight, conv2d_maybe_quantized
 from mobilesuperresolution_tpu_torch.ops.resize import avg_pool_2x2, replicate_pad_hw, resize_bilinear
@@ -64,8 +64,11 @@ class SpyNetBasicModule(nn.Module):
             k = getattr(self, f"conv{i}_kernel").detach()
             b = getattr(self, f"conv{i}_bias").detach()
             w2 = s2d_transform_weights(k).to(dtype).contiguous()
-            # packed for kernel B1 on the card; the CPU's plain version does not read it
-            wp = pack_weights(w2) if w2.is_cuda and w2.shape[3] % 64 == 0 else None
+            # packed for kernel B1 on the card (bf16: swizzled atoms; f32: the
+            # tf32 hi / lo split, K-major); the CPU's plain version does not read it
+            wp = None
+            if w2.is_cuda and w2.shape[3] % 64 == 0:
+                wp = pack_weights_f32(w2) if w2.dtype == torch.float32 else pack_weights(w2)
             # the bias rounded to dtype, kept in f32 as kernel B1 adds it (no cast per call)
             self._s2d.append((w2, b.repeat_interleave(4).to(dtype).float(), wp))
             self._direct.append((k.permute(3, 2, 0, 1).to(dtype).contiguous(), b.to(dtype).clone()))

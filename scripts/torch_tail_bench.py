@@ -15,7 +15,14 @@ reconstruction tail, (10, 240, 426, 48) bf16, 2x2 conv with padding
 18) 3x3 s 4 bf16, the VSR training step's tail (20, 64, 64, 48) in f32 and
 bf16, and 'basic_origin''s upconv1 (10, 240, 426, 64) 3x3 s 2 to 256 conv
 channels with the leaky ReLU, bf16 (null for a checkout whose B2 does not
-take it). Window: BasicVSR x4 (nf 24,
+take it), and the f32 routes of the VSR training step: 'basic_origin''s
+upconv1 and upconv2, (20, 64, 64, 64) and (20, 128, 128, 64) 3x3 s 2 to 256
+conv channels with the leaky ReLU, f32. B1 f32 (``b1_f32_ms``): the
+training step's 30 SpyNet convs, 36 samples at 32x32 down to 1x1, each
+timed (3 repeats of 10 calls), summed per level and over the 30. The f32 VSR
+step (``vsr_step_f32``): chip_smoke.py's ``vsr_step_stats`` on BasicVSR x4
+(nf 24, 8 blocks, f32, seeded weights) at the launcher's shape, batch 2 x
+10 frames of 64x64. Window: BasicVSR x4 (nf 24,
 8 blocks, bf16, seeded random weights) on chip_smoke.py's 10 synthetic
 426x240 frames, as chip_smoke.py times it. Prints one JSON line with, per
 case, the mean ms of 20 calls (B2: 50, window: 5; CUDA events) in each of 5
@@ -67,12 +74,17 @@ def main():
     # this checkout's chip_smoke.py: frames and the ptxas summary (the port's
     # package is imported from --root above, so its submodules stay root's)
     sys.path.append(REPO)
-    from chip_smoke import H_LR, OH, OW, T_WIN, W_LR, ptxas_summary, synthetic_stream
+    from chip_smoke import H_LR, OH, OW, T_WIN, VSR_PATCH, VSR_SCALE, W_LR, ptxas_summary, synthetic_stream
+    from chip_smoke import vsr_step_stats
 
     if not torch.cuda.is_available():
         print("torch_tail_bench: CUDA is not available", file=sys.stderr)
         return 1
     _build.build(("conv5x5", "fused_tail"))
+    # float32 as the port's CLIs run it (core/device.py::no_tf32): cuDNN's
+    # convs in the f32 VSR step in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
 
@@ -94,6 +106,26 @@ def main():
         report["checksum"][f"b1 {key}"] = float(out.float().sum())
     report["b1_sum_ms"] = sum(sum(r) / len(r) for r in report["b1_ms"].values())
 
+    # B1 f32: the VSR training step's 30 SpyNet convs, 36 samples, level by level
+    report["b1_f32_ms"], report["b1_f32_level_ms"] = {}, {}
+    for lvl in range(6):
+        lh = (VSR_PATCH // 2) >> lvl
+        level = 0.0
+        for cin, cout, relu in B1_CASES:
+            x = rand((36, lh, lh, cin), 1.0, torch.float32)
+            wt = rand((5, 5, cin, cout), (25 * cin) ** -0.5, torch.float32)
+            b = rand((cout,), 0.1, torch.float32)
+            # packed once where the checkout packs f32 weights (SpyNet's prepare)
+            kw = {"w_packed": b1.pack_weights_f32(wt)} if hasattr(b1, "pack_weights_f32") and cout % 64 == 0 else {}
+            out = b1.conv5x5_same(x, wt, b, relu, **kw)
+            torch.cuda.synchronize()
+            key = f"{lh}x{lh} {cin}->{cout}"
+            report["b1_f32_ms"][key] = repeats(lambda: b1.conv5x5_same(x, wt, b, relu, **kw), n_repeats=3, iters=10)
+            report["checksum"][f"b1 f32 {key}"] = float(out.sum())
+            level += sum(report["b1_f32_ms"][key]) / 3
+        report["b1_f32_level_ms"][f"{lh}x{lh}"] = level
+    report["b1_f32_sum_ms"] = sum(report["b1_f32_level_ms"].values())
+
     n, h, w, c, s = 10, 240, 426, 48, 4
     x = rand((n, h, w, c))
     kern = rand((2, 2, c, c), 1 / 14)
@@ -111,7 +143,9 @@ def main():
     more = {"serve_multi_decode_bf16": (10, 240, 426, 18, 3, 4, 48, ((1, 1), (1, 1)), None, torch.bfloat16),
             "train_tail_f32": (20, 64, 64, 48, 2, 4, 48, ((1, 2), (1, 2)), (257, 257), torch.float32),
             "train_tail_bf16": (20, 64, 64, 48, 2, 4, 48, ((1, 2), (1, 2)), (257, 257), torch.bfloat16),
-            "upconv1_bf16": (10, 240, 426, 64, 3, 2, 256, ((1, 1), (1, 1)), None, torch.bfloat16)}
+            "upconv1_bf16": (10, 240, 426, 64, 3, 2, 256, ((1, 1), (1, 1)), None, torch.bfloat16),
+            "upconv1_f32": (20, 64, 64, 64, 3, 2, 256, ((1, 1), (1, 1)), None, torch.float32),
+            "upconv2_f32": (20, 128, 128, 64, 3, 2, 256, ((1, 1), (1, 1)), None, torch.float32)}
     report["b2_more_ms"] = {}
     for name, (n2, h2, w2, cin, k, s2, cc, pad, crop, dt) in more.items():
         x2 = rand((n2, h2, w2, cin), 1.0, dt)
@@ -124,7 +158,7 @@ def main():
             report["b2_more_ms"][name] = None
             continue
         report["b2_more_ms"][name] = repeats(lambda: fused_conv_pixel_shuffle(x2, kern2, b2, s2, pad, crop, *extra),
-                                             iters=50)
+                                             iters=10 if name.startswith("upconv2") else 50)
 
     model = get_vsr_model("basic", scale=4, compute_dtype=torch.bfloat16, device=dev)
     load_params_npz(model, random_jax_params(model, seed=0))
@@ -132,6 +166,13 @@ def main():
     with torch.inference_mode():
         report["window_ms"] = repeats(lambda: model(frames, OH, OW), iters=5)
     report["window_ms_mean"] = sum(report["window_ms"]) / len(report["window_ms"])
+    del model
+    # the f32 VSR training step (B1 30 and B2 once per forward)
+    model = get_vsr_model("basic", scale=VSR_SCALE, compute_dtype=torch.float32, device=dev)
+    load_params_npz(model, random_jax_params(model, seed=0))
+    st = vsr_step_stats(model, dev)
+    report["vsr_step_f32"] = {k: st[k] for k in ("ms", "profiled_device_ms", "busy_share", "kernel_launches",
+                                                 "launches_per_step", "top_kernels")}
     report["ptxas"] = {name: ptxas_summary(os.path.join(_build.BUILD_DIR, f"{name}.log"))
                        for name in ("conv5x5", "fused_tail")}
     report["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -13,7 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain, pack_weights
+from mobilesuperresolution_tpu_torch.kernels.conv5x5 import (
+    conv5x5_same,
+    conv5x5_same_plain,
+    f32_plan,
+    pack_weights,
+    pack_weights_f32,
+)
 from mobilesuperresolution_tpu_torch.kernels.fused_convsep import FusedConvSepFn, fused_convsep, fused_convsep_plain
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
     FusedConvPixelShuffleFn,
@@ -99,6 +105,152 @@ def test_conv5x5_bf16_tile_edges(cuda, shape):
         assert conv5x5_same.launches == before + 1
         assert got.dtype == torch.bfloat16 and got.shape == (n, h, w, cout)
         assert float((got.float() - want.float()).abs().max()) <= _tol(want, torch.bfloat16)
+
+
+# B1 f32 (3xTF32): the VSR step's finest and coarse levels (36 samples),
+# 128 samples at 1x1 (the folded tile past 36), a batch of 16 clips' 288
+# samples at 8x8 and 4x4 (whole images folded into the wgmma route's tile),
+# N = 1, ragged maps with K and N tails, a 4x7 level, 3x3 images (margins of
+# 2 in a 7x7 halo) and maps of one row or two (taps skipped)
+B1_F32_EDGES = [(36, 32, 32, 128, 256), (36, 4, 4, 256, 128), (36, 1, 1, 64, 8), (128, 1, 1, 128, 256),
+                (288, 8, 8, 128, 256), (288, 4, 4, 256, 256), (1, 64, 112, 128, 256), (2, 37, 53, 20, 8),
+                (1, 37, 53, 40, 96), (18, 4, 7, 32, 128), (2, 3, 3, 13, 5), (5, 1, 9, 8, 16), (3, 2, 5, 7, 3)]
+
+
+@pytest.mark.parametrize("shape", [(36, 32, 32, 128), (36, 32, 32, 8), (36, 16, 16, 64), (36, 8, 8, 256),
+                                   (36, 4, 4, 256), (36, 2, 2, 128), (36, 1, 1, 8), (128, 1, 1, 256),
+                                   (288, 8, 8, 256), (288, 4, 4, 256), (1, 37, 53, 96), (18, 4, 7, 8),
+                                   (2, 3, 3, 5), (5, 1, 9, 16), (3000, 8, 8, 64), (1, 1000, 3, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_conv5x5_f32_plan_tiles_the_map(cuda, shape, packed):
+    """B1's f32 tile on an H100's 132 SMs: 4 warps (mma.sync) on 1-8 n8
+    tiles, or, with packed weights only, 8 (wgmma) on 64 channels, 128
+    where Cout is a multiple of 128; at most 32 positions a warp; whole
+    images folded where a map holds at most half a tile, so no position of
+    such a tile lies outside its image; every position of the map in
+    exactly one tile."""
+    n, h, w, cout = shape
+    warps, nb, ti, tr, tc = f32_plan(n, h, w, cout, packed, sms=132)
+    if warps == 8:
+        assert packed and (nb == 8 or (nb == 16 and cout % 128 == 0))
+    else:
+        assert warps == 4 and 1 <= nb <= min(8, -(-cout // 8))
+    assert ti * tr * tc <= 32 * warps and tr <= h and tc <= w
+    if h * w <= 16 * warps:
+        assert (tr, tc) == (h, w) and ti == 32 * warps // (h * w)
+    else:
+        assert ti == 1 and tc == min(w, 16)
+    covered = np.zeros((n, h, w), np.int64)
+    for i0 in range(0, n, ti):
+        for y0 in range(0, h, tr):
+            for x0 in range(0, w, tc):
+                covered[i0:i0 + ti, y0:y0 + tr, x0:x0 + tc] += 1
+    assert (covered == 1).all()
+
+
+def test_conv5x5_f32_plan_fills_the_card_at_the_coarse_levels(cuda):
+    """At the VSR step's coarse levels (36 samples, 8x8 to 1x1) the plan
+    folds 2, 8, 32 and 128 images into a tile and narrows N until the grid
+    fills the SMs; at 32x32 the wide convs take 8-warp 16x16 tiles of 128
+    channels (64 for Cout 64); 288 samples at 8x8 and 4x4 take the 8-warp
+    tiles with 4 and 16 images folded."""
+    assert f32_plan(36, 32, 32, 256, True, sms=132) == (8, 16, 1, 16, 16)
+    assert f32_plan(36, 32, 32, 64, True, sms=132) == (8, 8, 1, 16, 16)
+    assert f32_plan(36, 32, 32, 256, False, sms=132)[0] == 4
+    assert [f32_plan(36, h, h, 128, True, sms=132)[2] for h in (8, 4, 2, 1)] == [2, 8, 32, 128]
+    assert f32_plan(36, 4, 4, 256, True, sms=132)[1] < 8 and f32_plan(36, 1, 1, 256, True, sms=132)[1] < 8
+    assert f32_plan(288, 8, 8, 256, True, sms=132) == (8, 16, 4, 8, 8)
+    assert f32_plan(288, 4, 4, 256, True, sms=132) == (8, 8, 16, 4, 4)
+
+
+@pytest.mark.parametrize("shape", B1_F32_EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_conv5x5_f32_tile_edges_and_determinism(cuda, shape):
+    """B1's 3xTF32 kernel against its plain version at f32's tolerance, one
+    launch a call, two calls bit-equal, and the rows of a window of the map
+    at least 2 rows from its cut bit-equal to the whole map's (the K order
+    does not follow the tile or the map)."""
+    n, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(cin * 1000 + cout)
+    x = (torch.rand((n, h, w, cin), generator=g) * 2 - 1).to(cuda)
+    wt = ((torch.rand((5, 5, cin, cout), generator=g) * 2 - 1) / (5 * cin ** 0.5)).to(cuda)
+    b = (torch.rand(cout, generator=g) - 0.5).to(cuda)
+    before = conv5x5_same.launches
+    got = conv5x5_same(x, wt, b, relu=True)
+    again = conv5x5_same(x, wt, b, relu=True)
+    want = conv5x5_same_plain(x, wt, b, relu=True)
+    torch.cuda.synchronize()
+    assert conv5x5_same.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (n, h, w, cout)
+    assert float((got - want).abs().max()) <= _tol(want, torch.float32)
+    assert torch.equal(got, again)
+    assert torch.equal(conv5x5_same(x, wt, b, relu=True, w_packed=pack_weights_f32(wt)), got)
+    if h >= 12:
+        cut = h // 2 + 2
+        part = conv5x5_same(x[:, :cut].contiguous(), wt, b, relu=True)
+        assert torch.equal(part[:, : h // 2], got[:, : h // 2])
+
+
+@pytest.mark.parametrize("shape", [(36, 32, 32, 128, 256), (36, 16, 16, 256, 128), (288, 8, 8, 128, 256),
+                                   (288, 4, 4, 256, 256), (4, 24, 40, 20, 96)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv5x5_f32_routes_give_the_same_bits(cuda, shape):
+    """B1's two f32 routes, wgmma on 8-warp tiles (taken with packed
+    weights: 16x16, or 4 and 16 whole images at 288 samples of 8x8 and 4x4)
+    and mma.sync on 4-warp tiles of 8 to 64 channels (without), sum each
+    output in one order with the same tf32 products: both routes, and the
+    plans of slices of the batch, give the same bits."""
+    n, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(cout)
+    x = (torch.rand((n, h, w, cin), generator=g) * 2 - 1).to(cuda)
+    wt = ((torch.rand((5, 5, cin, cout), generator=g) * 2 - 1) / (5 * cin ** 0.5)).to(cuda)
+    b = (torch.rand(cout, generator=g) - 0.5).to(cuda)
+    wp = pack_weights_f32(wt)
+    got = conv5x5_same(x, wt, b, w_packed=wp)
+    want = conv5x5_same_plain(x, wt, b)
+    assert float((got - want).abs().max()) <= _tol(want, torch.float32)
+    plans = set()
+    for k in (n, n // 2 + 1, 1):
+        for packed in (wp, None):
+            assert torch.equal(conv5x5_same(x[:k], wt, b, w_packed=packed), got[:k]), (k, packed is None)
+            plans.add(f32_plan(k, h, w, cout, packed is not None))
+    assert len(plans) >= 2
+    if n == 288:
+        assert any(p[0] == 8 and p[2] > 1 for p in plans), plans
+
+
+# B2 f32 (3xTF32): the main-path form with odd crops, Cin 16 and 40, the 3x3
+# form at s 3 (27 conv channels), basic_origin's upconv (groups of 32), a
+# 7x7 kernel staged in pieces and s 8 (groups of 64)
+B2_F32_EDGES = {
+    "crop": (2, 13, 21, 48, 2, 4, 48, ((1, 2), (1, 2)), (51, 83), False),
+    "cin16": (2, 11, 19, 16, 2, 4, 48, ((1, 2), (1, 2)), (45, 77), False),
+    "cin40": (1, 11, 19, 40, 2, 4, 48, ((1, 2), (1, 2)), (43, 75), False),
+    "3x3s3": (2, 11, 19, 16, 3, 3, 27, ((1, 1), (1, 1)), None, False),
+    "upconv": (2, 13, 21, 64, 3, 2, 256, ((1, 1), (1, 1)), None, True),
+    "7x7": (1, 10, 19, 64, 7, 2, 64, ((3, 3), (3, 3)), None, False),
+    "s8": (2, 9, 11, 8, 3, 8, 128, ((1, 1), (1, 1)), None, True),
+}
+
+
+@pytest.mark.parametrize("case", list(B2_F32_EDGES))
+def test_fused_tail_f32_tile_edges_and_determinism(cuda, case):
+    """B2's 3xTF32 kernel against its plain version at f32's tolerance, one
+    launch a call, and two calls bit-equal."""
+    n, h, w, cin, k, s, cc, pad, crop, lrelu = B2_F32_EDGES[case]
+    g = torch.Generator().manual_seed(cin * 100 + cc)
+    x = (torch.rand((n, h, w, cin), generator=g) * 2 - 1).to(cuda)
+    kern = ((torch.rand((k, k, cin, cc), generator=g) * 2 - 1) / (k * cin ** 0.5)).to(cuda)
+    b = (torch.rand(cc, generator=g) - 0.5).to(cuda)
+    before = fused_conv_pixel_shuffle.launches
+    got = fused_conv_pixel_shuffle(x, kern, b, s, pad, crop, lrelu)
+    again = fused_conv_pixel_shuffle(x, kern, b, s, pad, crop, lrelu)
+    want = fused_conv_pixel_shuffle_plain(x, kern, b, s, pad, crop, lrelu)
+    torch.cuda.synchronize()
+    assert fused_conv_pixel_shuffle.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= _tol(want, torch.float32)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize(

@@ -18,7 +18,14 @@ from mobilesuperresolution_tpu.kernels.conv5x5 import conv5x5_same as j_conv5x5
 from mobilesuperresolution_tpu.kernels.fused_tail import fused_conv_pixel_shuffle as j_tail
 from mobilesuperresolution_tpu.ops.layers import SubpixelConvTranspose as JSubpixel
 from mobilesuperresolution_tpu_torch.kernels import _build
-from mobilesuperresolution_tpu_torch.kernels.conv5x5 import conv5x5_same, conv5x5_same_plain, pack_weights
+from mobilesuperresolution_tpu_torch.kernels.conv5x5 import (
+    conv5x5_same,
+    conv5x5_same_plain,
+    f32_packed_shape,
+    pack_weights,
+    pack_weights_f32,
+    tf32_split,
+)
 from mobilesuperresolution_tpu_torch.kernels.fused_tail import (
     fused_conv_pixel_shuffle,
     fused_conv_pixel_shuffle_plain,
@@ -171,6 +178,30 @@ def test_pack_weights_is_an_exact_permutation(cin, cout):
     assert torch.equal(unswizzled.permute(0, 1, 3, 2, 4, 5).reshape(5, 5, cin, cout), w)
     # tap (1, 2), input channel 8 + 3, output channels 64 + 8 * (5 ^ 3) .. + 7 in chunk 5 of row 3
     assert torch.equal(p[7, 1, 1, 3, 40:48], w[1, 2, 11, 64 + 8 * (5 ^ 3):64 + 8 * (5 ^ 3) + 8])
+
+
+@pytest.mark.parametrize("cin,cout", [(20, 96), (32, 128), (8, 64), (13, 5), (3, 130), (64, 8), (128, 256)])
+def test_pack_weights_f32_is_an_exact_split_and_permutation(cin, cout):
+    """The f32 wgmma route's weights: hi the nearest tf32 of w (its low 13
+    mantissa bits zero, ties away from zero), hi + lo == w bit for bit, and
+    the packing, its 32-byte swizzle undone, every HWIO hi and lo value at
+    its (tile, chunk, tap, row, k) with zeros past Cin and Cout."""
+    g = torch.Generator().manual_seed(cin)
+    w = torch.randn((5, 5, cin, cout), generator=g) * torch.logspace(-3, 3, cout)
+    hi, lo = tf32_split(w)
+    assert torch.equal(hi + lo, w)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert float(((w - hi).abs() / w.abs().clamp_min(1e-30)).max()) <= 2.0 ** -11
+    assert torch.equal(tf32_split(torch.tensor([1 + 2.0 ** -11]))[0], torch.tensor([1 + 2.0 ** -10]))  # a tie, away
+    p = pack_weights_f32(w)
+    assert p.shape == f32_packed_shape(cin, cout) and p.is_contiguous()
+    r, pos = torch.arange(64), torch.arange(2)
+    un = torch.empty_like(p)
+    un[:, :, :, :, r[:, None], pos[None, :] ^ ((r[:, None] >> 2) & 1)] = p
+    tiles, chunks = p.shape[:2]
+    back = un.permute(3, 2, 1, 5, 6, 0, 4).reshape(2, 5, 5, chunks * 8, tiles * 64)  # hl, ky, kx, c, n
+    assert torch.equal(back[0, :, :, :cin, :cout], hi) and torch.equal(back[1, :, :, :cin, :cout], lo)
+    assert not back[:, :, :, cin:].any() and not back[:, :, :, :, cout:].any()
 
 
 def _unfragment(words, kdim, ndim, dtype):
